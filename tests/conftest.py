@@ -26,6 +26,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "multi_device: needs >1 CPU devices (run under REPRO_MULTI_DEVICE=1)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (tests/test_torch_cuda.py)")
 
 
 def pytest_collection_modifyitems(config, items):
