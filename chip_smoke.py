@@ -13,7 +13,7 @@ Phases (any failure exits non-zero before the last line):
    main path gives it, with the tolerance stated, and timed with CUDA events
    beside its bound, its plain version and, where one exists, one PyTorch
    call that computes the same function.
-4. serve   — the main path: ``HIEngine.serve`` on the full-width qwen2-1.5b
+4. serve   — the drain path: ``HIEngine.serve`` on the full-width qwen2-1.5b
    cascade (L = qwen2-1.5b, S = its ``s_variant(4)``), random float32 params
    from a seeded ``torch.Generator``, bf16 KV cache; 16 requests through
    ``Batcher(8, buckets=(128, 512))``, then the last batch again with theta
@@ -21,10 +21,21 @@ Phases (any failure exits non-zero before the last line):
    Asserts one host fetch per serve and the kernels' launch counts, checks
    the outputs, and holds the port on the card against the port on the CPU
    on a small input, teacher-forced.
-5. trace   — one more serve under ``torch.profiler``: the device's time by
-   kernel kind and its busy share of the serve's wall time (``--trace DIR``
-   keeps the gzipped Chrome trace in DIR).
-6. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+5. stream  — the continuous path: ``HIEngine.serve_stream`` on the same
+   full-width cascade over the paged KV pools (prefix sharing, chunked
+   prefill), one trace of 32 requests that mixes ``mixed_poisson``-,
+   ``repeated_prefix``- and ``long_prompt``-style prompts, served at theta
+   0.6 and again at the median S confidence.  Asserts one host fetch per
+   tick, every kernel's launches against what the host's lane flags
+   predict, copy-on-write copies, saved prefill tokens and chunk ticks, one
+   record per request, the pools' invariants every tick and no held slot
+   after drain; and holds the stream on the card against the CPU on a
+   small input.
+6. trace   — one more drain serve, and one ``serve_stream`` tick window,
+   under ``torch.profiler``: the device's time by kernel kind and its busy
+   share of the wall time (``--trace DIR`` keeps the gzipped Chrome traces
+   in DIR).
+7. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN throughout, so float32 stays float32.
@@ -55,6 +66,28 @@ N_REQUESTS, BATCH, BUCKETS = 16, 8, (128, 512)
 MAX_NEW, CACHE_LEN, THETA, CAPACITY = 16, 1024, 0.6, 0.5
 DECODE_POS = 520            # a mid-generation position of the 512 bucket
 
+# stream-phase settings (full-width serve_stream).  Two choices make the
+# prefix cache work on this trace:
+# * the 248 bucket is not a multiple of the 16-position page, so a full
+#   restore of a prompt in it copies its partial tail page (copy-on-write)
+#   before appending; were every bucket a multiple of the page, no restore
+#   would copy a page;
+# * chunk_size 256: a chunked admission registers nothing in the prefix
+#   index (its pages fill over several ticks), so with chunks of 64 no
+#   prompt of the 224-token system prefix would ever be cached.  With 256,
+#   the 248/256-bucket repeats take the admit lane and register, and the
+#   512-bucket prompts take the chunk lane in two passes.
+STREAM_KW = dict(buckets=(64, 128, 248, 256, 512), num_slots=8, l_slots=4,
+                 page_size=16, decode_block=4, chunk_prefill=True,
+                 chunk_size=256, chunk_width=2, validate=True)
+SYS_PREFIX = 224            # repeated_prefix's shared system prompt
+N_MIXED, N_REPEAT, N_LONG = 12, 12, 8
+# the paged pools of that scheduler: 34 pages of 16 per slot (512 + 16 + 3
+# positions), plus 2 * slots retained prompts of 32 pages
+NPG = 34
+L_PAGES = 4 * NPG + 1 + 8 * 32
+S_PAGES = 8 * NPG + 1 + 16 * 32
+
 # tolerances of kernel vs plain version (both float32 arithmetic; only the
 # order of the sums differs)
 CONF_ATOL, CONF_RTOL = 1e-5, 1e-4        # over 151,936 exp terms
@@ -82,6 +115,35 @@ def timed(fn, args_list, iters, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, args_list, pattern, iters=50):
+    """Mean device time per launch, in ms, of the kernels whose name matches
+    ``pattern``, over ``iters`` calls under ``torch.profiler`` (CUPTI's
+    kernel durations from the Chrome trace: what the card spent, without
+    the host's submission time that back-to-back CUDA-event timing also
+    sees when the host is the slower side)."""
+    import re
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(3):
+        fn(*args_list[i % len(args_list)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "t.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    durs = [float(e["dur"]) for e in events
+            if e.get("cat") == "kernel" and re.search(pattern, e["name"])]
+    if not durs:       # CUPTI may drop a record; average what it kept
+        raise AssertionError(f"profiler saw no launch of {pattern!r}")
+    return sum(durs) / len(durs) / 1e3
 
 
 def copies(make, nbytes):
@@ -137,16 +199,20 @@ def check_hi_gate(gen):
                   nbytes)
     theta = torch.tensor(THETA, device="cuda")
     ms = timed(lambda x: hg.hi_gate_cuda(x, theta, "max_prob"), sets, 200)
+    dev_ms = device_ms(lambda x: hg.hi_gate_cuda(x, theta, "max_prob"), sets,
+                       r"hi_gate")
     plain_ms = timed(lambda x: hg.hi_gate_plain(x, theta, "max_prob"), sets, 50)
     bound_ms, by = bound(nbytes + n * 12 + 4, 6 * n * c)
-    log(f"  hi_gate (8, {c}) f32: {ms * 1e3:.1f} us  plain {plain_ms * 1e3:.1f}"
+    log(f"  hi_gate (8, {c}) f32: {ms * 1e3:.1f} us (device {dev_ms * 1e3:.1f}"
+        f" us)  plain {plain_ms * 1e3:.1f}"
         f" us  bound {bound_ms * 1e3:.2f} us ({by})  library: no single call")
     return {"name": "hi_gate", "route": "cuda",
             "source": "src/repro_torch/csrc/hi_gate.cu",
             "replaces": "src/repro/kernels/hi_gate.py:69",
             "shape": f"logits ({n}, {c}) float32, max_prob",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+            "max_abs_err": worst, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None}
 
 
 def _attn_case(gen, b, h, k, d, s, valid, dtype):
@@ -187,6 +253,8 @@ def check_decode_attention(gen):
         sets = copies(lambda: _attn_case(gen, b, h, k, d, s, valid, dtype),
                       2 * b * s * k * d * isz)
         ms = timed(da.decode_attention_cuda, sets, 200)
+        dev_ms = device_ms(da.decode_attention_cuda, sets,
+                           r"decode_attention_kernel")
         plain_ms = timed(da.decode_attention_plain, sets, 50)
         # the library yardstick: one SDPA call on bf16 (B, H, 1, D) queries
         # over (B, K, S, D) K/V with the same mask; layouts made beforehand
@@ -198,7 +266,8 @@ def check_decode_attention(gen):
         bound_ms, by = bound(nbytes, 4 * b * h * n_valid * d)
         log(f"  decode_attention {label}: B={b} H={h} K={k} D={d} S={s} "
             f"valid={n_valid} {str(dtype)[6:]}  max_abs_err {err:.2e} (tol "
-            f"{ATT_ATOL:g})  {ms * 1e3:.1f} us  plain {plain_ms * 1e3:.1f} us"
+            f"{ATT_ATOL:g})  {ms * 1e3:.1f} us (device {dev_ms * 1e3:.1f} us)"
+            f"  plain {plain_ms * 1e3:.1f} us"
             f"  sdpa {lib_ms * 1e3:.1f} us  bound {bound_ms * 1e3:.2f} us "
             f"({by})")
         if main is None:
@@ -207,9 +276,199 @@ def check_decode_attention(gen):
                     "replaces": "src/repro/kernels/decode_attention.py:123",
                     "shape": (f"{label}: q ({b},1,{h},{d}) f32, K/V "
                               f"({b},{s},{k},{d}) bf16, {n_valid} valid"),
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": by, "library_ms": lib_ms}
+                    "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by,
+                    "library_ms": lib_ms}
     main["max_abs_err"] = worst
+    return main
+
+
+def _paged_case(gen, b, h, k, pages, pos, c):
+    """A main-path paged input: a (pages, 16, K, 128) bf16 pool, each slot's
+    34-page block row drawn without repeats from shuffled pages, queries at
+    positions pos[b] .. pos[b] + c - 1."""
+    import torch
+    d, page = 128, 16
+    pool_k = torch.randn((pages, page, k, d), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    pool_v = torch.randn((pages, page, k, d), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    perm = torch.randperm(pages - 1, generator=gen, device="cuda") + 1
+    block = perm[: b * NPG].to(torch.int32).reshape(b, NPG)
+    q = torch.randn((b, c, h, d), generator=gen, device="cuda")
+    qpos = torch.as_tensor(pos, device="cuda")[:, None] + \
+        torch.arange(c, device="cuda")[None, :]
+    kpos = torch.arange(NPG * page, device="cuda")
+    valid = kpos[None, None, :] <= qpos[:, :, None]
+    return q, pool_k, pool_v, block, valid
+
+
+def _paged_library(q, pool_k, pool_v, block, valid):
+    """Yardstick inputs: K/V gathered through the block table beforehand
+    into (B, K, S, D), so one SDPA call computes the same function."""
+    import torch
+    b, c, h, d = q.shape
+    kk = pool_k[block.long()].reshape(b, -1, pool_k.shape[2], d)
+    vv = pool_v[block.long()].reshape(b, -1, pool_k.shape[2], d)
+    return (q.transpose(1, 2).to(torch.bfloat16),
+            kk.transpose(1, 2).contiguous(), vv.transpose(1, 2).contiguous(),
+            valid[:, None])
+
+
+def _sdpa(q, kk, vv, m):
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, kk, vv, attn_mask=m,
+                                          enable_gqa=True)
+
+
+def _gather_sdpa(q, pool_k, pool_v, block, valid):
+    return _sdpa(*_paged_library(q, pool_k, pool_v, block, valid))
+
+
+def check_paged(gen, name, c, cases):
+    """Kernels 3 and 4 (one source): each case is (label, B, H, K, pages,
+    first query positions).  The main path's L-tier case is timed first."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    kernel = (da.decode_attention_paged_cuda if c == 1
+              else da.decode_attention_chunk_paged_cuda)
+    plain = (da.decode_attention_paged_plain if c == 1
+             else da.decode_attention_chunk_paged_plain)
+
+    def mask(valid):
+        return valid[:, 0] if c == 1 else valid
+
+    worst, main = 0.0, None
+    for label, b, h, k, pages, pos in cases:
+        q, pk, pv, block, valid = _paged_case(gen, b, h, k, pages, pos, c)
+        out_k = kernel(q, pk, pv, block, mask(valid))
+        out_p = plain(q, pk, pv, block, mask(valid))
+        torch.cuda.synchronize()
+        err = (out_k - out_p).abs().max().item()
+        if not err <= ATT_ATOL or not bool(torch.isfinite(out_k).all()):
+            raise AssertionError(f"{name} {label}: max err {err:.3e}")
+        worst = max(worst, err)
+        seen = valid.any(dim=1)                      # keys any query sees
+        n_seen, n_pairs = int(seen.sum()), int(valid.sum())
+        nbytes = (2 * b * c * h * 128 * 4 + 2 * n_seen * k * 128 * 2
+                  + valid.numel() + block.numel() * 4)
+        sets = copies(lambda: _paged_case(gen, b, h, k, pages, pos, c),
+                      2 * pk.numel() * 2)
+        msets = [(q_, a, v_, bl, mask(m)) for q_, a, v_, bl, m in sets]
+        ms = timed(kernel, msets, 200)
+        dev_ms = device_ms(kernel, msets, r"paged_attention_kernel")
+        plain_ms = timed(plain, msets, 20)
+        lib_sets = [_paged_library(*x) for x in sets]
+        lib_ms = timed(_sdpa, lib_sets, 200)
+        gather_ms = timed(_gather_sdpa, sets, 50)
+        bound_ms, by = bound(nbytes, 4 * h * 128 * n_pairs)
+        log(f"  {name} {label}: B={b} C={c} H={h} K={k} D=128 pool "
+            f"({pages},16,{k},128) bf16, {n_pairs} (query, key) pairs  "
+            f"max_abs_err {err:.2e} (tol {ATT_ATOL:g})  {ms * 1e3:.1f} us "
+            f"(device {dev_ms * 1e3:.1f} us)  "
+            f"plain {plain_ms * 1e3:.1f} us  sdpa on gathered K/V "
+            f"{lib_ms * 1e3:.1f} us  gather+sdpa {gather_ms * 1e3:.1f} us  "
+            f"bound {bound_ms * 1e3:.2f} us ({by})")
+        if main is None:
+            main = {"name": name, "route": "cuda",
+                    "source": "src/repro_torch/csrc/decode_attention_paged.cu",
+                    "replaces": ("src/repro/kernels/decode_attention.py:376"
+                                 if c == 1 else
+                                 "src/repro/kernels/decode_attention.py:307"),
+                    "shape": (f"{label}: q ({b},{c},{h},128) f32, pool "
+                              f"({pages},16,{k},128) bf16, {n_pairs} pairs"),
+                    "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by,
+                    "library_ms": lib_ms, "gather_sdpa_ms": gather_ms}
+    main["max_abs_err"] = worst
+    return main
+
+
+def check_decode_attention_paged(gen):
+    import numpy as np
+    rng = np.random.default_rng(3)
+    return check_paged(gen, "decode_attention_paged", 1, [
+        ("L tier qwen2-1.5b", 4, 12, 2, L_PAGES,
+         rng.integers(32, 528, 4).tolist()),
+        ("S tier qwen2-1.5b-s4", 8, 3, 1, S_PAGES,
+         rng.integers(32, 528, 8).tolist())])
+
+
+def check_decode_attention_chunk_paged(gen):
+    # chunk_width 2 rows of chunk_size 256: a 512-bucket prompt's first
+    # chunk and another's second (positions 256..511)
+    c = STREAM_KW["chunk_size"]
+    return check_paged(gen, "decode_attention_chunk_paged", c, [
+        ("L tier qwen2-1.5b", 2, 12, 2, L_PAGES, [0, 512 - c]),
+        ("S tier qwen2-1.5b-s4", 2, 3, 1, S_PAGES, [0, 512 - c])])
+
+
+def check_copy_pages(gen):
+    """Kernel 5 on a tier's K and V pools at the main path's shapes: the
+    pools are NaN except the source pages, so a stray write shows."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import copy_pages as cp
+    main = None
+    for label, layers, pages, k, pairs in (
+            ("L tier qwen2-1.5b", 28, L_PAGES, 2, 4),
+            ("S tier qwen2-1.5b-s4", 7, S_PAGES, 1, 8)):
+        shape = (layers, pages, 16, k, 128)
+
+        def make():
+            pools = [torch.full(shape, float("nan"), device="cuda")
+                     .to(torch.bfloat16) for _ in range(2)]
+            perm = torch.randperm(pages - 1, generator=gen,
+                                  device="cuda").cpu().numpy() + 1
+            src = perm[:pairs].astype(np.int32)
+            dst = perm[pairs:2 * pairs].astype(np.int32)
+            for t in pools:
+                t[:, src] = torch.randn((layers, pairs) + shape[2:],
+                                        generator=gen, device="cuda") \
+                    .to(torch.bfloat16)
+            return tuple(pools), src, dst
+
+        pools, src, dst = make()
+        want = tuple(t.clone() for t in pools)
+        cp.copy_pages_plain(want, src, dst)
+        cp.copy_pages_cuda(pools, src, dst)
+        torch.cuda.synchronize()
+        for got, ref in zip(pools, want):
+            if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+                raise AssertionError(f"copy_pages {label}: pools differ from "
+                                     "the plain version's")
+        page_bytes = 16 * k * 128 * 2
+        nbytes = 2 * 2 * layers * pairs * page_bytes     # read + write, K + V
+        sets = copies(make, 2 * pools[0].numel() * 2)
+        ms = timed(cp.copy_pages_cuda, sets, 200)
+        dev_ms = device_ms(cp.copy_pages_cuda, sets, r"copy_pages_kernel")
+        plain_ms = timed(cp.copy_pages_plain, sets, 50)
+        lib_sets = [(p, torch.as_tensor(d, device="cuda").long(),
+                     tuple(t[:, torch.as_tensor(s_, device="cuda").long()]
+                           for t in p)) for p, s_, d in sets]
+
+        def index_copy(p, d, srcs):
+            for t, x in zip(p, srcs):
+                t.index_copy_(1, d, x)
+
+        lib_ms = timed(index_copy, lib_sets, 200)
+        bound_ms, by = bound(nbytes, 0)
+        log(f"  copy_pages {label}: 2 pools ({layers},{pages},16,{k},128) "
+            f"bf16, {pairs} pairs  exact  {ms * 1e3:.1f} us (device "
+            f"{dev_ms * 1e3:.1f} us)  plain "
+            f"{plain_ms * 1e3:.1f} us  index_copy_ (one per pool, sources "
+            f"gathered beforehand) {lib_ms * 1e3:.1f} us  bound "
+            f"{bound_ms * 1e3:.2f} us ({by})")
+        if main is None:
+            main = {"name": "copy_pages", "route": "cuda",
+                    "source": "src/repro_torch/csrc/copy_pages.cu",
+                    "replaces": "src/repro/kernels/decode_attention.py:206",
+                    "shape": (f"{label}: K and V pools ({layers},{pages},16,"
+                              f"{k},128) bf16, {pairs} pairs"),
+                    "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+                    "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by,
+                    "library_ms": lib_ms}
     return main
 
 
@@ -297,6 +556,8 @@ def serve_full_width():
     log(f"  expected launches per serve: decode_attention = T*(L_S + L_L) = "
         f"{MAX_NEW}*({eng.s.cfg.num_layers}+{eng.l.cfg.num_layers}) = "
         f"{per_serve_decode}; hi_gate = 2*T = {per_serve_gate}")
+    # the paged kernels belong to the stream path: none launches here
+    drain_zero = dict.fromkeys(ops.KERNELS, 0)
     torch.cuda.reset_peak_memory_stats()
     served = gen_tokens = 0
     t_serve = 0.0
@@ -315,8 +576,8 @@ def serve_full_width():
                 raise AssertionError(f"serve made {len(fetches) - n_fetch} "
                                      "host fetches, expected 1")
             got = {k: after[k] - before[k] for k in after}
-            if got != {"hi_gate": per_serve_gate,
-                       "decode_attention": per_serve_decode}:
+            if got != dict(drain_zero, hi_gate=per_serve_gate,
+                           decode_attention=per_serve_decode):
                 raise AssertionError(f"launches per serve {got}")
             _check_outputs(out, batch, cfg, THETA)
             live = batch.request_ids >= 0
@@ -338,8 +599,8 @@ def serve_full_width():
         out = eng.serve(batch.tokens)
         after = ops.launch_counts()
         got = {k: after[k] - before[k] for k in after}
-        if got != {"hi_gate": per_serve_gate,
-                   "decode_attention": per_serve_decode} or \
+        if got != dict(drain_zero, hi_gate=per_serve_gate,
+                       decode_attention=per_serve_decode) or \
                 len(fetches) - n_fetch != 1:
             raise AssertionError(f"launches per serve {got}, host fetches "
                                  f"{len(fetches) - n_fetch}")
@@ -368,36 +629,297 @@ def serve_full_width():
     return launches, eng, batch.tokens
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the continuous path
+# ---------------------------------------------------------------------------
+
+def check_small_stream_reference():
+    """Reduced qwen2-1.5b ``serve_stream`` (prefix sharing with COW, the
+    chunk lane) on the card against the CPU (plain versions), same params:
+    equal statuses, and S tokens equal up to the CPU's first position whose
+    top1 - top2 logit margin is under ``2 * SMALL_LOGIT_TOL``
+    (teacher-forced on the CPU's contiguous path)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import model_zoo
+    from repro_torch.parity import decisive
+    from repro_torch.serving.batcher import Request, pad_to_bucket
+    from repro_torch.serving.engine import HIEngine, TierModel
+    cfg = ARCHS[ARCH].reduced()
+    g = torch.Generator().manual_seed(2)
+    cpu = [TierModel(c, model_zoo.init_params(g, c))
+           for c in (cfg.s_variant(4), cfg)]
+    gpu = [TierModel(t.cfg, _to(t.params, "cuda")) for t in cpu]
+    rng = np.random.default_rng(2)
+    # repeats of a 14-token prefix land in the 20 bucket (a partial tail
+    # page of 8: restores copy it) and take the admit lane (chunk_size 20);
+    # the 48-bucket prompts take the chunk lane
+    base = rng.integers(1, cfg.vocab_size, 14).astype(np.int32)
+    reqs = []
+    for i in range(10):
+        p = (np.concatenate([base, np.full(4 + i % 2, 7, np.int32)])
+             if i % 3 == 0 else
+             rng.integers(1, cfg.vocab_size, int(rng.integers(4, 48)))
+             .astype(np.int32))
+        reqs.append(Request(i, p, max_new_tokens=6))
+    kw = dict(buckets=(8, 20, 48), num_slots=4, l_slots=2, page_size=8,
+              decode_block=2, chunk_prefill=True, chunk_size=20,
+              validate=True)
+    outs = {}
+    for dev, tiers in (("cpu", cpu), ("cuda", gpu)):
+        eng = HIEngine(*tiers, HIConfig(theta=0.02, capacity_factor=1.0),
+                       max_new_tokens=6)
+        outs[dev] = eng.serve_stream(reqs, **kw)
+    n_cmp = n_tok = 0
+    for r in reqs:
+        c, k = outs["cpu"][r.request_id], outs["cuda"][r.request_id]
+        if c["status"] != k["status"]:
+            raise AssertionError(f"request {r.request_id}: status "
+                                 f"{k['status']} on the card, {c['status']} "
+                                 "on the CPU")
+        prompt = np.zeros(pad_to_bucket(len(r.prompt), kw["buckets"]),
+                          np.int64)
+        prompt[: len(r.prompt)] = r.prompt
+        cache = model_zoo.init_cache(cfg.s_variant(4), 1, 64, device="cpu")
+        lg, cache = model_zoo.prefill(cpu[0].params, cpu[0].cfg,
+                                      torch.from_numpy(prompt[None]), cache)
+        logs = [lg[0].numpy()]
+        for t in c["s_tokens"][:-1]:
+            lg, cache = model_zoo.decode_step(cpu[0].params, cpu[0].cfg,
+                                              torch.tensor([[int(t)]]), cache)
+            logs.append(lg[0].numpy())
+        dec = decisive(np.stack(logs), 2 * SMALL_LOGIT_TOL)
+        first = int(np.argmin(dec)) if not dec.all() else len(dec)
+        if not np.array_equal(k["s_tokens"][:first], c["s_tokens"][:first]):
+            raise AssertionError(f"request {r.request_id}: card S tokens "
+                                 f"{k['s_tokens']} != CPU {c['s_tokens']}")
+        n_cmp += first
+        n_tok += len(c["s_tokens"])
+    log(f"  small stream (reduced {ARCH}, card vs CPU, {len(reqs)} requests):"
+        f" statuses equal; {n_cmp}/{n_tok} S tokens compared (up to the "
+        f"first margin under {2 * SMALL_LOGIT_TOL:g}), all equal")
+    if n_cmp == 0:
+        raise AssertionError("no decisive token to compare")
+
+
+def _stream_trace(cfg, seed=0):
+    """32 requests in a seeded order: 12 ``mixed_poisson``-style (prompts of
+    32..512, 4..16 new tokens), 12 ``repeated_prefix``-style (a 224-token
+    system prompt + one of four tails of 8..24 tokens, so repeats restore
+    from the prefix cache and, in the 248 bucket, copy-on-write), and 8
+    ``long_prompt``-style (384..512, which the chunk lane ingests)."""
+    import numpy as np
+    from repro_torch.serving.batcher import Request
+    rng = np.random.default_rng(seed)
+    v = cfg.vocab_size
+    prompts = [(rng.integers(1, v, int(rng.integers(32, 513))),
+                int(rng.integers(4, 17))) for _ in range(N_MIXED)]
+    sys_prompt = rng.integers(1, v, SYS_PREFIX)
+    tails = [rng.integers(1, v, n) for n in (8, 12, 20, 24)]
+    prompts += [(np.concatenate([sys_prompt, tails[i % 4]]), MAX_NEW)
+                for i in range(N_REPEAT)]
+    prompts += [(rng.integers(1, v, int(rng.integers(384, 513))), MAX_NEW)
+                for _ in range(N_LONG)]
+    order = rng.permutation(len(prompts))
+    return [Request(i, prompts[j][0].astype(np.int32),
+                    max_new_tokens=prompts[j][1])
+            for i, j in enumerate(order)]
+
+
+def _expected_launches(sched, before, kb):
+    """Each kernel's launches over a run, from the ticks in which the host
+    ran each lane on each tier (``lane_ticks`` at the run's end less
+    ``before``)."""
+    exp = {"hi_gate": 0, "decode_attention": 0, "decode_attention_paged": 0,
+           "decode_attention_chunk_paged": 0, "copy_pages": 0}
+    for rt in (sched.srt, sched.lrt):
+        d = {k: rt.lane_ticks[k] - before[rt.name][k] for k in rt.lane_ticks}
+        n_layers = rt.pool.cfg.num_layers
+        exp["hi_gate"] += d["admit"] + d["chunk"] + kb * d["live"]
+        exp["decode_attention_paged"] += kb * n_layers * d["live"]
+        exp["decode_attention_chunk_paged"] += n_layers * d["chunk"]
+        exp["copy_pages"] += d["cow"]
+    return exp
+
+
+def serve_stream_full_width(eng):
+    """The continuous path at full width; returns the launches of its two
+    runs (counts set to 0 just before the first, read after the second)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.faults import STATUSES
+
+    reqs = _stream_trace(eng.l.cfg)
+    lens = sorted(len(r.prompt) for r in reqs)
+    log(f"  trace: {len(reqs)} requests, prompt lengths {lens[0]}..{lens[-1]}"
+        f" (median {lens[len(lens) // 2]}); settings {STREAM_KW}")
+    fetches = []
+    real_fetch = engine_mod._host_fetch
+
+    def counting_fetch(tree):
+        fetches.append(1)
+        return real_fetch(tree)
+
+    engine_mod._host_fetch = counting_fetch
+    torch.cuda.reset_peak_memory_stats()
+    kb = STREAM_KW["decode_block"]
+    total = {}
+    theta = THETA
+    cow0 = saved0 = chunk_ticks = 0
+    try:
+        ops.reset_launch_counts()
+        for run in range(2):
+            eng.hi = dataclasses.replace(eng.hi, theta=theta)
+            sched = eng._stream[1] if eng._stream else None
+            lanes0 = ({rt.name: dict(rt.lane_ticks)
+                       for rt in (sched.srt, sched.lrt)} if sched else None)
+            counts0, ticks0 = ops.launch_counts(), eng.stats["stream_ticks"]
+            n_fetch = len(fetches)
+            if sched:
+                cow0 = sched.prefix_stats["cow_copies"]
+            saved0 = eng.stats["prefill_tokens_saved"]
+            t0 = time.perf_counter()
+            out = eng.serve_stream(reqs, **STREAM_KW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            sched = eng._stream[1]
+            if lanes0 is None:
+                lanes0 = {rt.name: dict.fromkeys(rt.lane_ticks, 0)
+                          for rt in (sched.srt, sched.lrt)}
+            ticks = eng.stats["stream_ticks"] - ticks0
+            counts = {k: v - counts0[k] for k, v in ops.launch_counts().items()}
+            want = _expected_launches(sched, lanes0, kb)
+            if len(fetches) - n_fetch != ticks or ticks == 0:
+                raise AssertionError(f"{len(fetches) - n_fetch} host fetches "
+                                     f"in {ticks} ticks")
+            if counts != want:
+                raise AssertionError(f"launches {counts}, lane flags predict "
+                                     f"{want}")
+            if set(out) != {r.request_id for r in reqs}:
+                raise AssertionError("not one record per request")
+            if sched.srt.pool.held_slots or sched.lrt.pool.held_slots:
+                raise AssertionError("slots held after drain")
+            _check_stream_outputs(out, reqs, eng.l.cfg, theta, STATUSES)
+            cow = sched.prefix_stats["cow_copies"] - cow0
+            saved = eng.stats["prefill_tokens_saved"] - saved0
+            chunk_ticks += sum(want_l for want_l in (
+                sched.srt.lane_ticks["chunk"] - lanes0["S"]["chunk"],
+                sched.lrt.lane_ticks["chunk"] - lanes0["L"]["chunk"]))
+            n_req = len(out)
+            n_off = sum(r["offloaded"] for r in out.values())
+            n_drop = sum(r["dropped"] for r in out.values())
+            n_tok = sum(len(r["tokens"]) for r in out.values())
+            log(f"  serve_stream at theta {theta:.6f}: {wall * 1e3:.1f} ms, "
+                f"{ticks} ticks ({ticks / wall:.2f} ticks/s), {n_req / wall:.2f}"
+                f" req/s, {n_tok / wall:.1f} generated tok/s ({n_tok} tokens)"
+                f"; offload_frac {n_off / n_req:.3f} drop_frac "
+                f"{n_drop / n_req:.3f}; served remote "
+                f"{sum(r['served_remote'] for r in out.values())}; "
+                f"prefill_tokens_saved {saved}, cow_copies {cow}; one host "
+                f"fetch per tick; launches {counts} as the lane flags "
+                f"predict")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            if run == 1 and not 0 < n_off < n_req:
+                raise AssertionError(f"theta {theta:.6f}: {n_off} of {n_req} "
+                                     "offloaded; both branches must run")
+            # the second run: theta at the median S confidence of the first
+            theta = float(np.float32(np.median(
+                [r["confidence"] for r in out.values()])))
+            if run == 0:
+                first_cow, first_saved = cow, saved
+        cow_total = sched.prefix_stats["cow_copies"]
+        if not (cow_total > 0 and eng.stats["prefill_tokens_saved"] > 0
+                and chunk_ticks > 0):
+            raise AssertionError(f"cow_copies {cow_total}, prefill_tokens_"
+                                 f"saved {eng.stats['prefill_tokens_saved']},"
+                                 f" chunk ticks {chunk_ticks}: a lane never "
+                                 "ran")
+    finally:
+        engine_mod._host_fetch = real_fetch
+        eng.hi = dataclasses.replace(eng.hi, theta=THETA)
+    peak = torch.cuda.max_memory_allocated()
+    pools = sum(rt.pool.kv_bytes_total for rt in (sched.srt, sched.lrt))
+    log(f"  stream totals: cow_copies {cow_total} (first run {first_cow}), "
+        f"prefill_tokens_saved {eng.stats['prefill_tokens_saved']} (first "
+        f"run {first_saved}), chunk ticks {chunk_ticks}; KV pools "
+        f"{pools / 2 ** 30:.2f} GiB; peak max_memory_allocated "
+        f"{peak / 2 ** 30:.2f} GiB; stream_compiles "
+        f"{eng.stats['stream_compiles']}")
+    return total, reqs
+
+
+def _check_stream_outputs(out, reqs, cfg, theta, statuses):
+    import numpy as np
+    for r in reqs:
+        rec = out[r.request_id]
+        if rec["status"] not in statuses:
+            raise AssertionError(f"status {rec['status']!r}")
+        n = min(r.max_new_tokens, MAX_NEW)
+        if rec["status"] == "ok" and len(rec["tokens"]) != n:
+            raise AssertionError(f"request {r.request_id}: "
+                                 f"{len(rec['tokens'])} tokens, want {n}")
+        if not ((rec["tokens"] >= 0) & (rec["tokens"] < cfg.vocab_size)).all():
+            raise AssertionError("token ids out of range")
+        if not (np.isfinite(rec["confidence"])
+                and 0 <= rec["confidence"] <= 1):
+            raise AssertionError("confidence not finite in [0, 1]")
+        if rec["offloaded"] != (rec["confidence"] < theta):
+            raise AssertionError("offloaded != confidence < theta")
+        if rec["served_remote"] and not rec["offloaded"]:
+            raise AssertionError("served remote without offloading")
+        if not rec["served_remote"] and not np.array_equal(
+                rec["tokens"], rec["s_tokens"]):
+            raise AssertionError("a local answer lost its S tokens")
+
+
 KERNEL_KINDS = (  # (kind, regex over the kernel's name), first match wins
     ("decode_attention", r"decode_attention_kernel"),
+    ("paged_attention (decode + chunk)", r"paged_attention_kernel"),
+    ("copy_pages", r"copy_pages_kernel"),
     ("hi_gate", r"hi_gate"),
     ("matmul (cuBLAS)", r"gemm|gemv|xmma|cutlass|nvjet|cublas|splitK"),
     ("other PyTorch kernels", r"."),
 )
 
 
-def trace_serve(eng, tokens, keep: Path | None):
-    """One more serve of ``tokens`` under ``torch.profiler``: the device's
-    kernel time by kind, and its busy share of the serve's host wall time.
-    The gzipped Chrome trace is kept in ``keep`` if given."""
+def trace_phase(eng, tokens, stream_reqs, keep: Path | None):
+    """One more drain serve of ``tokens``, and one ``serve_stream`` call of
+    the first 8 stream requests (a tick window with every lane, on the warm
+    scheduler), each under ``torch.profiler``: the device's kernel time by
+    kind, and its busy share of the host wall time.  The gzipped Chrome
+    traces are kept in ``keep`` if given."""
     import tempfile
+    from repro_torch.serving.batcher import Request
+    window = [Request(1000 + r.request_id, r.prompt,
+                      max_new_tokens=r.max_new_tokens)
+              for r in stream_reqs[:8]]
     with tempfile.TemporaryDirectory() as tmp:
         out_dir = keep or Path(tmp)
         out_dir.mkdir(parents=True, exist_ok=True)
-        _trace_serve(eng, tokens, out_dir / "serve_trace.json.gz")
+        _trace(lambda: eng.serve(tokens), "drain serve",
+               out_dir / "serve_trace.json.gz")
+        ticks0 = eng.stats["stream_ticks"]
+        _trace(lambda: eng.serve_stream(window, **STREAM_KW),
+               "serve_stream window", out_dir / "stream_trace.json.gz",
+               lambda: eng.stats["stream_ticks"] - ticks0)
 
 
-def _trace_serve(eng, tokens, path: Path):
+def _trace(fn, label, path: Path, ticks=None):
     import gzip
     import re
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
-    eng.serve(tokens)
+    fn()
     plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.serve(tokens)
+        fn()
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(str(path))
     with gzip.open(path, "rt") as f:
@@ -420,13 +942,14 @@ def _trace_serve(eng, tokens, path: Path):
             n, t = table.get(key, (0, 0.0))
             table[key] = (n + 1, t + float(e["dur"]))
     total = sum(t for _, t in by_kind.values())
-    log(f"  traced serve: {wall * 1e3:.1f} ms host wall under the profiler, "
-        f"{plain_wall * 1e3:.1f} ms untraced just before; device busy "
-        f"{busy / 1e3:.1f} ms = {busy / 1e3 / (wall * 1e3):.1%} of the traced "
-        f"and {busy / 1e3 / (plain_wall * 1e3):.1%} of the untraced wall; "
-        f"{len(kern)} device activities")
+    extra = "" if ticks is None else f" ({ticks() // 2} ticks per call)"
+    log(f"  traced {label}{extra}: {wall * 1e3:.1f} ms host wall under the "
+        f"profiler, {plain_wall * 1e3:.1f} ms untraced just before; device "
+        f"busy {busy / 1e3:.1f} ms = {busy / 1e3 / (wall * 1e3):.1%} of the "
+        f"traced and {busy / 1e3 / (plain_wall * 1e3):.1%} of the untraced "
+        f"wall; {len(kern)} device activities")
     for kind, (n, t) in sorted(by_kind.items(), key=lambda kv: -kv[1][1]):
-        log(f"    {kind:24s} {n:6d} launches {t / 1e3:9.2f} ms "
+        log(f"    {kind:32s} {n:6d} launches {t / 1e3:9.2f} ms "
             f"{t / total:6.1%} of device time")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         log(f"    {t / 1e3:9.2f} ms {n:6d}x  {name[:110]}")
@@ -464,7 +987,7 @@ def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", type=Path, metavar="DIR",
-                    help="keep the traced serve's gzipped Chrome trace in "
+                    help="keep the traced serves' gzipped Chrome traces in "
                          "DIR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -490,17 +1013,28 @@ def main(argv=None) -> int:
 
     log("== kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [check_hi_gate(gen), check_decode_attention(gen)]
+    kernels = [check_hi_gate(gen), check_decode_attention(gen),
+               check_decode_attention_paged(gen),
+               check_decode_attention_chunk_paged(gen), check_copy_pages(gen)]
 
-    log("== serve (main path)")
+    log("== serve (the drain path)")
     check_small_reference()
     launches, eng, tokens = serve_full_width()
+    log("== serve_stream (the continuous path)")
+    check_small_stream_reference()
+    stream_launches, stream_reqs = serve_stream_full_width(eng)
+    log(f"  hi_gate launches on the stream path: {stream_launches['hi_gate']};"
+        f" decode_attention (the drain path's kernel): "
+        f"{stream_launches['decode_attention']}")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        path = launches if k["name"] in ("hi_gate", "decode_attention") \
+            else stream_launches
+        k["launches"] = path[k["name"]]
         if k["launches"] == 0:
-            raise AssertionError(f"{k['name']} never launched on the main path")
-    log("== trace (one more serve under torch.profiler)")
-    trace_serve(eng, tokens, args.trace)
+            raise AssertionError(f"{k['name']} never launched on its path")
+    log("== trace (one more serve, and a serve_stream window, under "
+        "torch.profiler)")
+    trace_phase(eng, tokens, stream_reqs, args.trace)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

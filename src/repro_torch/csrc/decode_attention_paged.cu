@@ -1,0 +1,277 @@
+// paged attention — flash-decode GQA over a paged KV pool, for Hopper
+// (sm_90a).  One query token per slot (decode) or C query tokens per slot
+// (chunked prefill) in one pass over the slot's pages.
+//
+// Replaces: src/repro/kernels/decode_attention.py,
+//   decode_attention_paged_pallas (body _paged_kernel, bf16 pools) and
+//   decode_attention_chunk_paged_pallas (body _chunk_paged_kernel), which
+//   share the online-softmax step _flash_update / _chunk_flash_update.
+// The pool is (P, page, K, D); an int32 block table (B, n_pages) maps each
+// slot's logical pages to physical ones; a (B, C, n_pages * page) byte mask
+// says which key positions each query may see (position, sliding window and,
+// for C > 1, the intra-chunk causal structure).  Like the TPU kernels it
+// keeps q in float32, upcasts K/V to float32, starts the running max at
+// -1e30, gives masked keys probability 0 and finishes with
+// acc / max(l, 1e-30), so a query that sees no key returns 0.
+//
+// What bounds it on the H100: HBM bytes.  Each slot's visible K/V rows are
+// read once per block that needs them, 2 * K * D * 2 bytes per position in
+// bf16, against 4 * G * C * D float32 operations per position and kv head:
+// at decode (C = 1, G <= 6) well under the ALU line; the chunk lane's
+// C * G = 384 query rows per kv head make it about 100 operations per byte.
+//
+// What the design does about that:
+//   * one block per (kv head, slot, tile of 8 query rows); a query row is a
+//     (chunk token, group head) pair, so the decode's G heads share every
+//     K/V byte a block reads, and the chunk lane's 384 rows spread over 48
+//     blocks per (slot, kv head) instead of one block holding them all;
+//   * the block table is read from global memory by the block itself (the
+//     TPU scalar-prefetches it), once per key row of a tile;
+//   * key tiles of up to 64 positions are staged in shared memory with
+//     16-byte loads; the mask is staged per tile, and tiles, and rows inside
+//     a tile, that no query row of the block may see are never loaded:
+//     page 0, unallocated pages and stale page tails may hold anything;
+//   * each warp owns key rows of the tile and keeps an online-softmax state
+//     for all 8 query rows in registers (lanes split D); the 8 dot products
+//     of a key row reduce in interleaved shuffles; a key a query row may not
+//     see is skipped for that row (a select, never a multiply by 0); the
+//     warps' states merge once, in a fixed order, at the end.
+// A simple kernel first: wgmma/TMA and splitting the keys across blocks are
+// left for a later change.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 8;          // query rows per block
+constexpr float kNeg = -1e30f;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_kernel(const float* __restrict__ q,
+                       const T* __restrict__ pool_k,
+                       const T* __restrict__ pool_v,
+                       const int* __restrict__ block,
+                       const uint8_t* __restrict__ valid,
+                       float* __restrict__ out, int c_len, int kv_heads,
+                       int group, int page, int n_pages, float scale) {
+  constexpr int kEpl = D / 32;                   // elements per lane
+  constexpr int kTileCap = 16384 / (D * (int)sizeof(T));
+  constexpr int kTile = kTileCap < 64 ? kTileCap : 64;
+  constexpr int kVec = 16 / (int)sizeof(T);      // elements per 16-byte load
+  constexpr int kVecPerRow = D / kVec;
+  static_assert(D % 32 == 0 && D % kVec == 0, "unsupported head dim");
+
+  __shared__ __align__(16) unsigned char k_raw[kTile * D * sizeof(T)];
+  __shared__ __align__(16) unsigned char v_raw[kTile * D * sizeof(T)];
+  T* k_tile = reinterpret_cast<T*>(k_raw);
+  T* v_tile = reinterpret_cast<T*>(v_raw);
+  __shared__ uint8_t m_tile[kRows][kTile];   // query row may see key row
+  __shared__ uint8_t live[kTile];            // some query row sees it
+  __shared__ int64_t row_off[kTile];         // the key row's element offset
+  __shared__ float acc_sum[kRows * D];
+  __shared__ float m_part[kWarps][kRows];
+  __shared__ float l_part[kWarps][kRows];
+
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int r0 = blockIdx.z * kRows;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int e0 = lane * kEpl;
+  const int n_q = c_len * group;             // query rows of (slot, kv head)
+  const int heads = kv_heads * group;
+  const int s_tot = n_pages * page;
+
+  // query row r -> (chunk token c = r / group, head kh * group + r % group)
+  float qr[kRows][kEpl];
+  float acc[kRows][kEpl];
+  float m[kRows], l[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = r0 + i;
+    m[i] = kNeg;
+    l[i] = 0.f;
+    const float* qp = q;
+    if (r < n_q)
+      qp += ((static_cast<int64_t>(b) * c_len + r / group) * heads +
+             kh * group + r % group) * D;
+#pragma unroll
+    for (int e = 0; e < kEpl; ++e) {
+      qr[i][e] = r < n_q ? qp[e0 + e] : 0.f;
+      acc[i][e] = 0.f;
+    }
+  }
+
+  const int* blk = block + static_cast<int64_t>(b) * n_pages;
+  const uint8_t* vb = valid + static_cast<int64_t>(b) * c_len * s_tot;
+  const int64_t row_stride = static_cast<int64_t>(kv_heads) * D;
+
+  for (int s0 = 0; s0 < s_tot; s0 += kTile) {
+    for (int i = tid; i < kRows * kTile; i += kThreads) {
+      const int qi = i / kTile, r = i % kTile;
+      const int rq = r0 + qi, s = s0 + r;
+      m_tile[qi][r] = (rq < n_q && s < s_tot)
+                          ? vb[static_cast<int64_t>(rq / group) * s_tot + s]
+                          : 0;
+    }
+    __syncthreads();
+    int any = 0;
+    if (tid < kTile) {
+      uint8_t f = 0;
+#pragma unroll
+      for (int qi = 0; qi < kRows; ++qi) f |= m_tile[qi][tid];
+      live[tid] = f;
+      any = f;
+      if (f) {
+        const int s = s0 + tid;
+        const int64_t phys = blk[s / page];
+        row_off[tid] = (phys * page + s % page) * row_stride +
+                       static_cast<int64_t>(kh) * D;
+      }
+    }
+    if (!__syncthreads_or(any)) continue;   // no query row sees this tile
+
+    for (int i = tid; i < kTile * kVecPerRow; i += kThreads) {
+      const int r = i / kVecPerRow, c = i % kVecPerRow;
+      if (!live[r]) continue;
+      const int64_t off = row_off[r] + c * kVec;
+      reinterpret_cast<int4*>(k_tile)[i] =
+          *reinterpret_cast<const int4*>(pool_k + off);
+      reinterpret_cast<int4*>(v_tile)[i] =
+          *reinterpret_cast<const int4*>(pool_v + off);
+    }
+    __syncthreads();
+
+    for (int r = warp; r < kTile; r += kWarps) {
+      if (!live[r]) continue;
+      float kf[kEpl], vf[kEpl];
+#pragma unroll
+      for (int e = 0; e < kEpl; ++e) {
+        kf[e] = to_float(k_tile[r * D + e0 + e]);
+        vf[e] = to_float(v_tile[r * D + e0 + e]);
+      }
+      float dot[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        dot[i] = 0.f;
+#pragma unroll
+        for (int e = 0; e < kEpl; ++e) dot[i] = fmaf(qr[i][e], kf[e], dot[i]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+          dot[i] += __shfl_xor_sync(0xffffffffu, dot[i], off);
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        if (!m_tile[i][r]) continue;         // warp-uniform: skip, never * 0
+        const float score = dot[i] * scale;
+        const float m_new = fmaxf(m[i], score);
+        const float corr = expf(m[i] - m_new);
+        const float p = expf(score - m_new);
+        m[i] = m_new;
+        l[i] = l[i] * corr + p;
+#pragma unroll
+        for (int e = 0; e < kEpl; ++e) acc[i][e] = acc[i][e] * corr + p * vf[e];
+      }
+    }
+    __syncthreads();  // the tiles are overwritten next iteration
+  }
+
+  // Merge the warps' online-softmax states, in a fixed order.
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      m_part[warp][i] = m[i];
+      l_part[warp][i] = l[i];
+    }
+  }
+  for (int i = tid; i < kRows * D; i += kThreads) acc_sum[i] = 0.f;
+  __syncthreads();
+  float m_all[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m_all[i] = kNeg;
+    for (int w = 0; w < kWarps; ++w) m_all[i] = fmaxf(m_all[i], m_part[w][i]);
+  }
+  for (int w = 0; w < kWarps; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float f = expf(m[i] - m_all[i]);
+#pragma unroll
+        for (int e = 0; e < kEpl; ++e) acc_sum[i * D + e0 + e] += acc[i][e] * f;
+      }
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < kRows * D; i += kThreads) {
+    const int qi = i / D, e = i % D;
+    const int r = r0 + qi;
+    if (r >= n_q) continue;
+    float lt = 0.f, mx = kNeg;
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_part[w][qi]);
+    for (int w = 0; w < kWarps; ++w)
+      lt += l_part[w][qi] * expf(m_part[w][qi] - mx);
+    out[((static_cast<int64_t>(b) * c_len + r / group) * heads + kh * group +
+         r % group) * D + e] = acc_sum[i] / fmaxf(lt, 1e-30f);
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* block,
+           const void* valid, void* out, int b, int c, int kv, int group,
+           int page, int n_pages, float scale, cudaStream_t st) {
+  const int tiles = (c * group + kRows - 1) / kRows;
+  paged_attention_kernel<T, D><<<dim3(kv, b, tiles), kThreads, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(block),
+      static_cast<const uint8_t*>(valid), static_cast<float*>(out), c, kv,
+      group, page, n_pages, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_d(int d, const void* q, const void* k, const void* v,
+               const void* block, const void* valid, void* out, int b, int c,
+               int kv, int group, int page, int n_pages, float scale,
+               cudaStream_t st) {
+  switch (d) {
+    case 32: return launch<T, 32>(q, k, v, block, valid, out, b, c, kv, group, page, n_pages, scale, st);
+    case 64: return launch<T, 64>(q, k, v, block, valid, out, b, c, kv, group, page, n_pages, scale, st);
+    case 128: return launch<T, 128>(q, k, v, block, valid, out, b, c, kv, group, page, n_pages, scale, st);
+    case 256: return launch<T, 256>(q, k, v, block, valid, out, b, c, kv, group, page, n_pages, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// q: (B, C, H, D) float32; pool_k/v: (P, page, K, D) of `dtype` (0 =
+// float32, 1 = bfloat16); block: (B, n_pages) int32; valid: (B, C,
+// n_pages * page) bytes; out: (B, C, H, D) float32.  All contiguous;
+// H = K * group; D in {32, 64, 128, 256}.  The decode kernel is C = 1.
+// Returns cudaGetLastError() after the launch.
+extern "C" int paged_attention_launch(const void* q, const void* pool_k,
+                                      const void* pool_v, const void* block,
+                                      const void* valid, void* out, int dtype,
+                                      int b, int c, int kv, int group, int d,
+                                      int page, int n_pages, float scale,
+                                      void* stream) {
+  if (b < 1 || c < 1 || kv < 1 || group < 1 || page < 1 || n_pages < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_d<float>(d, q, pool_k, pool_v, block, valid, out, b, c,
+                             kv, group, page, n_pages, scale, st);
+  return dispatch_d<__nv_bfloat16>(d, q, pool_k, pool_v, block, valid, out, b,
+                                   c, kv, group, page, n_pages, scale, st);
+}

@@ -28,7 +28,8 @@ from typing import Optional, Tuple
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-SOURCES = ("hi_gate.cu", "decode_attention.cu")
+SOURCES = ("hi_gate.cu", "decode_attention.cu", "decode_attention_paged.cu",
+           "copy_pages.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -36,12 +37,16 @@ LIB_NAME = "librepro_torch_kernels.so"
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
+_i64 = ctypes.c_longlong
 # argtypes per C entry point: c_void_p for every pointer and the stream, so
 # that no pointer is cut to 32 bits.
 SIGNATURES = {
     "hi_gate_launch": (_vp, _i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp),
     "decode_attention_launch": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
                                 _i, ctypes.c_float, _vp),
+    "paged_attention_launch": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
+                               _i, _i, _i, _i, ctypes.c_float, _vp),
+    "copy_pages_launch": (_vp, _vp, _i, _i, _i64, _i64, _vp, _vp, _i, _vp),
 }
 
 

@@ -1,0 +1,116 @@
+"""copy_pages — copy-on-write page duplication over (L, P, ...) page pools.
+
+Replaces the reference's ``kernels/decode_attention.py`` ``copy_pages_pallas``
+(bf16 and float32 page pools; the int8 pools' (L, P, K) scale rows go with
+ROADMAP Queue A item 6).  The TPU kernel streams every one of the P pages,
+identity pages included, only to keep its grid well-formed; here only the
+real (src, dst) pairs are copied, in place, across all L layers and both
+pools of a tier in one launch.
+
+* :func:`copy_pages_plain` — the plain PyTorch version with the reference's
+  ``cow_copy_pages`` semantics: every pool's pages ``dst`` become copies of
+  pages ``src``, all read before any is written.
+* :func:`copy_pages_cuda` — launches ``csrc/copy_pages.cu``;
+  ``copy_pages_cuda.launches`` counts its launches.
+
+The pairs are host int arrays (the scheduler builds them on the host), so the
+wrapper drops the (0, 0) pad pairs and checks on the host, before anything
+reaches the card, that the real pairs' destinations are distinct and
+disjoint from their sources: copies in place in any order then equal the
+reference's read-everything-first copy.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+
+MAX_PAIRS = 256          # pairs per launch: they travel in the kernel's
+#                          parameter block (csrc/copy_pages.cu kMaxPairs)
+MAX_POOLS = 2
+
+
+def real_pairs(src, dst) -> Tuple[np.ndarray, np.ndarray]:
+    """The non-pad pairs as int32 arrays, checked: a destination is never
+    the null page, appears once, and is no pair's source."""
+    src = np.asarray(src, np.int32).reshape(-1)
+    dst = np.asarray(dst, np.int32).reshape(-1)
+    if src.shape != dst.shape:
+        raise ValueError(f"copy_pages: src {src.shape} and dst {dst.shape} "
+                         "differ in length")
+    keep = ~((src == 0) & (dst == 0))
+    src, dst = src[keep], dst[keep]
+    if (dst == 0).any():
+        raise ValueError("copy_pages: a real pair writes the null page 0")
+    if len(set(dst.tolist())) != len(dst):
+        raise ValueError(f"copy_pages: destination pages repeat: {dst}")
+    if set(dst.tolist()) & set(src.tolist()):
+        raise ValueError("copy_pages: a destination page is also a source; "
+                         "an in-place copy would depend on its order")
+    return src, dst
+
+
+def _check_pools(pools: Sequence[torch.Tensor]) -> None:
+    if not 1 <= len(pools) <= MAX_POOLS:
+        raise ValueError(f"copy_pages: 1..{MAX_POOLS} pools, got {len(pools)}")
+    p0 = pools[0]
+    if p0.ndim < 2:
+        raise ValueError(f"copy_pages: pool {tuple(p0.shape)} must be "
+                         "(L, P, ...)")
+    for p in pools[1:]:
+        if p.shape != p0.shape or p.dtype != p0.dtype or p.device != p0.device:
+            raise ValueError("copy_pages: pools must share shape, dtype and "
+                             "device")
+
+
+def copy_pages_plain(pools: Sequence[torch.Tensor], src, dst) -> None:
+    """In place: ``pool[:, dst_i] = pool[:, src_i]`` for every pool."""
+    _check_pools(pools)
+    s, d = real_pairs(src, dst)
+    if not len(d):
+        return
+    si = torch.as_tensor(s, dtype=torch.long, device=pools[0].device)
+    di = torch.as_tensor(d, dtype=torch.long, device=pools[0].device)
+    for pool in pools:
+        pool[:, di] = pool[:, si]
+
+
+def copy_pages_cuda(pools: Sequence[torch.Tensor], src, dst) -> None:
+    """Launch the kernel (nothing is launched when every pair is padding).
+    Pools: contiguous, on one CUDA device, of one shape and dtype, each page
+    a whole number of 16-byte vectors starting on a 16-byte boundary."""
+    _check_pools(pools)
+    p0 = pools[0]
+    if p0.device.type != "cuda":
+        raise ValueError(f"copy_pages_cuda needs CUDA tensors, got "
+                         f"{p0.device}")
+    if not all(p.is_contiguous() for p in pools):
+        raise ValueError("copy_pages: pools must be contiguous")
+    s, d = real_pairs(src, dst)
+    n_pages = p0.shape[1]
+    if len(d) and (s.min() < 0 or max(s.max(), d.max()) >= n_pages):
+        raise ValueError(f"copy_pages: page ids outside 0..{n_pages - 1}")
+    page_bytes = p0[0, 0].numel() * p0.element_size()
+    if page_bytes % 16 or any(p.data_ptr() % 16 for p in pools):
+        raise ValueError("copy_pages: pages must be whole 16-byte vectors on "
+                         "16-byte boundaries")
+    lib = build.library()
+    stream = torch.cuda.current_stream(p0.device).cuda_stream
+    ptr_b = pools[1].data_ptr() if len(pools) > 1 else None
+    for at in range(0, len(d), MAX_PAIRS):
+        sc = np.ascontiguousarray(s[at:at + MAX_PAIRS])
+        dc = np.ascontiguousarray(d[at:at + MAX_PAIRS])
+        err = lib.copy_pages_launch(
+            p0.data_ptr(), ptr_b, len(pools), p0.shape[0],
+            p0[0].numel() * p0.element_size(), page_bytes,
+            sc.ctypes.data_as(ctypes.c_void_p),
+            dc.ctypes.data_as(ctypes.c_void_p), len(dc), stream)
+        build.check(err, "copy_pages")
+        copy_pages_cuda.launches += 1
+
+
+copy_pages_cuda.launches = 0

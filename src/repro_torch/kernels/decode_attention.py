@@ -1,9 +1,11 @@
 """decode_attention — flash-decode GQA of one query token over a contiguous
-KV cache, with a shared (S,) validity mask (position and sliding window).
+KV cache, with a shared (S,) validity mask (position and sliding window),
+and its paged variants for continuous serving.
 
 Replaces the reference's ``kernels/decode_attention.py``
-``decode_attention_pallas``.  The paged and chunked kernels of that module
-belong to the continuous-batching slice.
+``decode_attention_pallas`` and, for bf16 pools, ``decode_attention_paged_
+pallas`` and ``decode_attention_chunk_paged_pallas`` (see the second half of
+this module).  ``copy_pages_pallas`` is ported in ``copy_pages.py``.
 
 * :func:`decode_attention_plain` — the plain PyTorch version, following the
   Pallas kernel's arithmetic: q stays float32, K/V are upcast to float32
@@ -106,3 +108,152 @@ def decode_attention_cuda(q: torch.Tensor, cache_k: torch.Tensor,
 
 
 decode_attention_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# paged variants: walk each slot's pages through an int32 block table
+# ---------------------------------------------------------------------------
+#
+# Replace the reference's ``decode_attention_paged_pallas`` (body
+# ``_paged_kernel``) and ``decode_attention_chunk_paged_pallas`` (body
+# ``_chunk_paged_kernel``), bf16 pools.  Both launch ``csrc/
+# decode_attention_paged.cu``; the decode kernel is its chunk of one query
+# token.  A key position that no query of the slot may see (page 0, pages
+# not allocated, stale page tails) may hold anything, inf or NaN included:
+# both versions skip it, or select it out, and never multiply it by 0.
+# Keys are always seen by some query wherever a chunk's queries see them,
+# so only keys visible to no query of the slot may hold such garbage.
+
+PAGED_HEAD_DIMS = (32, 64, 128, 256)
+
+
+def _paged_plain(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                 block: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """q: (B, C, H, D); valid: (B, C, S_tot) -> (B, C, H, D) in q's dtype.
+    The gather through the block table is the bf16 branch of the
+    reference's ``layers.dequant_gather``."""
+    b, c, h, d = q.shape
+    kh = pool_k.shape[2]
+    g = _check_heads(h, kh)
+    idx = block.long()
+    kk = pool_k[idx].reshape(b, -1, kh, d).float()       # (B, S_tot, K, D)
+    vv = pool_v[idx].reshape(b, -1, kh, d).float()
+    seen = valid.any(dim=1)[:, :, None, None]             # (B, S_tot, 1, 1)
+    kk = torch.where(seen, kk, 0.0)
+    vv = torch.where(seen, vv, 0.0)
+    qg = q.reshape(b, c, kh, g, d).float()
+    scores = torch.einsum("bckgd,bskd->bkgcs", qg, kk) * (1.0 / math.sqrt(d))
+    vm = valid[:, None, None]                             # (B, 1, 1, C, S)
+    scores = torch.where(vm, scores, _NEG)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(vm, torch.exp(scores - m), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgcs,bskd->bckgd", p, vv)
+    out = acc / torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, c, h, d).to(q.dtype)
+
+
+def decode_attention_paged_plain(q: torch.Tensor, pool_k: torch.Tensor,
+                                 pool_v: torch.Tensor, block: torch.Tensor,
+                                 valid: torch.Tensor) -> torch.Tensor:
+    """q: (B, 1, H, D); pool_k/v: (P, page, K, D); block: (B, n_pages) int;
+    valid: (B, n_pages * page) bool.  Gathers each slot's pages through the
+    block table, then masked attention with float32 accumulation, following
+    the Pallas kernel (q kept in float32, K/V upcast, ``acc / max(l,
+    1e-30)``).  Returns (B, 1, H, D) in q's dtype."""
+    return _paged_plain(q, pool_k, pool_v, block, valid[:, None, :])
+
+
+def decode_attention_chunk_paged_plain(q: torch.Tensor, pool_k: torch.Tensor,
+                                       pool_v: torch.Tensor,
+                                       block: torch.Tensor,
+                                       valid: torch.Tensor) -> torch.Tensor:
+    """q: (B, C, H, D); valid: (B, C, n_pages * page) bool, the positional
+    and intra-chunk causal mask.  Otherwise as
+    :func:`decode_attention_paged_plain`."""
+    return _paged_plain(q, pool_k, pool_v, block, valid)
+
+
+def _paged_cuda(name: str, q: torch.Tensor, pool_k: torch.Tensor,
+                pool_v: torch.Tensor, block: torch.Tensor,
+                valid: torch.Tensor) -> torch.Tensor:
+    """Checks and launch shared by the two paged wrappers.  q (B, C, H, D);
+    valid (B, C, S_tot)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}_cuda needs CUDA tensors, got {dev}")
+    if any(t.device != dev for t in (pool_k, pool_v, block, valid)):
+        raise ValueError(f"{name}: all operands must share a device")
+    if pool_k.dtype not in _DTYPES or pool_v.dtype != pool_k.dtype:
+        raise TypeError(f"{name}: pool dtypes {pool_k.dtype}/{pool_v.dtype};"
+                        " need one of float32, bfloat16 (int8 pools are not "
+                        "ported)")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"{name}: valid must be bool, got {valid.dtype}")
+    if q.ndim != 4 or pool_k.ndim != 4 or block.ndim != 2 or valid.ndim != 3:
+        raise ValueError(f"{name}: need q (B,C,H,D), pools (P,page,K,D), "
+                         "block (B,n_pages) and a mask")
+    b, c, h, d = q.shape
+    _, page, kh, _ = pool_k.shape
+    npg = block.shape[1]
+    if (pool_k.shape[3] != d or pool_v.shape != pool_k.shape
+            or block.shape[0] != b or valid.shape != (b, c, npg * page)):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, pools "
+                         f"{tuple(pool_k.shape)}/{tuple(pool_v.shape)}, block "
+                         f"{tuple(block.shape)}, valid {tuple(valid.shape)} do "
+                         "not agree")
+    g = _check_heads(h, kh)
+    if d not in PAGED_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not supported by the kernel "
+                         f"(need one of {PAGED_HEAD_DIMS})")
+    if not all(t.is_contiguous() for t in (pool_k, pool_v, valid)):
+        raise ValueError(f"{name}: pools and mask must be contiguous")
+    # K/V rows are staged with 16-byte loads
+    if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
+        raise ValueError(f"{name}: pools must start on a 16-byte boundary")
+    q32 = q.float().contiguous()
+    blk = block.to(torch.int32).contiguous()
+    out = torch.empty((b, c, h, d), dtype=torch.float32, device=dev)
+    lib = build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.paged_attention_launch(
+        q32.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), blk.data_ptr(),
+        valid.data_ptr(), out.data_ptr(), _DTYPES[pool_k.dtype], b, c, kh, g,
+        d, page, npg, 1.0 / math.sqrt(d), stream)
+    build.check(err, name)
+    return out.to(q.dtype)
+
+
+def decode_attention_paged_cuda(q: torch.Tensor, pool_k: torch.Tensor,
+                                pool_v: torch.Tensor, block: torch.Tensor,
+                                valid: torch.Tensor) -> torch.Tensor:
+    """Launch the paged kernel for one query token per slot.  Shapes as
+    :func:`decode_attention_paged_plain`; pools contiguous float32 or
+    bfloat16 of one dtype, each on a 16-byte boundary; D in
+    ``PAGED_HEAD_DIMS``.  ``decode_attention_paged_cuda.launches`` counts
+    its launches."""
+    if q.ndim != 4 or q.shape[1] != 1 or valid.ndim != 2:
+        raise ValueError(f"decode_attention_paged: q {tuple(q.shape)} must be "
+                         "(B,1,H,D) and valid (B, S_tot)")
+    out = _paged_cuda("decode_attention_paged", q, pool_k, pool_v, block,
+                      valid[:, None, :])
+    decode_attention_paged_cuda.launches += 1
+    return out
+
+
+def decode_attention_chunk_paged_cuda(q: torch.Tensor, pool_k: torch.Tensor,
+                                      pool_v: torch.Tensor,
+                                      block: torch.Tensor,
+                                      valid: torch.Tensor) -> torch.Tensor:
+    """Launch the paged kernel for C query tokens per slot.  Shapes as
+    :func:`decode_attention_chunk_paged_plain`, requirements as
+    :func:`decode_attention_paged_cuda`.
+    ``decode_attention_chunk_paged_cuda.launches`` counts its launches."""
+    out = _paged_cuda("decode_attention_chunk_paged", q, pool_k, pool_v,
+                      block, valid)
+    decode_attention_chunk_paged_cuda.launches += 1
+    return out
+
+
+decode_attention_paged_cuda.launches = 0
+decode_attention_chunk_paged_cuda.launches = 0

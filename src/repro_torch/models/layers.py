@@ -7,8 +7,11 @@ Conventions follow the reference's ``models/layers.py``:
   ``(in, out)`` layout and are applied as ``x @ W``;
 * masks are boolean, True = attend; masked scores are ``-1e30``.
 
-Only what the dense contiguous-cache path runs is here.  Large matmuls go to
-``torch.matmul``; the decode attention goes through ``kernels/ops.py``.
+Only what the dense family runs is here: the contiguous-cache path and, at
+bf16, the paged-pool path of continuous serving (the int8 page
+quantisation is ROADMAP Queue A item 6).  Large matmuls go to
+``torch.matmul``; decode and chunk attention and the copy-on-write page
+copies go through ``kernels/ops.py``.
 """
 from __future__ import annotations
 
@@ -41,9 +44,12 @@ def rope_freqs(head_dim: int, theta: float,
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
-    """Half-split RoPE.  x: (B, S, H, Dh); positions: (S,) int."""
+    """Half-split RoPE.  x: (B, S, H, Dh); positions: (S,) shared by the
+    batch, or (B, S) per row (paged slots sit at different positions)."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)
-    angles = (positions.float()[:, None] * freqs[None, :])[None, :, None, :]
+    angles = positions.float()[..., None] * freqs
+    angles = angles[None, :, None, :] if positions.ndim == 1 \
+        else angles[:, :, None, :]
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -168,6 +174,149 @@ def attention_decode(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
     valid = decode_valid(cache_k.shape[1], pos, window, x.device)
     out = ops.decode_attention(q, cache_k, cache_v, valid)
     return out.reshape(b, 1, num_heads * head_dim) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# paged KV pool (continuous batching), bf16 pages
+# ---------------------------------------------------------------------------
+#
+# One physical pool per layer, (P, page, K, Dh), shared by every decode slot
+# through an int32 block table (slot, logical page) -> physical page.  Page 0
+# is the null page: idle slots and unallocated logical pages point there, it
+# receives the benign raced writes of idle slots, and no positional mask ever
+# exposes it.  The pools are updated IN PLACE (the reference donates them);
+# where the reference relies on reading before writing, the order of the
+# calls below keeps it.  The reference's page gather (the bf16 branch of
+# ``dequant_gather``) and its plain COW (``cow_copy_pages``) live beside
+# their kernels, as the plain versions in ``kernels/decode_attention.py``
+# and ``kernels/copy_pages.py``.
+
+
+def _positional_valid(positions: torch.Tensor, s_tot: int,
+                      window: Optional[int]) -> torch.Tensor:
+    """(..., S_tot) bool: key position s is visible from query position p iff
+    s <= p and, with a window, p - s < window."""
+    kpos = torch.arange(s_tot, device=positions.device)
+    p = positions[..., None]
+    valid = kpos <= p
+    if window is not None:
+        valid = valid & (p - kpos < window)
+    return valid
+
+
+def attention_decode_paged(params: Params, x: torch.Tensor,
+                           pool_k: torch.Tensor, pool_v: torch.Tensor,
+                           block: torch.Tensor, pos: torch.Tensor, *,
+                           num_heads: int, num_kv: int, head_dim: int,
+                           rope_theta: float, window: Optional[int] = None,
+                           write_block: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """One-token decode against a paged KV pool (one layer's slice of it).
+
+    x: (B, 1, D); pool_k/v: (P, page, K, Dh); block: (B, n_pages) int32;
+    pos: (B,) per-slot positions.  The new token's K/V go IN PLACE into page
+    ``write_block[b, pos_b // page]`` at offset ``pos_b % page``
+    (``write_block`` defaults to ``block``; with prefix sharing it masks
+    shared, read-only pages to the null page).  Reads walk each slot's pages
+    through ``block`` under the positional mask.  Returns out (B, 1, D)."""
+    b = x.shape[0]
+    page = pool_k.shape[1]
+    n_pages = block.shape[1]
+    q, k, v = _qkv(params, x, num_heads, num_kv, head_dim)
+    if rope_theta > 0:
+        pq = pos[:, None]
+        q = apply_rope(q, pq, rope_theta)
+        k = apply_rope(k, pq, rope_theta)
+    wb = block if write_block is None else write_block
+    rows = torch.arange(b, device=x.device)
+    # the reference's gather clamps an out-of-range logical page; so does this
+    logical = torch.clamp(pos // page, max=n_pages - 1).long()
+    pg = wb[rows, logical].long()
+    off = (pos % page).long()
+    # several idle slots may write the null page at once: benign, no mask
+    # ever exposes page 0
+    pool_k[pg, off] = k[:, 0].to(pool_k.dtype)
+    pool_v[pg, off] = v[:, 0].to(pool_v.dtype)
+    valid = _positional_valid(pos, n_pages * page, window)
+    out = ops.decode_attention_paged(q, pool_k, pool_v, block, valid)
+    return out.reshape(b, 1, num_heads * head_dim) @ params["wo"]
+
+
+def attention_chunk_paged(params: Params, x: torch.Tensor,
+                          pool_k: torch.Tensor, pool_v: torch.Tensor,
+                          block: torch.Tensor, pos: torch.Tensor, *,
+                          num_heads: int, num_kv: int, head_dim: int,
+                          rope_theta: float, window: Optional[int] = None,
+                          write_block: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """C tokens per slot at per-slot start positions: token i of slot b sits
+    at ``pos[b] + i``.  All C tokens' K/V are written IN PLACE first (through
+    ``write_block``; positions past the slot's page row go to the null
+    page), then every query reads the slot's pages under the mask
+    ``s <= pos[b] + i``, which carries the intra-chunk causal structure.
+    x: (B, C, D); returns out (B, C, D)."""
+    b, c, _ = x.shape
+    page = pool_k.shape[1]
+    n_pages = block.shape[1]
+    q, k, v = _qkv(params, x, num_heads, num_kv, head_dim)
+    positions = pos[:, None] + torch.arange(c, device=x.device)[None, :]
+    if rope_theta > 0:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    wb = block if write_block is None else write_block
+    logical = positions // page
+    in_range = logical < n_pages
+    rows = torch.arange(b, device=x.device)[:, None]
+    pg = torch.where(in_range,
+                     wb[rows, torch.clamp(logical, max=n_pages - 1).long()],
+                     0).long()
+    off = (positions % page).long()
+    pool_k[pg, off] = k.to(pool_k.dtype)
+    pool_v[pg, off] = v.to(pool_v.dtype)
+    valid = _positional_valid(positions, n_pages * page, window)
+    out = ops.decode_attention_chunk_paged(q, pool_k, pool_v, block, valid)
+    return out.reshape(b, c, num_heads * head_dim) @ params["wo"]
+
+
+def scatter_prefill_pages(pool: torch.Tensor, seq_kv: torch.Tensor,
+                          block_rows: torch.Tensor) -> None:
+    """Write a batch of sequences' prefill K (or V) into their pages, IN
+    PLACE.  pool: (P, page, K, Dh); seq_kv: (A, S, K, Dh), S % page == 0;
+    only the first S // page entries of each block row are written.  Rows of
+    padded admissions and redirected prefix pages point at the null page,
+    where their raced writes land harmlessly."""
+    page = pool.shape[1]
+    a, s = seq_kv.shape[:2]
+    paged = seq_kv.reshape(a, s // page, page, *seq_kv.shape[2:])
+    pool[block_rows[:, : s // page].long()] = paged.to(pool.dtype)
+
+
+def suffix_write_rows(block_rows: torch.Tensor, start: torch.Tensor,
+                      n_pages: int, page: int) -> torch.Tensor:
+    """Mask block rows down to the uncached suffix: pages below
+    ``start // page`` belong to the shared, read-only prefix, so their
+    prefill re-writes are redirected to the null page."""
+    page_idx = torch.arange(n_pages, device=block_rows.device)[None, :]
+    return torch.where(page_idx < (start // page)[:, None], 0,
+                       block_rows[:, :n_pages])
+
+
+def substitute_prefix_kv(pool: torch.Tensor, inpass: torch.Tensor,
+                         block_rows: torch.Tensor,
+                         start: torch.Tensor) -> torch.Tensor:
+    """Splice cached prefix K (or V) under the in-pass suffix values.
+
+    pool: (P, page, K, Dh); inpass: (A, S, K, Dh); block_rows: (A, n_pages);
+    start: (A,).  Positions < start read the slot's aliased pages (the values
+    the row's own full prefill would have produced); positions >= start keep
+    the in-pass values.  Must run before this layer's page writes."""
+    a, s = inpass.shape[:2]
+    page = pool.shape[1]
+    cached = pool[block_rows[:, : s // page].long()]
+    cached = cached.reshape(a, s, *inpass.shape[2:])
+    pos = torch.arange(s, device=inpass.device)[None, :, None, None]
+    return torch.where(pos < start[:, None, None, None],
+                       cached.to(inpass.dtype), inpass)
 
 
 def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:

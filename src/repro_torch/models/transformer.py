@@ -1,4 +1,5 @@
-"""Dense decoder-only transformer (qwen2 / gemma3) on a contiguous KV cache.
+"""Dense decoder-only transformer (qwen2 / gemma3) on a contiguous KV cache
+and on the paged KV pool of continuous serving.
 
 The reference scans one layer body over ``(L, ...)``-stacked params; here a
 python loop walks the same stacked params layer by layer.  Per-layer
@@ -9,11 +10,16 @@ The cache dict holds ``k``/``v`` of shape (L, B, S, K, Dh) and ``pos``, the
 number of filled rows, kept as a python int: in the drained batch every row
 decodes at the same depth, so the position is known on the host and no
 device value is ever read back to pick the write row.
+
+The paged pool holds ``kp``/``vp`` of shape (L, P, page, K, Dh): one
+physical allocation per tier shared by every decode slot through an int32
+block table (see ``layers.attention_decode_paged``).  It is updated in
+place, where the reference donates it.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -119,13 +125,46 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
             "pos": 0}
 
 
+def _prefill_layer(lp: Params, cfg: ModelConfig, h: torch.Tensor,
+                   win: int, kv_dtype, pos: torch.Tensor,
+                   splice=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """One layer of the batched prefill shared by :func:`prefill` and
+    :func:`prefill_paged` (the reference's ``_prefill_body``).  K/V are
+    rounded to the cache dtype before the in-pass attention, so logits and
+    cache match the token-by-token decode path; sequences longer than 512
+    that divide into 512-query chunks take the chunked attention.
+
+    ``splice`` = (pool_k, pool_v, block_rows, start) of this layer (prefix
+    sharing): positions below ``start`` take the cached prefix K/V from the
+    aliased pages, read before this layer's page writes.
+    Returns (h, k, v) with k/v (B, S, K, Dh) in the cache dtype."""
+    b, s, _ = h.shape
+    hd = cfg.resolved_head_dim
+    q, k, v = L._qkv(lp["attn"], L.rmsnorm(lp["ln1"], h, cfg.norm_eps),
+                     cfg.num_heads, cfg.num_kv_heads, hd)
+    if cfg.rope_theta > 0:
+        q = L.apply_rope(q, pos, cfg.rope_theta)
+        k = L.apply_rope(k, pos, cfg.rope_theta)
+    k, v = k.to(kv_dtype), v.to(kv_dtype)
+    if splice is not None:
+        pk, pv, block_rows, start = splice
+        k = L.substitute_prefix_kv(pk, k, block_rows, start)
+        v = L.substitute_prefix_kv(pv, v, block_rows, start)
+    if s > 512 and s % 512 == 0:
+        a = L.chunked_attention(q, k, v, q_chunk=512, causal=True, window=win)
+    else:
+        a = L._sdpa(q, k, v, L.causal_window_mask(s, s, window=win,
+                                                  device=h.device))
+    h = h + a.reshape(b, s, cfg.num_heads * hd) @ lp["attn"]["wo"]
+    h = h + L.swiglu(lp["mlp"], L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+    return h, k, v
+
+
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Params) -> Tuple[torch.Tensor, Params]:
     """Fill the KV cache from a (B, S) prompt in one batched pass.
 
-    K/V are rounded to the cache dtype *before* the in-pass attention, so
-    logits and cache match the token-by-token decode path.  Sequences longer
-    than 512 that divide into 512-query chunks take the chunked attention.
     The prompt's K/V are written into rows [0, S) of ``cache`` IN PLACE (the
     reference's ``dynamic_update_slice``); rows past S are never read.
 
@@ -134,26 +173,12 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     the reference's semantics.
     """
     h = params["embed"][tokens]
-    b, s, _ = h.shape
+    s = h.shape[1]
     kv_dtype = cache["k"].dtype
-    hd = cfg.resolved_head_dim
     pos = torch.arange(s, device=h.device)
     for i, win in enumerate(layer_windows(cfg, s)):
-        lp = layer_params(params["layers"], i)
-        q, k, v = L._qkv(lp["attn"], L.rmsnorm(lp["ln1"], h, cfg.norm_eps),
-                         cfg.num_heads, cfg.num_kv_heads, hd)
-        if cfg.rope_theta > 0:
-            q = L.apply_rope(q, pos, cfg.rope_theta)
-            k = L.apply_rope(k, pos, cfg.rope_theta)
-        k, v = k.to(kv_dtype), v.to(kv_dtype)
-        if s > 512 and s % 512 == 0:
-            a = L.chunked_attention(q, k, v, q_chunk=512, causal=True,
-                                    window=win)
-        else:
-            a = L._sdpa(q, k, v, L.causal_window_mask(s, s, window=win,
-                                                      device=h.device))
-        h = h + a.reshape(b, s, cfg.num_heads * hd) @ lp["attn"]["wo"]
-        h = h + L.swiglu(lp["mlp"], L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+        h, k, v = _prefill_layer(layer_params(params["layers"], i), cfg, h,
+                                 win, kv_dtype, pos)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
@@ -179,3 +204,106 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = (h[:, 0, :] @ params["lm_head"]).float()
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# paged KV pool (continuous batching)
+# ---------------------------------------------------------------------------
+
+def init_paged_cache(cfg: ModelConfig, num_slots: int, num_pages: int,
+                     page_size: int, dtype=torch.bfloat16,
+                     device="cuda") -> Params:
+    """Zeroed (L, P, page, K, Dh) K and V pools.  Attention state lives in
+    pages only, so ``num_slots`` does not size anything."""
+    del num_slots
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(
+            f"paged pool dtype {dtype}: only bf16 (and f32) pages are ported; "
+            "int8 pages are ROADMAP Queue A item 6")
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"kp": torch.zeros(shape, dtype=dtype, device=device),
+            "vp": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  lengths: torch.Tensor, slots: torch.Tensor,
+                  block_rows: torch.Tensor, cache: Params, *,
+                  start: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Params]:
+    """Prefill a batch of admitted requests into their pages in one pass.
+
+    tokens: (A, S_max) right-padded; lengths: (A,) bucketed prompt lengths
+    (each row's logits are taken at ``lengths[i] - 1``); block_rows:
+    (A, n_pages) the admitted slots' block rows, null-page rows for padded
+    admissions.  ``start`` (prefix sharing): per-row first uncached
+    position; cached positions' K/V are spliced from the aliased pages and
+    their page writes go to the null page.  Layer math is :func:`prefill`'s;
+    the pages are written IN PLACE, layer by layer, each after its layer's
+    splice read.  Returns (logits (A, V) float32, cache)."""
+    del slots                           # dense state is fully page-resident
+    h = params["embed"][tokens]
+    b, s, _ = h.shape
+    page = cache["kp"].shape[2]
+    npg = s // page
+    pos = torch.arange(s, device=h.device)
+    wrows = (block_rows[:, :npg] if start is None
+             else L.suffix_write_rows(block_rows, start, npg, page))
+    for i, win in enumerate(layer_windows(cfg, s)):
+        pk, pv = cache["kp"][i], cache["vp"][i]
+        splice = None if start is None else (pk, pv, block_rows, start)
+        h, k, v = _prefill_layer(layer_params(params["layers"], i), cfg, h,
+                                 win, pk.dtype, pos, splice)
+        L.scatter_prefill_pages(pk, k, wrows)
+        L.scatter_prefill_pages(pv, v, wrows)
+    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    last = (lengths.long() - 1)[:, None, None].expand(-1, 1, h.shape[-1])
+    h = torch.gather(h, 1, last)
+    logits = (h[:, 0, :] @ params["lm_head"]).float()
+    return logits, cache
+
+
+def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
+                      pos: torch.Tensor, block: torch.Tensor, cache: Params,
+                      *, write_block: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Params]:
+    """One decode step for all slots at per-slot positions.
+    token: (B, 1); pos: (B,); block: (B, n_pages) int32.  Returns
+    (logits (B, V) float32, cache), the pools written in place."""
+    h = params["embed"][token]
+    page = cache["kp"].shape[2]
+    for i, win in enumerate(layer_windows(cfg, block.shape[1] * page)):
+        lp = layer_params(params["layers"], i)
+        h = h + L.attention_decode_paged(
+            lp["attn"], L.rmsnorm(lp["ln1"], h, cfg.norm_eps),
+            cache["kp"][i], cache["vp"][i], block, pos,
+            num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+            window=win, write_block=write_block)
+        h = h + L.swiglu(lp["mlp"], L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return (h[:, 0, :] @ params["lm_head"]).float(), cache
+
+
+def forward_chunk_paged(params: Params, cfg: ModelConfig,
+                        tokens: torch.Tensor, pos: torch.Tensor,
+                        block: torch.Tensor, cache: Params, *,
+                        write_block: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, Params, dict]:
+    """The chunked token lane: tokens (B, C) for all slots at per-slot start
+    positions in one multi-token paged pass.  Attention state is positional,
+    so the staged snapshot dict is empty.  Returns (logits (B, C, V) float32,
+    cache, {})."""
+    h = params["embed"][tokens]
+    page = cache["kp"].shape[2]
+    for i, win in enumerate(layer_windows(cfg, block.shape[1] * page)):
+        lp = layer_params(params["layers"], i)
+        h = h + L.attention_chunk_paged(
+            lp["attn"], L.rmsnorm(lp["ln1"], h, cfg.norm_eps),
+            cache["kp"][i], cache["vp"][i], block, pos,
+            num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+            window=win, write_block=write_block)
+        h = h + L.swiglu(lp["mlp"], L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return (h @ params["lm_head"]).float(), cache, {}

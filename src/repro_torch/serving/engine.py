@@ -24,8 +24,11 @@ both): float32 products stay float32, as in the reference.
 
 Decoding is greedy: the reference's temperature sampling is not ported
 (see ``sampler.py``), so the engine takes no temperature.  ``serve_legacy``
-and ``serve_stream`` of the reference are not ported yet (ROADMAP Queue A
-items 4 and 5).
+of the reference is not ported yet (ROADMAP Queue A item 4).
+
+Continuous serving.  :meth:`HIEngine.serve_stream` serves requests through
+``scheduler.ContinuousScheduler``: slot-level admission over the paged KV
+pools, prefix sharing and chunked prefill, one ``_host_fetch`` per tick.
 """
 from __future__ import annotations
 
@@ -166,9 +169,11 @@ class HIEngine:
         self.device = s_tier.params["embed"].device
         # (batch, bucket) -> [cascade fn, s_cache, l_cache]
         self._buffers: Dict[Tuple[int, int], list] = {}
+        self._stream = None           # (scheduler key, ContinuousScheduler)
         self.stats: Dict[str, float] = {
             "requests": 0, "offloaded": 0, "dropped": 0, "serve_time": 0.0,
-            "cache_allocs": 0}
+            "cache_allocs": 0, "stream_compiles": 0, "stream_ticks": 0,
+            "prefill_tokens_saved": 0, "degraded_local": 0, "rejected": 0}
 
     def _entry(self, b: int, s: int) -> list:
         """The cascade and the tier caches for a (batch, bucket) shape,
@@ -224,6 +229,104 @@ class HIEngine:
         self.stats["dropped"] += int(host["dropped"])
         self.stats["serve_time"] += t1 - t0
         return {k: host[k] for k in RESULT_KEYS}
+
+    def serve_stream(self, requests, *, buckets=(32, 64), num_slots: int = 8,
+                     l_slots: int = None, page_size: int = 16,
+                     admit_width: int = None, decode_block: int = 4,
+                     prefix_sharing: bool = True, prefix_entries: int = None,
+                     chunk_prefill: bool = False, chunk_size: int = 8,
+                     chunk_width: int = 2, speculative: bool = False,
+                     kv_dtype: str = "bf16", mesh=None, faults=None,
+                     retry=None, validate: bool = False, telemetry=None,
+                     audit=None, watchdog=None,
+                     flight_recorder=None) -> Dict[int, Dict[str, Any]]:
+        """Continuous serving: ``requests`` (``batcher.Request``s) go through
+        slot-level admission over the paged KV pools instead of drained
+        (B, bucket) batches.  The reference's signature and scheduler cache
+        key: a scheduler (with its pools and prefix indexes) persists across
+        calls with the same configuration, so prefix reuse is cross-call.
+
+        Requests are bucketized by the drain path's ladder, so greedy outputs
+        equal ``serve``'s on the same traffic; per-request
+        ``max_new_tokens`` / ``eos_id`` / ``latency_budget`` are honoured.
+        ``prefix_sharing`` (default on) aliases cached prompt prefixes
+        (refcounted, copy-on-write) and restores repeated prompts without
+        prefill (``stats['prefill_tokens_saved']``); ``chunk_prefill``
+        feeds prompts longer than ``chunk_size`` through the chunk lane.
+        ``validate=True`` checks both pools' invariants after every tick.
+        ``stats['stream_compiles']`` counts scheduler builds (ROADMAP: CUDA
+        graph captures later).
+
+        Not ported yet, and raising ``NotImplementedError``: temperature > 0
+        (Queue A item 4), ``kv_dtype='int8'`` (item 6), an active ``faults``
+        schedule, ``retry``, ``telemetry``, ``audit``, ``watchdog`` and
+        ``flight_recorder`` (item 7), ``speculative`` (item 9) and ``mesh``
+        (item 14).
+
+        Returns per-request result records keyed by request_id."""
+        from repro_torch.serving.batcher import AdmissionQueue
+        from repro_torch.serving.faults import NO_FAULTS, RetryPolicy
+        from repro_torch.serving.scheduler import ContinuousScheduler
+
+        requests = list(requests)
+        hot = [r.request_id for r in requests if r.temperature > 0]
+        if hot:
+            raise NotImplementedError(
+                f"requests {hot} set temperature > 0: temperature sampling "
+                "is not ported (ROADMAP Queue A item 4)")
+        if (faults is not None and faults.active) or retry is not None:
+            raise NotImplementedError(
+                "fault schedules and retry policies are not ported: ROADMAP "
+                "Queue A item 7 (faults and observability)")
+        for name, obj in (("telemetry", telemetry), ("audit", audit),
+                          ("watchdog", watchdog),
+                          ("flight_recorder", flight_recorder)):
+            if obj is not None:
+                raise NotImplementedError(
+                    f"{name} is not ported: ROADMAP Queue A item 7 (faults "
+                    "and observability)")
+        key = (tuple(sorted(buckets)), num_slots, l_slots, page_size,
+               admit_width, decode_block, prefix_sharing, prefix_entries,
+               chunk_prefill, chunk_size, chunk_width, speculative, kv_dtype,
+               None if mesh is None else id(mesh))
+        if self._stream is None or self._stream[0] != key:
+            sched = ContinuousScheduler(
+                self.s, self.l, self.hi, max_prompt_len=max(buckets),
+                max_new_tokens=self.max_new_tokens, num_slots=num_slots,
+                l_slots=l_slots, page_size=page_size,
+                admit_width=admit_width, decode_block=decode_block,
+                prefix_sharing=prefix_sharing,
+                prefix_entries=prefix_entries,
+                chunk_prefill=chunk_prefill, chunk_size=chunk_size,
+                chunk_width=chunk_width, speculative=speculative,
+                kv_dtype=kv_dtype, mesh=mesh)
+            self._stream = (key, sched)
+            self.stats["stream_compiles"] += sched.stats["compiles"]
+        sched = self._stream[1]
+        sched.set_faults(NO_FAULTS, RetryPolicy(), validate)
+        queue = AdmissionQueue(buckets=buckets,
+                               page_size=page_size if prefix_sharing else None)
+        for r in requests:
+            queue.submit(r)
+        theta = (self.online_policy.theta if self.online_policy is not None
+                 else self.hi.theta)
+        before = self._stream_totals(sched)
+        try:
+            return sched.run(queue, theta=theta)
+        finally:
+            after = self._stream_totals(sched)
+            for k in after:
+                self.stats[k] += after[k] - before[k]
+
+    @staticmethod
+    def _stream_totals(sched) -> Dict[str, float]:
+        """The scheduler's counters under the engine's stats keys."""
+        c = sched.counters
+        return {"requests": c.requests, "offloaded": c.offloaded,
+                "dropped": c.dropped, "serve_time": c.serve_time,
+                "stream_ticks": c.ticks, "degraded_local": c.degraded_local,
+                "rejected": c.rejected,
+                "prefill_tokens_saved": sched.prefix_stats["tokens_saved"]}
 
     def summary(self) -> Dict[str, float]:
         n = max(self.stats["requests"], 1)

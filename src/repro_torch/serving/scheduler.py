@@ -1,0 +1,966 @@
+"""Continuous-batching scheduler over the paged KV pool, single device.
+
+The port of the reference's ``serving/scheduler.py`` for role ``"plain"``:
+slot-level admission instead of drained batches.  Each tier owns
+``num_slots`` decode slots backed by one :class:`KVPool`; every scheduler
+tick runs, per tier and in this order:
+
+1. **COW lane** (prefix sharing): the admission plans' copy-on-write page
+   copies, so appends never touch a shared page;
+2. **admit lane**: one batched (A, S_max) prefill of up to ``admit_width``
+   admitted requests, with the prefix splice, and the prefix-cache logits
+   save / restore;
+3. **chunk lane** (``chunk_prefill``): one ``forward_chunk_paged`` pass over
+   a (``chunk_width``, ``chunk_size``) lane that feeds up to W long prompts
+   their next C tokens; a slot that consumes its last chunk samples token 0
+   and joins decode in the same tick;
+4. **decode lane**: ``decode_block`` decode steps for every decoding slot at
+   per-slot positions.
+
+Where the reference traces every lane into one executable and skips idle
+ones with ``lax.cond``, the port runs each lane's tensor code eagerly and
+branches in Python on host values that ``_TierRuntime.tick_inputs`` builds
+from the host's own state (``any_cow``, ``any_prefill``, ``any_chunk``,
+``any_live``): no device value is read inside a tick.  The tick's operands
+cross to the card in one packed host->device copy, and its outputs come back
+in exactly one device->host copy, through the engine's ``_host_fetch``
+(tests monkeypatch it to count).  The pools are updated in place; the order
+of the calls keeps the reference's reads before its writes: COW before
+prefill, the prefix splice before the suffix page writes, and full restores
+read the pre-save prefix-cache logits.
+
+Sentinels.  The reference marks unused rows with out-of-range indices and
+lets XLA drop their writes (``mode="drop"``).  Here every such write has a
+row to land in: the slot sentinel ``num_slots`` indexes a padding entry
+past the real slots, the prefix-row sentinel ``entries`` the prefix cache's
+drop row, and unused pages the null page 0.
+
+The L-tier queue enforces the time-constrained offloading drop rule (Fresa
+& Champati, arXiv:2112.11413), and every S->L escalation crosses the
+reference's host-side transport model (``faults.EscalationLink`` and
+``CircuitBreaker``) even under ``NO_FAULTS``, so escalation timing and the
+record fields (``status``, ``queue_wait_ticks`` ...) are the reference's.
+Fault schedules, telemetry collectors, the speculative lane, the mesh path
+and int8 pools are not ported yet (ROADMAP Queue A items 7, 9, 14 and 6).
+
+``counters.compiles`` counts scheduler builds (the reference counts its one
+AOT compile); the engine reports it as ``stream_compiles``.
+"""
+from __future__ import annotations
+
+import time
+import warnings
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import HIConfig, ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import model_zoo
+from repro_torch.serving import sampler
+from repro_torch.serving.batcher import AdmissionQueue, AdmittedRequest
+from repro_torch.serving.faults import (FAIL_LOCAL_THETA, NO_FAULTS,
+                                        CircuitBreaker, Escalation,
+                                        EscalationLink, FaultSchedule,
+                                        RetryPolicy)
+from repro_torch.serving.kv_pool import AdmitPlan, KVPool
+from repro_torch.serving.telemetry import SchedCounters, StatsView
+
+LANES = ("cow", "admit", "chunk", "live")
+
+
+def _upload(arrays: Dict[str, np.ndarray],
+            device: torch.device) -> Dict[str, torch.Tensor]:
+    """A tick's integer and bool operands in ONE host->device copy: packed
+    into one int32 buffer (pinned, copied without blocking the host) and
+    split into views on the device; bool arrays come back as bool."""
+    parts, metas, at = [], [], 0
+    for name, a in arrays.items():
+        a = np.asarray(a)
+        parts.append(a.astype(np.int32).reshape(-1))
+        metas.append((name, a.dtype == np.bool_, a.shape, at))
+        at += a.size
+    buf = torch.from_numpy(np.concatenate(parts))
+    if device.type == "cuda":
+        buf = buf.pin_memory().to(device, non_blocking=True)
+    out = {}
+    for name, is_bool, shape, start in metas:
+        n = int(np.prod(shape, dtype=np.int64))
+        t = buf[start:start + n].view(shape)
+        out[name] = t.bool() if is_bool else t
+    return out
+
+
+def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
+                  sharing: bool, chunk: int = 0):
+    """The per-tier tick: COW copies, batched admission prefill with the
+    prefix-cache save / restore, the chunk-prefill lane and
+    ``decode_block`` decode steps.  ``tin`` holds the tick's device
+    operands, ``flags`` the host values its branches read."""
+
+    def conf_of(logits, theta):
+        return ops.hi_gate(logits, theta, metric)[0]
+
+    def admit_and_prefix(params, tin, flags, pool: KVPool):
+        """COW + batched admission prefill + prefix-cache save/restore.
+        Returns the admission logits (A, V)."""
+        core = pool.buffers
+        a = tin["admit_tokens"].shape[0]
+        dev = tin["admit_tokens"].device
+        if sharing and flags["any_cow"]:
+            # copy-on-write first: prefill reads and decode appends must see
+            # the private copies
+            model_zoo.cow_pages(cfg, core, flags["cow_src"],
+                                flags["cow_dst"])
+        if flags["any_prefill"]:
+            logits0, _ = model_zoo.prefill_paged(
+                params, cfg, tin["admit_tokens"], tin["admit_len"],
+                tin["admit_slot"], tin["admit_blocks"], core,
+                start=tin["admit_start"] if sharing else None)
+        else:
+            logits0 = torch.zeros((a, cfg.vocab_size), dtype=torch.float32,
+                                  device=dev)
+        if sharing:
+            prefix = pool.prefix_buffers
+            # full restores read the PRE-SAVE prefix cache: a same-tick
+            # eviction may recycle the restore's row for a computing
+            # admission's save below (the gather copies before the write)
+            restored = prefix["logits"][tin["restore_row"].long()]
+            logits0 = torch.where(tin["restore_mask"][:, None], restored,
+                                  logits0)
+            model_zoo.snapshot_restore(cfg, core, prefix, tin["restore_row"],
+                                       tin["restore_slot"])
+            # sentinel rows (== entries) land in the drop row
+            prefix["logits"][tin["save_row"].long()] = logits0
+            model_zoo.snapshot_save(cfg, core, prefix, tin["save_row"],
+                                    tin["admit_slot"])
+        return logits0
+
+    def chunk_lane(params, theta, tin, flags, pool: KVPool):
+        """One multi-token pass over the W-row chunk lane.  Returns the
+        sampled token and confidence at each row's last live position
+        (consumed where ``chunk_fin``)."""
+        w = tin["chunk_slot"].shape[0]
+        dev = tin["chunk_slot"].device
+        if not flags["any_chunk"]:
+            return (torch.zeros((w,), dtype=torch.int64, device=dev),
+                    torch.zeros((w,), dtype=torch.float32, device=dev))
+        core = pool.buffers
+        mini = model_zoo.gather_chunk_slots(cfg, core, tin["chunk_slot"])
+        logits_c, mini, staged = model_zoo.forward_chunk_paged(
+            params, cfg, tin["chunk_tokens"], tin["chunk_pos"],
+            tin["chunk_block"], mini, write_block=tin["chunk_wblock"])
+        sel = model_zoo.select_stage(cfg, staged, tin["chunk_keep"])
+        model_zoo.scatter_chunk_slots(cfg, core, mini, sel, tin["chunk_slot"])
+        idx = torch.clamp(tin["chunk_keep"].long() - 1, min=0)
+        last = logits_c[torch.arange(w, device=dev), idx]
+        return sampler.greedy(last), conf_of(last, theta)
+
+    def tick(params, theta, tin, flags, pool: KVPool):
+        a = tin["admit_tokens"].shape[0]
+        n_slots = tin["last_tok"].shape[0]
+        dev = tin["last_tok"].device
+        # one padding entry past the slots takes the sentinel (== n_slots)
+        # rows' writes
+        last0 = torch.cat([tin["last_tok"].long(),
+                           torch.zeros((1,), dtype=torch.int64, device=dev)])
+        if flags["any_admit"]:
+            logits0 = admit_and_prefix(params, tin, flags, pool)
+            conf0 = conf_of(logits0, theta)
+            tok0 = sampler.greedy(logits0)
+            # admitted slots decode their own first tokens in the same tick
+            last0[tin["admit_slot"].long()] = tok0
+        else:
+            tok0 = torch.zeros((a,), dtype=torch.int64, device=dev)
+            conf0 = torch.zeros((a,), dtype=torch.float32, device=dev)
+        out = {"admit_tok": tok0, "admit_conf": conf0}
+        if chunk:
+            tok_c, conf_c = chunk_lane(params, theta, tin, flags, pool)
+            if flags["any_chunk"]:
+                fin_slot = torch.where(tin["chunk_fin"], tin["chunk_slot"],
+                                       n_slots)
+                last0[fin_slot.long()] = tok_c
+            out["chunk_tok"] = tok_c
+            out["chunk_conf"] = conf_c
+        block = tin["block"]
+        b = block.shape[0]
+        wb = tin["draft_wblock"] if chunk else \
+            (tin["wblock"] if sharing else None)
+        if flags["any_live"]:
+            core = pool.buffers
+            pre_d = model_zoo.chunk_stage(cfg, core) if chunk else None
+            last = last0[:n_slots]
+            toks, confs = [], []
+            for kk in range(decode_block):
+                logits, core = model_zoo.decode_step_paged(
+                    params, cfg, last[:, None], tin["pos"] + kk, block, core,
+                    write_block=wb)
+                confs.append(conf_of(logits, theta))
+                last = sampler.greedy(logits)
+                toks.append(last)
+            if chunk:
+                # slots still mid chunk-prefill took garbage decode steps:
+                # their page writes went to the null page; restore any
+                # recurrent state (none for the dense family)
+                model_zoo.restore_stage(cfg, core, pre_d, ~tin["draft_live"])
+            out["toks"] = torch.stack(toks)                  # (K, B)
+            out["confs"] = torch.stack(confs)
+        else:
+            # no decoding slot this tick (e.g. all still chunk-prefilling)
+            out["toks"] = torch.zeros((decode_block, b), dtype=torch.int64,
+                                      device=dev)
+            out["confs"] = torch.zeros((decode_block, b),
+                                       dtype=torch.float32, device=dev)
+        return out
+
+    return tick
+
+
+@dataclass
+class _Active:
+    """One request occupying a decode slot."""
+    adm: AdmittedRequest
+    steps: int
+    tokens: List[int] = field(default_factory=list)
+    confs: List[float] = field(default_factory=list)
+    first_tok: float = 0.0                       # monotonic first-emit time
+    hit_eos: bool = False
+
+    def emit(self, tok: int, conf: float) -> None:
+        if self.done:
+            return
+        if not self.tokens:
+            self.first_tok = time.monotonic()
+        self.tokens.append(int(tok))
+        self.confs.append(float(conf))
+        eos = self.adm.request.eos_id
+        if eos is not None and int(tok) == eos:
+            self.hit_eos = True
+
+    @property
+    def done(self) -> bool:
+        return self.hit_eos or len(self.tokens) >= self.steps
+
+    @property
+    def ttft(self) -> float:
+        return self.first_tok - self.adm.submit_time
+
+
+class _TierRuntime:
+    """Host-side slot state for one tier (numpy mirrors of tick operands)."""
+
+    def __init__(self, cfg: ModelConfig, num_slots: int, max_context: int,
+                 page_size: int, admit_width: int, device,
+                 prefix_entries: int = 0, max_prompt_len: int = 0,
+                 num_pages: Optional[int] = None, chunk_size: int = 0,
+                 chunk_width: int = 2, name: str = "S"):
+        if num_pages is None:
+            # sharing headroom: beyond every slot's full context, enough
+            # pages to RETAIN prefix_entries full prompts without evicting
+            # under load
+            num_pages = num_slots * (max_context // page_size) + 1
+            num_pages += prefix_entries * (-(-max_prompt_len // page_size))
+        self.pool = KVPool(cfg, num_slots, max_context, page_size,
+                           num_pages=num_pages, dtype=torch.bfloat16,
+                           prefix_entries=prefix_entries, device=device)
+        self.sharing = prefix_entries > 0
+        self.name = name
+        self.num_slots = num_slots
+        self.admit_width = admit_width
+        self.chunk_size = chunk_size
+        self.chunk_width = max(1, min(chunk_width, num_slots))
+        self.chunk_sched: List = []    # (slot, keep, fin) rows THIS tick
+        self.slot_req: List[Optional[_Active]] = [None] * num_slots
+        self.last_tok = np.zeros((num_slots,), np.int32)
+        self.pos = np.zeros((num_slots,), np.int32)
+        self.chunk_fed = np.zeros((num_slots,), np.int32)   # prompt tokens fed
+        self.chunk_left = np.zeros((num_slots,), np.int32)  # 0 = decoding
+        self.admitted: List[int] = []    # slots admitted THIS tick, row order
+        self.plans: List[AdmitPlan] = []  # aligned admission plans
+        # ticks in which each lane ran (host flags), for launch accounting
+        self.lane_ticks: Dict[str, int] = dict.fromkeys(LANES, 0)
+
+    @property
+    def busy(self) -> int:
+        return sum(r is not None for r in self.slot_req)
+
+    def free_slot(self) -> Optional[int]:
+        for i, r in enumerate(self.slot_req):
+            if r is None:
+                return i
+        return None
+
+    def admit(self, adm: AdmittedRequest, steps: int, decode_block: int,
+              tick: int) -> Optional[int]:
+        """Claim a slot + pages for ``adm``; returns the slot index, or
+        ``None`` if no capacity this tick (callers MUST test ``is None`` —
+        slot 0 is falsy).  With sharing, the pool aliases the longest cached
+        prefix and the returned plan carries start / restore / save / COW
+        decisions.  With ``chunk_size`` set, a prompt whose uncached
+        remainder exceeds one chunk skips the admit lane: its pages are
+        claimed now and its tokens flow through the chunk lane C per tick."""
+        slot = self.free_slot()
+        # decode writes reach bucket + steps - 2, plus <= K-1 overrun steps
+        context = adm.bucket + max(steps - 1, 1) + (decode_block - 1)
+        if slot is None:
+            return None
+        chunked = bool(self.chunk_size) and adm.bucket > self.chunk_size
+        if self.sharing:
+            plan = self.pool.admit_prefix(slot, context, adm.bucket,
+                                          adm.page_hashes, adm.full_hash,
+                                          tick, register=not chunked)
+            if plan is None:
+                return None
+            if plan.is_restore:
+                chunked = False          # full hit: restoring beats chunking
+        else:
+            if not self.pool.can_alloc(context):
+                return None
+            self.pool.alloc(slot, context)
+            plan = AdmitPlan(slot=slot)
+        self.slot_req[slot] = _Active(adm, steps)
+        self.pos[slot] = adm.bucket
+        self.last_tok[slot] = 0                # replaced on-device by tok0
+        if chunked and adm.bucket - plan.start > self.chunk_size:
+            self.chunk_fed[slot] = plan.start
+            self.chunk_left[slot] = adm.bucket - plan.start
+        else:
+            self.admitted.append(slot)
+            self.plans.append(plan)
+        return slot
+
+    def release(self, slot: int) -> _Active:
+        rec = self.slot_req[slot]
+        self.slot_req[slot] = None
+        self.pool.free(slot)
+        self.pos[slot] = 0
+        self.last_tok[slot] = 0
+        self.chunk_fed[slot] = 0
+        self.chunk_left[slot] = 0
+        return rec
+
+    def tick_inputs(self, s_max: int) -> Tuple[Dict[str, np.ndarray],
+                                               Dict[str, Any]]:
+        """This tick's operands (numpy, copied to the device by the caller)
+        and the host values the tick branches on: ``any_admit``,
+        ``any_prefill``, ``any_cow`` with the ``cow_src``/``cow_dst`` pairs,
+        ``any_chunk`` and ``any_live``."""
+        a = self.admit_width
+        tokens = np.zeros((a, s_max), np.int32)
+        lens = np.ones((a,), np.int32)
+        slots = np.full((a,), self.num_slots, np.int32)    # drop sentinel
+        blocks = np.zeros((a, self.pool.n_pages_per_slot), np.int32)
+        for row, slot in enumerate(self.admitted):
+            adm = self.slot_req[slot].adm
+            tokens[row, : adm.bucket] = adm.tokens
+            lens[row] = adm.bucket
+            slots[row] = slot
+            blocks[row] = self.pool.block[slot]
+        out = {
+            "last_tok": self.last_tok.copy(),
+            "pos": self.pos.copy(),
+            "block": self.pool.block.copy(),
+            "admit_tokens": tokens,
+            "admit_len": lens,
+            "admit_slot": slots,
+            "admit_blocks": blocks,
+        }
+        flags: Dict[str, Any] = {"any_admit": bool(self.admitted)}
+        if self.chunk_size:
+            c, w = self.chunk_size, self.chunk_width
+            npg = self.pool.n_pages_per_slot
+            base = self.pool.write_block() if self.sharing else self.pool.block
+            ctoks = np.zeros((w, c), np.int32)
+            cslot = np.full((w,), self.num_slots, np.int32)  # drop sentinel
+            cpos = np.zeros((w,), np.int32)
+            ckeep = np.zeros((w,), np.int32)
+            cfin = np.zeros((w,), bool)
+            cblock = np.zeros((w, npg), np.int32)
+            cwb = np.zeros((w, npg), np.int32)
+            dlive = np.zeros((self.num_slots,), bool)
+            self.chunk_sched = []
+            for slot in range(self.num_slots):
+                rec = self.slot_req[slot]
+                if rec is None:
+                    continue
+                left = int(self.chunk_left[slot])
+                if left == 0:
+                    dlive[slot] = True
+                    continue
+                row = len(self.chunk_sched)
+                if row == w:
+                    continue               # lane full: this slot waits a tick
+                keep = min(c, left)
+                fed = int(self.chunk_fed[slot])
+                seg = rec.adm.tokens[fed:fed + c]
+                ctoks[row, : len(seg)] = seg
+                cslot[row] = slot
+                cpos[row] = fed
+                ckeep[row] = keep
+                cfin[row] = keep == left
+                cblock[row] = self.pool.block[slot]
+                cwb[row] = base[slot]
+                dlive[slot] = cfin[row]    # joins decode the same tick
+                self.chunk_sched.append((slot, keep, bool(cfin[row])))
+            out.update({
+                "chunk_tokens": ctoks,
+                "chunk_slot": cslot,
+                "chunk_pos": cpos,
+                "chunk_keep": ckeep,
+                "chunk_fin": cfin,
+                "chunk_block": cblock,
+                "chunk_wblock": cwb,
+                "draft_live": dlive,
+                "draft_wblock": np.where(dlive[:, None], base,
+                                         0).astype(np.int32),
+            })
+            flags["any_chunk"] = bool(ckeep.any())
+            flags["any_live"] = bool(dlive.any())
+        else:
+            flags["any_live"] = self.busy > 0
+        if not self.sharing:
+            flags["any_prefill"] = bool(self.admitted)
+            return out, self._count(flags)
+        entries = self.pool.prefix_entries
+        starts = np.zeros((a,), np.int32)
+        restore_mask = np.zeros((a,), bool)
+        restore_row = np.zeros((a,), np.int32)
+        restore_slot = np.full((a,), self.num_slots, np.int32)
+        save_row = np.full((a,), entries, np.int32)        # drop sentinel
+        cow_src = np.zeros((a,), np.int32)
+        cow_dst = np.zeros((a,), np.int32)
+        any_prefill = False
+        for row, (slot, plan) in enumerate(zip(self.admitted, self.plans)):
+            starts[row] = plan.start
+            if plan.is_restore:
+                restore_mask[row] = True
+                restore_row[row] = plan.restore_row
+                restore_slot[row] = slot
+            else:
+                any_prefill = True
+                if plan.save_row >= 0:
+                    save_row[row] = plan.save_row
+            if plan.cow is not None:
+                cow_src[row], cow_dst[row] = plan.cow
+        out.update({
+            "admit_start": starts,
+            "restore_mask": restore_mask,
+            "restore_row": restore_row,
+            "restore_slot": restore_slot,
+            "save_row": save_row,
+            "wblock": self.pool.write_block(),
+        })
+        flags.update(any_prefill=any_prefill, any_cow=bool(cow_dst.any()),
+                     cow_src=cow_src, cow_dst=cow_dst)
+        return out, self._count(flags)
+
+    def _count(self, flags: Dict[str, Any]) -> Dict[str, Any]:
+        for lane in LANES:
+            if flags.get("any_" + lane):
+                self.lane_ticks[lane] += 1
+        return flags
+
+
+class ContinuousScheduler:
+    """Slot-level admission over paged pools for both cascade tiers.
+
+    ``admit_width`` batches admission prefills like the drain path batches
+    prompts; ``decode_block`` fuses that many decode steps per tick.
+    ``prefix_sharing`` turns on the pools' content-addressed prefix reuse;
+    ``chunk_prefill`` routes prompts longer than ``chunk_size`` through the
+    chunk lane (C tokens per tick, interleaved with decode).  Kernels are
+    chosen by the device the tiers' params live on: CUDA kernels on the
+    card, their plain versions on the CPU.
+    """
+
+    def __init__(self, s_tier, l_tier, hi: HIConfig, *, max_prompt_len: int,
+                 max_new_tokens: int, num_slots: int = 8,
+                 l_slots: Optional[int] = None, page_size: int = 16,
+                 admit_width: Optional[int] = None, decode_block: int = 4,
+                 prefix_sharing: bool = False,
+                 prefix_entries: Optional[int] = None,
+                 num_pages: Optional[int] = None,
+                 chunk_prefill: bool = False, chunk_size: int = 8,
+                 chunk_width: int = 2, speculative: bool = False,
+                 kv_dtype: str = "bf16", mesh=None):
+        if max_prompt_len % page_size:
+            raise ValueError(f"max_prompt_len {max_prompt_len} must be a "
+                             f"multiple of page_size {page_size}")
+        if kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype must be 'bf16' or 'int8', "
+                             f"got {kv_dtype!r}")
+        if kv_dtype == "int8":
+            raise NotImplementedError(
+                "kv_dtype='int8' is not ported: ROADMAP Queue A item 6 "
+                "(int8 paged pools)")
+        if speculative:
+            raise NotImplementedError(
+                "speculative=True is not ported: ROADMAP Queue A item 9 "
+                "(speculative lane)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= is not ported: ROADMAP Queue A item 14 (multi-device)")
+        if chunk_prefill and chunk_size < 1:
+            raise ValueError(f"chunk_size {chunk_size} must be >= 1")
+        self.kv_dtype = kv_dtype
+        self.s = s_tier
+        self.l = l_tier
+        self.hi = hi
+        self.device = s_tier.params["embed"].device
+        self.max_prompt_len = max_prompt_len
+        self.max_new_tokens = max_new_tokens
+        self.decode_block = max(1, decode_block)
+        self.prefix_sharing = prefix_sharing
+        self.chunk = int(chunk_size) if chunk_prefill else 0
+        l_slots = l_slots if l_slots is not None else max(2, num_slots // 2)
+        admit_width = admit_width if admit_width is not None else num_slots
+        page = page_size
+        raw_ctx = max_prompt_len + max_new_tokens + self.decode_block - 1
+        max_context = -(-raw_ctx // page) * page
+        s_entries = (prefix_entries if prefix_entries is not None
+                     else 2 * num_slots) if prefix_sharing else 0
+        l_entries = (prefix_entries if prefix_entries is not None
+                     else 2 * l_slots) if prefix_sharing else 0
+        self.srt = _TierRuntime(s_tier.cfg, num_slots, max_context, page,
+                                admit_width, self.device,
+                                prefix_entries=s_entries,
+                                max_prompt_len=max_prompt_len,
+                                num_pages=num_pages, chunk_size=self.chunk,
+                                chunk_width=chunk_width, name="S")
+        self.lrt = _TierRuntime(l_tier.cfg, l_slots, max_context, page,
+                                min(admit_width, l_slots), self.device,
+                                prefix_entries=l_entries,
+                                max_prompt_len=max_prompt_len,
+                                num_pages=num_pages, chunk_size=self.chunk,
+                                chunk_width=chunk_width, name="L")
+        # with chunking on and sharing off, every admit-lane prompt is <=
+        # chunk_size: the batched admission pass shrinks from
+        # (A, max_prompt_len) to (A, ~chunk_size)
+        self._admit_s_max = max_prompt_len
+        if self.chunk and not prefix_sharing:
+            self._admit_s_max = min(max_prompt_len,
+                                    -(-self.chunk // page) * page)
+        self.counters = SchedCounters()
+        self.stats: StatsView = StatsView(self.counters)
+        # fault-injection state (host-side; per run)
+        self.faults: FaultSchedule = NO_FAULTS
+        self.policy: RetryPolicy = RetryPolicy()
+        self.validate = False
+        self._link: Optional[EscalationLink] = None
+        self._breaker: Optional[CircuitBreaker] = None
+        self._esc_meta: Dict[int, Escalation] = {}
+        self._probe: Optional[int] = None
+        self._tick0 = 0
+        self._ticks = {
+            "s": _tier_tick_fn(s_tier.cfg, hi.metric, self.decode_block,
+                               self.srt.sharing, chunk=self.chunk),
+            "l": _tier_tick_fn(l_tier.cfg, hi.metric, self.decode_block,
+                               self.lrt.sharing, chunk=self.chunk)}
+        self.counters.compiles += 1
+
+    def set_faults(self, faults: Optional[FaultSchedule] = None,
+                   policy: Optional[RetryPolicy] = None,
+                   validate: Optional[bool] = None) -> None:
+        """Install the fault schedule / retry policy / per-tick invariant
+        checking for subsequent ``run`` calls.  Only ``NO_FAULTS`` is
+        ported: an active schedule raises."""
+        if faults is not None:
+            if faults.active:
+                raise NotImplementedError(
+                    "fault schedules are not ported: ROADMAP Queue A item 7 "
+                    "(faults and observability)")
+            self.faults = faults
+        if policy is not None:
+            self.policy = policy
+        if validate is not None:
+            self.validate = bool(validate)
+
+    @property
+    def prefix_stats(self) -> Dict[str, int]:
+        """Cumulative prefix-cache counters summed over both tiers: hits /
+        full_hits / tokens_saved / cow_copies / evictions."""
+        agg: Dict[str, int] = {}
+        for rt in (self.srt, self.lrt):
+            for k, v in rt.pool.stats.items():
+                agg[k] = agg.get(k, 0) + v
+        return agg
+
+    # -- host loop ----------------------------------------------------------
+
+    def _dispatch(self, theta_t: torch.Tensor) -> Dict[str, Dict]:
+        """Build both tiers' operands, copy them to the device at once, run
+        the tier ticks, and host-fetch the outputs: the tick's single
+        device->host copy."""
+        from repro_torch.serving import engine as engine_mod  # _host_fetch
+
+        tiers = (("s", self.srt, self.s), ("l", self.lrt, self.l))
+        host_in, flags = {}, {}
+        for key, rt, _ in tiers:
+            arrays, flags[key] = rt.tick_inputs(self._admit_s_max)
+            host_in.update({f"{key}.{k}": v for k, v in arrays.items()})
+        dev_in = _upload(host_in, self.device)
+        outs = {}
+        for key, rt, tier in tiers:
+            tin = {k[2:]: v for k, v in dev_in.items()
+                   if k.startswith(key + ".")}
+            out = self._ticks[key](tier.params, theta_t, tin, flags[key],
+                                   rt.pool)
+            outs.update({f"{key}.{k}": v for k, v in out.items()})
+        fetched = engine_mod._host_fetch(outs)    # the tick's single sync
+        self.counters.ticks += 1
+        host = {"s": {}, "l": {}}
+        for k, v in fetched.items():
+            host[k[0]][k[2:]] = v
+        return host
+
+    @torch.inference_mode()
+    def run(self, queue: AdmissionQueue, *, theta: Optional[float] = None
+            ) -> Dict[int, Dict[str, Any]]:
+        """Drain ``queue`` through the slots; returns per-request records
+        keyed by request_id: tokens / s_tokens / confidence / offloaded /
+        served_remote / dropped / status / escalation_retries /
+        queue_wait_ticks / esc_created_tick / ttft, as the reference's.
+        Every submitted request terminates with exactly one record whose
+        ``status`` is one of ``faults.STATUSES``.  ``stats['serve_time']``
+        brackets the whole drain once."""
+        t0 = time.perf_counter()
+        try:
+            return self._run(queue, theta)
+        finally:
+            self.counters.serve_time += time.perf_counter() - t0
+
+    def _theta(self, value: float) -> torch.Tensor:
+        # filled on the device: no host->device copy to wait for
+        return torch.full((), value, dtype=torch.float32, device=self.device)
+
+    def _run(self, queue: AdmissionQueue, theta: Optional[float]
+             ) -> Dict[int, Dict[str, Any]]:
+        theta = float(self.hi.theta if theta is None else theta)
+        theta_t = self._theta(theta)
+        theta_fail_t = self._theta(FAIL_LOCAL_THETA)
+        results: Dict[int, Dict[str, Any]] = {}
+        # per-run fault state: run-relative tick 0 anchors here
+        self._tick0 = self.counters.ticks
+        self._link = EscalationLink(self.faults, self.policy)
+        self._breaker = CircuitBreaker(self.policy)
+        self._esc_meta = {}
+        self._probe = None
+        stall, idle = self._stall_limit(), 0
+        l_queue: deque = deque()
+        while (len(queue) or l_queue or self.srt.busy or self.lrt.busy
+               or self._link.pending):
+            cur = self.counters.ticks - self._tick0
+            state = self._breaker.state_at(cur)
+            if state == CircuitBreaker.OPEN:
+                self.counters.breaker_open_ticks += 1
+            elif state == CircuitBreaker.CLOSED:
+                self._probe = None
+            self._fault_tick(cur, l_queue, results)
+            self._try_admit(self.srt, queue,
+                            on_give_up=lambda adm: self._reject(adm, results))
+            self._drop_expired(l_queue, results, cur)
+            self._try_admit(self.lrt, l_queue, limit=self._l_admit_limit(cur),
+                            on_give_up=lambda adm: self._l_give_up(adm, cur,
+                                                                   results))
+            for slot in range(self.lrt.num_slots):
+                rec = self.lrt.slot_req[slot]
+                if rec is None:
+                    continue
+                esc = self._esc_meta.get(rec.adm.request.request_id)
+                if esc is not None and esc.l_admit_tick < 0:
+                    esc.l_admit_tick = cur
+                    if self._breaker.state == CircuitBreaker.HALF_OPEN \
+                            and self._probe is None:
+                        self._probe = esc.rid
+            s_busy = self.srt.busy
+            if not (len(queue) or l_queue or s_busy or self.lrt.busy
+                    or self._link.pending):
+                break                  # everything left resolved host-side
+            if s_busy or self.lrt.busy or self.srt.admitted \
+                    or self.lrt.admitted:
+                idle = 0
+            else:
+                # a pure timer tick: backoff / cooldown / fault window /
+                # admission retry; bounded unless the schedule is not
+                idle += 1
+                if idle > stall:
+                    raise RuntimeError(
+                        f"scheduler stalled: {idle} consecutive idle ticks "
+                        f"with work pending (queue={len(queue)}, "
+                        f"l_queue={len(l_queue)}, "
+                        f"in_flight={self._link.pending})")
+            open_now = self._breaker.state == CircuitBreaker.OPEN
+            host = self._dispatch(theta_fail_t if open_now else theta_t)
+            self._absorb(self.srt, host["s"],
+                         lambda rec: self._finish_s(rec, theta, results))
+            self._absorb(self.lrt, host["l"],
+                         lambda rec: self._finish_l(rec, results))
+            if self.validate:
+                self.srt.pool.check_invariants()
+                self.lrt.pool.check_invariants()
+        self.counters.esc_lost += self._link.lost
+        self.counters.breaker_opens += self._breaker.opens
+        return results
+
+    # -- fault machinery (host-side; see serving/faults.py) -----------------
+
+    def _stall_limit(self) -> int:
+        """Upper bound on CONSECUTIVE idle (timer-only) ticks any bounded
+        schedule + policy can produce; past it the run is genuinely stuck."""
+        p = self.policy
+        span = max([b for _, b in self.faults.outages + self.faults.spikes],
+                   default=0)
+        return (p.admit_retry_limit + p.breaker_cooldown_ticks
+                + (p.max_retries + 2) * (p.ack_timeout_ticks
+                                         + p.backoff_cap_ticks) + span + 64)
+
+    def _l_admit_limit(self, cur: int) -> Optional[int]:
+        """How many escalations L admission may take this tick: 0 while the
+        L tier is paused (outage / spike / open breaker), 1 while half-open
+        with no probe outstanding, unlimited when closed."""
+        if self.faults.l_paused(cur):
+            return 0
+        state = self._breaker.state
+        if state == CircuitBreaker.OPEN:
+            return 0
+        if state == CircuitBreaker.HALF_OPEN:
+            return 0 if self._probe is not None else 1
+        return None
+
+    def _fault_tick(self, cur: int, l_queue: deque, results: Dict) -> None:
+        """Advance the transport sim one tick: outage aborts first (busy L
+        slots release their pages through ``KVPool.free``), then arrivals /
+        ack timeouts, then due resends (held while the breaker is open)."""
+        link = self._link
+        if self.faults.in_outage(cur):
+            for slot in range(self.lrt.num_slots):
+                if self.lrt.slot_req[slot] is not None:
+                    rec = self.lrt.release(slot)
+                    self._esc_failed(
+                        self._esc_meta[rec.adm.request.request_id], cur,
+                        results)
+            while l_queue:
+                adm = l_queue.popleft()
+                self._esc_failed(self._esc_meta[adm.request.request_id],
+                                 cur, results)
+        arrived, failed = link.step(cur)
+        for esc in arrived:
+            l_queue.append(esc.adm)
+        for esc in failed:
+            self._esc_failed(esc, cur, results)
+        if self._breaker.state != CircuitBreaker.OPEN:
+            for esc in link.due_resends(cur):
+                link.take(esc)
+                if self._budget_expired(esc.adm):
+                    self._degrade(esc, cur, results)  # too late to retry
+                else:
+                    link.send(esc, cur)
+
+    @staticmethod
+    def _budget_expired(adm: AdmittedRequest) -> bool:
+        budget = adm.request.latency_budget
+        return (budget is not None
+                and time.monotonic() - adm.submit_time > budget)
+
+    def _esc_failed(self, esc, cur: int, results: Dict) -> None:
+        """One escalation attempt failed: count it against the breaker, then
+        retry with capped exponential backoff, or give up when retries are
+        exhausted or the latency budget says the answer would come too
+        late."""
+        self._breaker.record_failure(cur)
+        if self._probe == esc.rid:
+            self._probe = None
+        if esc.attempt >= self.policy.max_retries \
+                or self._budget_expired(esc.adm):
+            self._degrade(esc, cur, results)
+        else:
+            self._link.schedule_retry(esc, cur)
+            self.counters.esc_retries += 1
+
+    def _degrade(self, esc, cur: int, results: Dict) -> None:
+        """Give up on the escalation: the S-tier answer (already recorded)
+        stands, flagged ``status='degraded_local'``."""
+        self._esc_meta.pop(esc.rid, None)
+        self.counters.degraded_local += 1
+        rec = results[esc.rid]
+        rec["status"] = "degraded_local"
+        rec["escalation_retries"] = esc.attempt
+        rec["queue_wait_ticks"] = max(cur - esc.created_tick, 0)
+
+    def _l_give_up(self, adm: AdmittedRequest, cur: int,
+                   results: Dict) -> None:
+        """L-tier admission starvation past the retry cap: the S answer
+        exists, so degrade rather than reject."""
+        esc = self._esc_meta.get(adm.request.request_id)
+        if esc is not None:
+            self._degrade(esc, cur, results)
+
+    def _reject(self, adm: AdmittedRequest, results: Dict) -> None:
+        """Bounded admission backpressure: after ``admit_retry_limit``
+        fruitless ticks the request fails with ``status='rejected'``."""
+        self.counters.requests += 1
+        self.counters.rejected += 1
+        warnings.warn(
+            f"request {adm.request.request_id} rejected: admission failed "
+            f"{adm.admit_retries} ticks running (bucket {adm.bucket} needs "
+            "more free pages than the pool can produce) — raise num_pages / "
+            "num_slots or shrink the prompt", RuntimeWarning, stacklevel=3)
+        results[adm.request.request_id] = {
+            "tokens": np.zeros((0,), np.int32),
+            "s_tokens": np.zeros((0,), np.int32),
+            "confidence": 0.0,
+            "offloaded": False,
+            "served_remote": False,
+            "dropped": False,
+            "status": "rejected",
+            "escalation_retries": 0,
+            "queue_wait_ticks": 0,
+            "esc_created_tick": -1,
+            "ttft": float("nan"),
+        }
+
+    # -- admission / completion -------------------------------------------
+
+    def _try_admit(self, rt: _TierRuntime, queue, limit: Optional[int] = None,
+                   on_give_up=None) -> None:
+        """Admit up to ``admit_width`` queued requests into free slots.
+        ``queue`` is the AdmissionQueue (S tier) or the escalation deque
+        (L tier).  ``limit`` caps this tick's admissions (0 = the L tier is
+        paused; 1 = the half-open probe).  A request that keeps failing
+        admission goes to ``on_give_up`` after
+        ``RetryPolicy.admit_retry_limit`` fruitless ticks."""
+        rt.admitted = []
+        rt.plans = []
+        if limit == 0:
+            return
+        tick = self.counters.ticks
+        cap = rt.admit_width if limit is None else min(rt.admit_width, limit)
+        admitted = 0
+        while admitted < cap and len(queue):
+            if rt.free_slot() is None:
+                break
+            adm = queue.popleft()
+            steps = min(adm.request.max_new_tokens, self.max_new_tokens)
+            slot = rt.admit(adm, steps, self.decode_block, tick)
+            if slot is None:
+                adm.admit_retries += 1
+                if on_give_up is not None and \
+                        adm.admit_retries > self.policy.admit_retry_limit:
+                    on_give_up(adm)     # head cleared: try the next request
+                    continue
+                queue.appendleft(adm)   # no pages this tick: retry next tick
+                break
+            admitted += 1
+
+    def _drop_expired(self, l_queue: deque, results: Dict,
+                      cur: int = 0) -> None:
+        """arXiv:2112.11413 drop policy: an escalation whose request has
+        outlived its latency budget is dropped from the L queue; the S-tier
+        answer (already recorded) stands, flagged ``dropped``.  A queued
+        escalation holds no L-side resources, so nothing is released."""
+        if not l_queue:
+            return
+        now = time.monotonic()
+        kept: List[AdmittedRequest] = []
+        while l_queue:
+            adm = l_queue.popleft()
+            budget = adm.request.latency_budget
+            if budget is not None and now - adm.submit_time > budget:
+                self.counters.dropped += 1
+                esc = self._esc_meta.pop(adm.request.request_id, None)
+                rec = results.get(adm.request.request_id)
+                if rec is not None:
+                    rec["dropped"] = True
+                    rec["status"] = "dropped"
+                    if esc is not None:
+                        rec["escalation_retries"] = esc.attempt
+                        rec["queue_wait_ticks"] = max(
+                            cur - esc.created_tick, 0)
+            else:
+                kept.append(adm)
+        l_queue.extend(kept)
+
+    def _absorb_chunk(self, rt: _TierRuntime, out) -> None:
+        """Advance the tick's scheduled chunk-prefill rows; finishing rows
+        emit their chunk-sampled token 0."""
+        for row, (slot, keep, fin) in enumerate(rt.chunk_sched):
+            rt.chunk_fed[slot] += keep
+            rt.chunk_left[slot] -= keep
+            if fin:
+                rt.slot_req[slot].emit(out["chunk_tok"][row],
+                                       out["chunk_conf"][row])
+
+    def _absorb(self, rt: _TierRuntime, out: Dict[str, np.ndarray],
+                finish) -> None:
+        for row, slot in enumerate(rt.admitted):
+            rt.slot_req[slot].emit(out["admit_tok"][row],
+                                   out["admit_conf"][row])
+        if self.chunk:
+            self._absorb_chunk(rt, out)
+        k_steps = out["toks"].shape[0]
+        for slot in range(rt.num_slots):
+            rec = rt.slot_req[slot]
+            if rec is None:
+                continue
+            if self.chunk and rt.chunk_left[slot] > 0:
+                continue               # still chunk-prefilling: no decode
+            for k in range(k_steps):
+                rec.emit(out["toks"][k][slot], out["confs"][k][slot])
+            rt.last_tok[slot] = int(out["toks"][k_steps - 1][slot])
+            rt.pos[slot] += k_steps
+            if rec.done:
+                finish(rt.release(slot))
+
+    def _finish_s(self, rec: _Active, theta: float, results: Dict) -> None:
+        """S decode finished: record the local answer, and when the gate
+        fires send the escalation across the link.  ``offloaded`` records
+        the intent (``conf < theta`` with the real theta)."""
+        conf = float(np.mean(np.asarray(rec.confs, np.float32)))
+        rid = rec.adm.request.request_id
+        self.counters.requests += 1
+        results[rid] = {
+            "tokens": np.asarray(rec.tokens, np.int32),
+            "s_tokens": np.asarray(rec.tokens, np.int32),
+            "confidence": conf,
+            "offloaded": conf < theta,
+            "served_remote": False,
+            "dropped": False,
+            "status": "ok",
+            "escalation_retries": 0,
+            "queue_wait_ticks": 0,
+            "esc_created_tick": -1,      # -1 = never escalated
+            "ttft": rec.ttft,
+        }
+        if conf >= theta:
+            return
+        self.counters.offloaded += 1
+        cur = self.counters.ticks - self._tick0
+        results[rid]["esc_created_tick"] = cur
+        esc = Escalation(rec.adm, rid, cur)
+        if self._breaker.state == CircuitBreaker.OPEN:
+            # fail-local: nothing crosses the link, the request degrades
+            self._degrade(esc, cur, results)
+            return
+        rec.adm.admit_retries = 0   # L admission gets a fresh retry budget
+        self._esc_meta[rid] = esc
+        self._link.send(esc, cur)
+
+    def _finish_l(self, rec: _Active, results: Dict) -> None:
+        rid = rec.adm.request.request_id
+        out = results[rid]
+        out["tokens"] = np.asarray(rec.tokens, np.int32)
+        out["served_remote"] = True
+        out["status"] = "ok"
+        esc = self._esc_meta.pop(rid, None)
+        if esc is not None:
+            cur = self.counters.ticks - self._tick0
+            out["escalation_retries"] = esc.attempt
+            out["queue_wait_ticks"] = max(
+                (esc.l_admit_tick if esc.l_admit_tick >= 0 else cur)
+                - esc.created_tick, 0)
+            self._breaker.record_success()
+            if self._probe == rid:
+                self._probe = None

@@ -176,7 +176,10 @@ def test_engine_on_card_matches_cpu_teacher_forced(gen):
         counts = ops.launch_counts()
     assert counts == {"hi_gate": 2 * 6,
                       "decode_attention": 6 * (s_cfg.num_layers
-                                               + cfg.num_layers)}
+                                               + cfg.num_layers),
+                      # the paged kernels belong to serve_stream
+                      "decode_attention_paged": 0,
+                      "decode_attention_chunk_paged": 0, "copy_pages": 0}
     # teacher-forced S-tier logits along the CPU's tokens
     logs = {}
     for name, tier, dev in (("cpu", cpu[0], "cpu"), ("cuda", gpu[0], "cuda")):
@@ -226,3 +229,276 @@ def test_cascade_never_synchronises_with_the_host(gen):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert out["tokens"].shape == (8, 4) and out["tokens"].is_cuda
+
+
+# ---------------------------------------------------------------------------
+# paged kernels (continuous serving)
+# ---------------------------------------------------------------------------
+
+def _paged_inputs(gen, b, h, k, d, page, npg, c, dtype, window=None,
+                  masked_slot=True):
+    """Shuffled physical pages; slot 0 holds only the pages its queries
+    reach (the rest of its row is the null page 0); the last slot sees no
+    key when ``masked_slot``.  Every key position no query of its slot may
+    see, and page 0, hold NaN or inf: the kernels must skip them."""
+    p = b * npg + 3
+    pool_k = torch.randn((p, page, k, d), generator=gen, device="cuda")
+    pool_v = torch.randn((p, page, k, d), generator=gen, device="cuda")
+    perm = torch.randperm(p - 1, generator=gen, device="cuda")[: b * npg] + 1
+    block = perm.to(torch.int32).reshape(b, npg)
+    s_tot = npg * page
+    hi = torch.randint(c, s_tot + 1, (b,), generator=gen, device="cuda")
+    pos = hi - c                                   # first query position
+    pos[0] = min(3 * page + 1, s_tot - c)
+    qpos = pos[:, None] + torch.arange(c, device="cuda")[None, :]
+    kpos = torch.arange(s_tot, device="cuda")
+    valid = kpos[None, None, :] <= qpos[:, :, None]
+    if window is not None:
+        valid &= qpos[:, :, None] - kpos[None, None, :] < window
+    if masked_slot and b > 1:
+        valid[-1] = False
+    last_page = int(pos[0] + c - 1) // page
+    block[0, last_page + 1:] = 0
+    seen = valid.any(dim=1)                        # (B, S_tot)
+    clean_k, clean_v = pool_k.clone(), pool_v.clone()
+    bi, s = torch.nonzero(~seen, as_tuple=True)
+    pg, off = block[bi, s // page].long(), s % page
+    pool_k[pg, off] = float("nan")
+    pool_v[pg, off] = float("inf")
+    pool_k[0], pool_v[0] = float("nan"), float("-inf")
+    q = torch.randn((b, c, h, d), generator=gen, device="cuda")
+    return (q, pool_k.to(dtype), pool_v.to(dtype), block, valid,
+            clean_k.to(dtype), clean_v.to(dtype))
+
+
+@pytest.mark.parametrize("d", da.PAGED_HEAD_DIMS)
+@pytest.mark.parametrize("b,h,k,page,npg", [(4, 12, 2, 16, 34),
+                                            (8, 3, 1, 16, 34),
+                                            (3, 8, 1, 8, 5),
+                                            (2, 4, 2, 4, 9)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 40])
+def test_paged_decode_kernel_matches_plain(gen, d, b, h, k, page, npg, dtype,
+                                           window):
+    q, pk, pv, block, valid, ck, cv = _paged_inputs(
+        gen, b, h, k, d, page, npg, 1, dtype, window)
+    before = da.decode_attention_paged_cuda.launches
+    out = ops.decode_attention_paged(q, pk, pv, block, valid[:, 0])
+    torch.cuda.synchronize()
+    assert da.decode_attention_paged_cuda.launches == before + 1
+    assert torch.isfinite(out).all()
+    ref = da.decode_attention_paged_plain(q, ck, cv, block, valid[:, 0])
+    torch.testing.assert_close(out, ref, atol=ATT_ATOL, rtol=0)
+    assert (out[-1] == 0).all()                    # sees no key: returns 0
+
+
+@pytest.mark.parametrize("c,h,k", [(64, 12, 2), (64, 3, 1), (4, 8, 2),
+                                   (7, 6, 1), (1, 4, 4)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 24])
+def test_paged_chunk_kernel_matches_plain(gen, c, h, k, d, dtype, window):
+    q, pk, pv, block, valid, ck, cv = _paged_inputs(
+        gen, 3, h, k, d, 16, 12, c, dtype, window)
+    before = da.decode_attention_chunk_paged_cuda.launches
+    out = ops.decode_attention_chunk_paged(q, pk, pv, block, valid)
+    torch.cuda.synchronize()
+    assert da.decode_attention_chunk_paged_cuda.launches == before + 1
+    assert torch.isfinite(out).all()
+    ref = da.decode_attention_chunk_paged_plain(q, ck, cv, block, valid)
+    torch.testing.assert_close(out, ref, atol=ATT_ATOL, rtol=0)
+    # the plain version skips the same garbage
+    torch.testing.assert_close(
+        da.decode_attention_chunk_paged_plain(q, pk, pv, block, valid), ref,
+        atol=0, rtol=0)
+
+
+def test_paged_wrappers_refuse_what_the_kernel_does_not_take(gen):
+    q, pk, pv, block, valid, _, _ = _paged_inputs(gen, 2, 4, 2, 64, 8, 4, 1,
+                                                  torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        da.decode_attention_paged_cuda(q[..., :48], pk[..., :48].contiguous(),
+                                       pv[..., :48].contiguous(), block,
+                                       valid[:, 0])
+    with pytest.raises(TypeError, match="dtypes"):
+        da.decode_attention_paged_cuda(q, pk, pv.float(), block, valid[:, 0])
+    with pytest.raises(ValueError, match="agree"):
+        da.decode_attention_chunk_paged_cuda(q, pk, pv, block[:1], valid)
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.element_size() == 2 else \
+        t.view(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layers,pages,pairs", [(28, 393, 4), (7, 785, 8),
+                                                (2, 700, 300)])
+def test_copy_pages_kernel_copies_only_its_pairs(gen, dtype, layers, pages,
+                                                 pairs):
+    """In place, across all layers and both pools in one launch (two past
+    256 pairs); every page that is not a destination keeps its bits, NaN
+    included."""
+    shape = (layers, pages, 16, 2, 128)
+    pk = torch.full(shape, float("nan"), device="cuda").to(dtype)
+    pv = torch.full(shape, float("nan"), device="cuda").to(dtype)
+    perm = torch.randperm(pages - 1, generator=gen,
+                          device="cuda").cpu().numpy() + 1
+    src, dst = perm[:pairs].astype(np.int32), perm[pairs:2 * pairs] \
+        .astype(np.int32)
+    for t in (pk, pv):
+        t[:, src] = torch.randn((layers, pairs) + shape[2:], generator=gen,
+                                device="cuda").to(dtype)
+    src_p = np.concatenate([src, [0, 0]]).astype(np.int32)  # (0, 0) pads
+    dst_p = np.concatenate([dst, [0, 0]]).astype(np.int32)
+    want_k, want_v = pk.clone(), pv.clone()
+    from repro_torch.kernels import copy_pages as cp
+    cp.copy_pages_plain((want_k, want_v), src_p, dst_p)
+    before = cp.copy_pages_cuda.launches
+    ops.copy_pages((pk, pv), src_p, dst_p)
+    torch.cuda.synchronize()
+    assert cp.copy_pages_cuda.launches == before + -(-pairs // cp.MAX_PAIRS)
+    assert torch.equal(_bits(pk), _bits(want_k))
+    assert torch.equal(_bits(pv), _bits(want_v))
+    assert torch.equal(_bits(pk[:, dst]), _bits(pk[:, src]))
+    with pytest.raises(ValueError, match="also a source"):
+        ops.copy_pages((pk, pv), src[:2], np.array([dst[0], src[0]]))
+
+
+def _reduced_tiers():
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import model_zoo
+    from repro_torch.serving.engine import TierModel
+    cfg = ARCHS["qwen2-1.5b"].reduced()
+    g = torch.Generator().manual_seed(0)
+    cpu = [TierModel(c, model_zoo.init_params(g, c))
+           for c in (cfg.s_variant(4), cfg)]
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+
+    return cpu, [TierModel(t.cfg, to(t.params, "cuda")) for t in cpu]
+
+
+def _stream_requests(vocab, n=10, seed=0):
+    from repro_torch.serving.batcher import Request
+    rng = np.random.default_rng(seed)
+    # repeats of a 14-token prefix land in the 20 bucket (a partial tail
+    # page: restores copy it) and take the admit lane (chunk_size 20); the
+    # 48-bucket prompts take the chunk lane
+    base = rng.integers(1, vocab, 14).astype(np.int32)
+    reqs = []
+    for i in range(n):
+        if i % 3 == 0:                              # shared prefix, repeats
+            p = np.concatenate([base, np.full(4 + i % 2, 7, np.int32)])
+        else:
+            p = rng.integers(1, vocab, int(rng.integers(4, 48))) \
+                .astype(np.int32)
+        reqs.append(Request(i, p, max_new_tokens=int(rng.integers(2, 7))))
+    return reqs
+
+
+STREAM_KW = dict(buckets=(8, 20, 48), num_slots=4, l_slots=2, page_size=8,
+                 decode_block=2, chunk_prefill=True, chunk_size=20,
+                 chunk_width=2, validate=True)
+
+
+def test_stream_on_card_matches_cpu(gen, monkeypatch):
+    """Reduced qwen2-1.5b ``serve_stream`` (prefix sharing with COW, the
+    chunk lane) on the card against the CPU's plain versions: equal
+    statuses, tokens equal up to the CPU's first non-decisive position
+    (teacher-forced), one host fetch per tick, and each kernel's launches
+    exactly what the host's lane flags predict."""
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.models import model_zoo
+    from repro_torch.parity import decisive
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.batcher import pad_to_bucket
+    from repro_torch.serving.engine import HIEngine
+    from repro_torch.serving.faults import STATUSES
+
+    cpu, gpu = _reduced_tiers()
+    reqs = _stream_requests(cpu[0].cfg.vocab_size)
+    fetches = []
+    real = engine_mod._host_fetch
+    monkeypatch.setattr(engine_mod, "_host_fetch",
+                        lambda tree: (fetches.append(1), real(tree))[1])
+    outs = {}
+    for name, tiers in (("cpu", cpu), ("cuda", gpu)):
+        eng = HIEngine(*tiers, HIConfig(theta=0.02, capacity_factor=1.0),
+                       max_new_tokens=6)
+        ops.reset_launch_counts()
+        n0 = len(fetches)
+        outs[name] = eng.serve_stream(reqs, **STREAM_KW)
+        assert len(fetches) - n0 == eng.stats["stream_ticks"]
+        counts = ops.launch_counts()
+        sched = eng._stream[1]
+    s, l = sched.srt, sched.lrt
+    kb = STREAM_KW["decode_block"]
+    ls, ll = s.pool.cfg.num_layers, l.pool.cfg.num_layers
+    assert counts == {
+        "hi_gate": sum(t.lane_ticks["admit"] + t.lane_ticks["chunk"]
+                       + kb * t.lane_ticks["live"] for t in (s, l)),
+        "decode_attention": 0,
+        "decode_attention_paged": kb * (ls * s.lane_ticks["live"]
+                                        + ll * l.lane_ticks["live"]),
+        "decode_attention_chunk_paged": (ls * s.lane_ticks["chunk"]
+                                         + ll * l.lane_ticks["chunk"]),
+        "copy_pages": s.lane_ticks["cow"] + l.lane_ticks["cow"]}
+    assert counts["copy_pages"] > 0 and counts["decode_attention_chunk_paged"]
+    assert s.pool.held_slots == l.pool.held_slots == []
+    for r in reqs:
+        c, g = outs["cpu"][r.request_id], outs["cuda"][r.request_id]
+        assert c["status"] == g["status"] and g["status"] in STATUSES
+        prompt = np.zeros(pad_to_bucket(len(r.prompt), STREAM_KW["buckets"]),
+                          np.int64)
+        prompt[: len(r.prompt)] = r.prompt
+        # the CPU's logits along its own S tokens decide what counts
+        tier = cpu[0]
+        cache = model_zoo.init_cache(tier.cfg, 1, 64, device="cpu")
+        lg, cache = model_zoo.prefill(tier.params, tier.cfg,
+                                      torch.from_numpy(prompt[None]), cache)
+        logs = [lg[0].numpy()]
+        for t in c["s_tokens"][:-1]:
+            lg, cache = model_zoo.decode_step(
+                tier.params, tier.cfg, torch.tensor([[int(t)]]), cache)
+            logs.append(lg[0].numpy())
+        dec = decisive(np.stack(logs), 1e-2)
+        first = int(np.argmin(dec)) if not dec.all() else len(dec)
+        np.testing.assert_array_equal(g["s_tokens"][:first],
+                                      c["s_tokens"][:first])
+
+
+def test_stream_tick_synchronises_only_in_host_fetch(gen, monkeypatch):
+    """Inside a tick nothing reads the card on the host: every tick of a
+    reduced ``serve_stream`` runs under the sync debugger set to raise,
+    which ``_host_fetch`` alone lifts for its one copy."""
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.kernels import build
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.engine import HIEngine
+
+    _, gpu = _reduced_tiers()
+    reqs = _stream_requests(gpu[0].cfg.vocab_size, seed=1)
+    eng = HIEngine(*gpu, HIConfig(theta=0.02, capacity_factor=1.0),
+                   max_new_tokens=6)
+    build.library()
+    eng.serve_stream(reqs, **STREAM_KW)           # warm: allocations, build
+    torch.cuda.synchronize()
+    real = engine_mod._host_fetch
+
+    def fetch(tree):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(tree)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(engine_mod, "_host_fetch", fetch)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = eng.serve_stream(reqs, **STREAM_KW)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(out) == len(reqs)

@@ -275,7 +275,11 @@ def test_engine_output_shapes_and_stats():
     assert 0 <= s["offload_frac"] <= 1
     assert s["requests"] == 4 and s["serve_time"] > 0
     assert set(s) == {"requests", "offloaded", "dropped", "serve_time",
-                      "cache_allocs", "offload_frac", "drop_frac"}
+                      "cache_allocs", "offload_frac", "drop_frac",
+                      # serve_stream's counters (0 on the drain path)
+                      "stream_compiles", "stream_ticks",
+                      "prefill_tokens_saved", "degraded_local", "rejected"}
+    assert s["stream_ticks"] == s["stream_compiles"] == 0
 
 
 def test_engine_online_policy_adapts():

@@ -126,7 +126,16 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     ops.hi_gate(torch.randn(4, 32), 0.5)
     ops.decode_attention(torch.randn(1, 1, 2, 16), torch.randn(1, 8, 1, 16),
                          torch.randn(1, 8, 1, 16), torch.ones(8, dtype=bool))
-    assert ops.launch_counts() == {"hi_gate": 0, "decode_attention": 0}
+    pool = torch.randn(5, 4, 1, 16)
+    block = torch.tensor([[1, 2]], dtype=torch.int32)
+    ops.decode_attention_paged(torch.randn(1, 1, 2, 16), pool, pool, block,
+                               torch.ones(1, 8, dtype=bool))
+    ops.decode_attention_chunk_paged(torch.randn(1, 3, 2, 16), pool, pool,
+                                     block, torch.ones(1, 3, 8, dtype=bool))
+    ops.copy_pages((pool[None].clone(),), [1], [3])
+    assert ops.launch_counts() == {
+        "hi_gate": 0, "decode_attention": 0, "decode_attention_paged": 0,
+        "decode_attention_chunk_paged": 0, "copy_pages": 0}
 
 
 def test_kernel_wrappers_refuse_non_cuda_tensors():
@@ -150,7 +159,7 @@ def test_build_commands_target_sm90a_in_parallel(tmp_path):
     link into a single shared library; the build key follows the sources."""
     from repro_torch.kernels import build
     compiles, link = build.compile_commands("nvcc", tmp_path)
-    assert len(compiles) == len(build.SOURCES) == 2
+    assert len(compiles) == len(build.SOURCES) == 4
     for cmd in compiles:
         assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
         assert "-Xptxas" in cmd and "-v" in cmd and "-O3" in cmd
