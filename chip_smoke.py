@@ -11,8 +11,11 @@ Phases (any failure exits non-zero before the last line):
    (seconds, and ``ptxas -v`` register / shared-memory / spill lines).
 3. kernels — each kernel against its plain PyTorch version at the shapes the
    main path gives it, with the tolerance stated, and timed with CUDA events
-   beside its bound, its plain version and, where one exists, one PyTorch
-   call that computes the same function.
+   and ``torch.profiler`` beside its bound, its plain version and, where one
+   exists, one PyTorch call that computes the same function.  ssd_chunk at
+   mamba2-370m's L and S admission shapes and zamba2-2.7b's L shape, with
+   its padded-tail exactness; the paged decode kernel also at zamba2's head
+   dim 80 with NaN and inf planted where no query may look.
 4. serve   — the drain path: ``HIEngine.serve`` on the full-width qwen2-1.5b
    cascade (L = qwen2-1.5b, S = its ``s_variant(4)``), random float32 params
    from a seeded ``torch.Generator``, bf16 KV cache; 16 requests through
@@ -35,8 +38,21 @@ Phases (any failure exits non-zero before the last line):
    under ``torch.profiler``: the device's time by kernel kind and its busy
    share of the wall time (``--trace DIR`` keeps the gzipped Chrome traces
    in DIR).
-7. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
-   ``{"ok": true, "device": {...}}``.
+7. mamba2  — the SSM family at full size (L mamba2-370m, 48 layers; S 12):
+   phases 4 to 6 again (drain with ssd_chunk launched once per layer per
+   prefill; the 32-request stream trace at vocab 50,280 with the chunk lane
+   off, asserting whole-prompt restores and saved prefill tokens; its
+   trace), each with its small card-against-CPU check.
+8. chunk   — the chunk lane at mamba2 widths cut to 8 layers (S 2): four
+   prompts of 96..200 tokens fed 64 per tick, the staged rollback on the
+   card, tokens against the same per-token steps on a one-row cache.
+9. hybrid  — zamba2-2.7b at full width cut to 24 layers (S 6; the
+   reference cannot build the full-depth cascade): a 12-request stream
+   with repeated system prompts, asserting ssd_chunk, the paged kernel at
+   head dim 80, copy_pages and hi_gate against the lane flags.
+10. the ``{"kernels": [...]}`` line (launches summed over every main-path
+   run, each run's counts set to 0 just before it), the ``nvidia-smi``
+   line, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN throughout, so float32 stays float32.
 Imports nothing of JAX and nothing of the JAX package.
@@ -88,11 +104,33 @@ NPG = 34
 L_PAGES = 4 * NPG + 1 + 8 * 32
 S_PAGES = 8 * NPG + 1 + 16 * 32
 
+# the recurrent families (SSM mamba2-370m at full size; hybrid zamba2-2.7b
+# at full width, cut in depth: the reference cannot build its full-depth
+# cascade, whose 13-layer S tier its groups of 6 do not divide)
+SSM_ARCH, HYBRID_ARCH = "mamba2-370m", "zamba2-2.7b"
+SSM_STREAM_KW = dict(STREAM_KW, chunk_prefill=False)
+CHUNK_DEPTH = 8             # chunk-lane phase: mamba2 widths, 8 layers (S 2)
+CHUNK_KW = dict(buckets=(128, 256), num_slots=4, l_slots=2, page_size=16,
+                decode_block=4, chunk_prefill=True, chunk_size=64,
+                chunk_width=2, validate=True)
+HYBRID_DEPTH = 24           # zamba2: 4 groups of 6 (S: 6 layers, 3 groups)
+HYBRID_KW = dict(buckets=(64, 128, 248, 256), num_slots=8, l_slots=4,
+                 page_size=16, decode_block=4, prefix_sharing=True,
+                 chunk_prefill=False, validate=True)
+# its L tier's pool: 18 pages of 16 per slot (256 + 15 + 3 positions), plus
+# 2 * 4 retained prompts of 16 pages
+Z_NPG = 18
+Z_L_PAGES = 4 * Z_NPG + 1 + 8 * 16
+
 # tolerances of kernel vs plain version (both float32 arithmetic; only the
 # order of the sums differs)
 CONF_ATOL, CONF_RTOL = 1e-5, 1e-4        # over 151,936 exp terms
 ATT_ATOL = 1e-4                          # over <= 1,024 positions
 SMALL_LOGIT_TOL = 5e-3                   # card vs CPU, small model, bf16 K/V
+SSD_ATOL, SSD_RTOL = 1e-4, 1e-4          # ssd_chunk, sums of <= 128 terms
+# chunk lane (W rows) vs the same per-token steps on a one-row contiguous
+# cache: the same float32 arithmetic, products of another batch size
+CHUNK_LOGIT_TOL = 1e-3
 
 
 def log(*a):
@@ -283,23 +321,31 @@ def check_decode_attention(gen):
     return main
 
 
-def _paged_case(gen, b, h, k, pages, pos, c):
-    """A main-path paged input: a (pages, 16, K, 128) bf16 pool, each slot's
-    34-page block row drawn without repeats from shuffled pages, queries at
-    positions pos[b] .. pos[b] + c - 1."""
+def _paged_case(gen, b, h, k, pages, pos, c, d=128, npg=NPG, plant=False):
+    """A main-path paged input: a (pages, 16, K, D) bf16 pool, each slot's
+    ``npg``-page block row drawn without repeats from shuffled pages,
+    queries at positions pos[b] .. pos[b] + c - 1.  ``plant``: NaN and inf
+    in every pool position no query may see (page 0, stale page tails),
+    which the kernel must never let into a result."""
     import torch
-    d, page = 128, 16
+    page = 16
     pool_k = torch.randn((pages, page, k, d), generator=gen,
                          device="cuda").to(torch.bfloat16)
     pool_v = torch.randn((pages, page, k, d), generator=gen,
                          device="cuda").to(torch.bfloat16)
     perm = torch.randperm(pages - 1, generator=gen, device="cuda") + 1
-    block = perm[: b * NPG].to(torch.int32).reshape(b, NPG)
+    block = perm[: b * npg].to(torch.int32).reshape(b, npg)
     q = torch.randn((b, c, h, d), generator=gen, device="cuda")
     qpos = torch.as_tensor(pos, device="cuda")[:, None] + \
         torch.arange(c, device="cuda")[None, :]
-    kpos = torch.arange(NPG * page, device="cuda")
+    kpos = torch.arange(npg * page, device="cuda")
     valid = kpos[None, None, :] <= qpos[:, :, None]
+    if plant:
+        hidden = ~valid.any(dim=1)                    # (B, S_tot)
+        phys = block.long()[:, kpos // page] * page + kpos % page
+        for pool, bad in ((pool_k, float("nan")), (pool_v, float("inf"))):
+            pool.view(-1, k, d)[phys[hidden]] = bad
+            pool[0] = float("nan")
     return q, pool_k, pool_v, block, valid
 
 
@@ -326,8 +372,9 @@ def _gather_sdpa(q, pool_k, pool_v, block, valid):
 
 
 def check_paged(gen, name, c, cases):
-    """Kernels 3 and 4 (one source): each case is (label, B, H, K, pages,
-    first query positions).  The main path's L-tier case is timed first."""
+    """Kernels 3 and 4 (one source): each case is (label, B, H, K, D, pages,
+    first query positions, pages per slot, plant NaN/inf).  The main path's
+    L-tier case is timed first."""
     import torch
     from repro_torch.kernels import decode_attention as da
     kernel = (da.decode_attention_paged_cuda if c == 1
@@ -339,8 +386,9 @@ def check_paged(gen, name, c, cases):
         return valid[:, 0] if c == 1 else valid
 
     worst, main = 0.0, None
-    for label, b, h, k, pages, pos in cases:
-        q, pk, pv, block, valid = _paged_case(gen, b, h, k, pages, pos, c)
+    for label, b, h, k, d, pages, pos, npg, plant in cases:
+        q, pk, pv, block, valid = _paged_case(gen, b, h, k, pages, pos, c, d,
+                                              npg, plant)
         out_k = kernel(q, pk, pv, block, mask(valid))
         out_p = plain(q, pk, pv, block, mask(valid))
         torch.cuda.synchronize()
@@ -350,10 +398,10 @@ def check_paged(gen, name, c, cases):
         worst = max(worst, err)
         seen = valid.any(dim=1)                      # keys any query sees
         n_seen, n_pairs = int(seen.sum()), int(valid.sum())
-        nbytes = (2 * b * c * h * 128 * 4 + 2 * n_seen * k * 128 * 2
+        nbytes = (2 * b * c * h * d * 4 + 2 * n_seen * k * d * 2
                   + valid.numel() + block.numel() * 4)
-        sets = copies(lambda: _paged_case(gen, b, h, k, pages, pos, c),
-                      2 * pk.numel() * 2)
+        sets = copies(lambda: _paged_case(gen, b, h, k, pages, pos, c, d,
+                                          npg, plant), 2 * pk.numel() * 2)
         msets = [(q_, a, v_, bl, mask(m)) for q_, a, v_, bl, m in sets]
         ms = timed(kernel, msets, 200)
         dev_ms = device_ms(kernel, msets, r"paged_attention_kernel")
@@ -361,9 +409,10 @@ def check_paged(gen, name, c, cases):
         lib_sets = [_paged_library(*x) for x in sets]
         lib_ms = timed(_sdpa, lib_sets, 200)
         gather_ms = timed(_gather_sdpa, sets, 50)
-        bound_ms, by = bound(nbytes, 4 * h * 128 * n_pairs)
-        log(f"  {name} {label}: B={b} C={c} H={h} K={k} D=128 pool "
-            f"({pages},16,{k},128) bf16, {n_pairs} (query, key) pairs  "
+        bound_ms, by = bound(nbytes, 4 * h * d * n_pairs)
+        log(f"  {name} {label}: B={b} C={c} H={h} K={k} D={d} pool "
+            f"({pages},16,{k},{d}) bf16, {n_pairs} (query, key) pairs"
+            f"{', NaN/inf planted where no query looks' if plant else ''}  "
             f"max_abs_err {err:.2e} (tol {ATT_ATOL:g})  {ms * 1e3:.1f} us "
             f"(device {dev_ms * 1e3:.1f} us)  "
             f"plain {plain_ms * 1e3:.1f} us  sdpa on gathered K/V "
@@ -375,8 +424,8 @@ def check_paged(gen, name, c, cases):
                     "replaces": ("src/repro/kernels/decode_attention.py:376"
                                  if c == 1 else
                                  "src/repro/kernels/decode_attention.py:307"),
-                    "shape": (f"{label}: q ({b},{c},{h},128) f32, pool "
-                              f"({pages},16,{k},128) bf16, {n_pairs} pairs"),
+                    "shape": (f"{label}: q ({b},{c},{h},{d}) f32, pool "
+                              f"({pages},16,{k},{d}) bf16, {n_pairs} pairs"),
                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": by,
                     "library_ms": lib_ms, "gather_sdpa_ms": gather_ms}
@@ -388,10 +437,13 @@ def check_decode_attention_paged(gen):
     import numpy as np
     rng = np.random.default_rng(3)
     return check_paged(gen, "decode_attention_paged", 1, [
-        ("L tier qwen2-1.5b", 4, 12, 2, L_PAGES,
-         rng.integers(32, 528, 4).tolist()),
-        ("S tier qwen2-1.5b-s4", 8, 3, 1, S_PAGES,
-         rng.integers(32, 528, 8).tolist())])
+        ("L tier qwen2-1.5b", 4, 12, 2, 128, L_PAGES,
+         rng.integers(32, 528, 4).tolist(), NPG, False),
+        ("S tier qwen2-1.5b-s4", 8, 3, 1, 128, S_PAGES,
+         rng.integers(32, 528, 8).tolist(), NPG, False),
+        # zamba2's shared block: 32 heads over 32 kv heads of 80
+        ("L tier zamba2-2.7b", 4, 32, 32, 80, Z_L_PAGES,
+         rng.integers(32, 272, 4).tolist(), Z_NPG, True)])
 
 
 def check_decode_attention_chunk_paged(gen):
@@ -399,8 +451,10 @@ def check_decode_attention_chunk_paged(gen):
     # chunk and another's second (positions 256..511)
     c = STREAM_KW["chunk_size"]
     return check_paged(gen, "decode_attention_chunk_paged", c, [
-        ("L tier qwen2-1.5b", 2, 12, 2, L_PAGES, [0, 512 - c]),
-        ("S tier qwen2-1.5b-s4", 2, 3, 1, S_PAGES, [0, 512 - c])])
+        ("L tier qwen2-1.5b", 2, 12, 2, 128, L_PAGES, [0, 512 - c], NPG,
+         False),
+        ("S tier qwen2-1.5b-s4", 2, 3, 1, 128, S_PAGES, [0, 512 - c], NPG,
+         False)])
 
 
 def check_copy_pages(gen):
@@ -472,20 +526,113 @@ def check_copy_pages(gen):
     return main
 
 
+def _ssd_case(gen, b, nc, q, h, p, n, live=None):
+    import torch
+    x = torch.randn((b, nc, q, h, p), generator=gen, device="cuda")
+    # softplus-range steps; a right-padded row's tail carries dt = 0
+    dt = torch.rand((b, nc, q, h), generator=gen, device="cuda") * 0.5
+    if live is not None:
+        dt[:, :, live:] = 0.0
+    A = -torch.rand((h,), generator=gen, device="cuda") - 0.2
+    B = torch.randn((b, nc, q, n), generator=gen, device="cuda")
+    C = torch.randn((b, nc, q, n), generator=gen, device="cuda")
+    return x, dt, A, B, C
+
+
+def ssd_bound(b, nc, q, h, p, n):
+    """(bytes, float32 operations) of one ssd_chunk call: every input read
+    once and every output written once; C.B^T and the y_diag sums over
+    j <= i only (the causal half the data needs), S over every j."""
+    nbytes = 4 * (2 * b * nc * q * h * p + 2 * b * nc * q * h
+                  + 2 * b * nc * q * n + h + b * nc * h * p * n + b * nc * h)
+    tri = q * (q + 1) // 2
+    flops = 2 * b * nc * (tri * n + h * (tri * p + q * p * n))
+    return nbytes, flops
+
+
+def check_ssd_chunk(gen):
+    """Kernel 6 at the main path's admission shapes (mamba2-370m L: 4 rows
+    of the 512 bucket; S: 8 rows; zamba2-2.7b L: 4 rows of the 256 bucket),
+    all four outputs against the plain version; then the padded-tail
+    exactness (dt = 0 past the length: S unmoved by x there, g equal to
+    exp(a_cs) at the length, bit for bit)."""
+    import torch
+    from repro_torch.kernels import ssd_scan
+    cases = [  # (label, b, nc, Q, H, P, N)
+        ("L tier mamba2-370m", 4, 4, 128, 32, 64, 128),
+        ("S tier mamba2-370m-s4", 8, 4, 128, 8, 64, 128),
+        ("L tier zamba2-2.7b", 4, 2, 128, 80, 64, 64),
+    ]
+    worst, main = 0.0, None
+    for label, *shape in cases:
+        args = _ssd_case(gen, *shape)
+        got = ssd_scan.ssd_chunk_cuda(*args)
+        want = ssd_scan.ssd_chunk_ref(*args)
+        torch.cuda.synchronize()
+        errs = []
+        for name, g, w in zip(("y_diag", "S", "g", "exp_acs"), got, want):
+            e = (g - w).abs()
+            if not bool(torch.isfinite(g).all()) or not bool(
+                    (e <= SSD_ATOL + SSD_RTOL * w.abs()).all()):
+                raise AssertionError(f"ssd_chunk {label} {name}: max err "
+                                     f"{e.max().item():.3e}")
+            errs.append(e.max().item())
+        worst = max(worst, max(errs))
+        nbytes, flops = ssd_bound(*shape)
+        b, nc, q, h, p, n = shape
+        in_bytes = 4 * (b * nc * q * h * (p + 1) + 2 * b * nc * q * n + h)
+        sets = copies(lambda: _ssd_case(gen, *shape), in_bytes)
+        ms = timed(ssd_scan.ssd_chunk_cuda, sets, 100)
+        dev_ms = device_ms(ssd_scan.ssd_chunk_cuda, sets, r"ssd_chunk_kernel",
+                           iters=30)
+        plain_ms = timed(ssd_scan.ssd_chunk_ref, sets, 10)
+        bound_ms, by = bound(nbytes, flops)
+        log(f"  ssd_chunk {label}: b={b} nc={nc} Q={q} H={h} P={p} N={n} f32"
+            f"  max_abs_err y {errs[0]:.2e} S {errs[1]:.2e} g {errs[2]:.2e} "
+            f"exp_acs {errs[3]:.2e} (tol {SSD_ATOL:g} + {SSD_RTOL:g}*|ref|)"
+            f"  {ms * 1e3:.1f} us (device {dev_ms * 1e3:.1f} us)  plain "
+            f"{plain_ms * 1e3:.1f} us  bound {bound_ms * 1e3:.2f} us ({by}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)  library: no "
+            "single call")
+        if main is None:
+            main = {"name": "ssd_chunk", "route": "cuda",
+                    "source": "src/repro_torch/csrc/ssd_scan.cu",
+                    "replaces": "src/repro/kernels/ssd_scan.py:57",
+                    "shape": (f"{label}: x ({b},{nc},{q},{h},{p}), B/C "
+                              f"({b},{nc},{q},{n}) f32"),
+                    "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by,
+                    "library_ms": None}
+    x, dt, A, B, C = _ssd_case(gen, 4, 4, 128, 32, 64, 128, live=77)
+    y, S, g, eacs = ssd_scan.ssd_chunk_cuda(x, dt, A, B, C)
+    x2 = x.clone()
+    x2[:, :, 77:] = 1e4
+    _, S2, g2, _ = ssd_scan.ssd_chunk_cuda(x2, dt, A, B, C)
+    torch.cuda.synchronize()
+    if not (torch.equal(S2, S) and torch.equal(g2, g)
+            and torch.equal(g, eacs[:, :, 76])
+            and bool(torch.isfinite(y).all())):
+        raise AssertionError("ssd_chunk: a dt = 0 tail is not an exact no-op")
+    log("  ssd_chunk padded tail (dt = 0 past position 77 of 128): S and g "
+        "bit-identical whatever x holds there, g == exp(a_cs) at the length")
+    main["max_abs_err"] = worst
+    return main
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def check_small_reference():
+def check_small_reference(arch=ARCH):
     """The port on the card against the port on the CPU (plain kernel
-    versions), reduced qwen2-1.5b, prefill + 8 teacher-forced decode steps:
+    versions), ``arch`` reduced, prefill + 8 teacher-forced decode steps:
     logits allclose and every decisive greedy token equal."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models import model_zoo
     from repro_torch.parity import greedy_agreement
-    cfg = ARCHS[ARCH].reduced()
+    cfg = ARCHS[arch].reduced()
     params = model_zoo.init_params(torch.Generator().manual_seed(1), cfg)
     rng = np.random.default_rng(1)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 24)))
@@ -503,7 +650,7 @@ def check_small_reference():
         logs[dev] = np.stack(steps)
     err = float(np.abs(logs["cuda"] - logs["cpu"]).max())
     n, agree = greedy_agreement(logs["cpu"], logs["cuda"], SMALL_LOGIT_TOL)
-    log(f"  small input (reduced {ARCH}, card vs CPU, 9 steps): max logit err "
+    log(f"  small input (reduced {arch}, card vs CPU, 9 steps): max logit err "
         f"{err:.2e} (tol {SMALL_LOGIT_TOL:g}); decisive tokens {agree}/{n}")
     if not err <= SMALL_LOGIT_TOL or n == 0 or agree != n:
         raise AssertionError("card and CPU disagree on the small input")
@@ -514,7 +661,26 @@ def _to(tree, dev):
             for k, v in tree.items()}
 
 
-def serve_full_width():
+def _drain_expected(eng):
+    """Each kernel's launches per serve: hi_gate gates both tiers' T steps;
+    the dense family's decode attention runs once per layer and step; the
+    SSM family's prefill launches ssd_chunk once per layer and tier."""
+    exp = dict.fromkeys(_kernel_names(), 0)
+    exp["hi_gate"] = 2 * MAX_NEW
+    for cfg in (eng.s.cfg, eng.l.cfg):
+        if cfg.family == "dense":
+            exp["decode_attention"] += MAX_NEW * cfg.num_layers
+        else:
+            exp["ssd_chunk"] += cfg.num_layers
+    return exp
+
+
+def _kernel_names():
+    from repro_torch.kernels import ops
+    return tuple(ops.KERNELS)
+
+
+def serve_full_width(arch=ARCH):
     import numpy as np
     import torch
     from repro_torch.configs.base import HIConfig
@@ -523,7 +689,7 @@ def serve_full_width():
     from repro_torch.serving import engine as engine_mod
     from repro_torch.serving.batcher import Batcher, Request
 
-    cfg = ARCHS[ARCH]
+    cfg = ARCHS[arch]
     hi = HIConfig(theta=THETA, capacity_factor=CAPACITY)
     t0 = time.perf_counter()
     eng = engine_mod.build_engine(cfg, hi, seed=0, cache_len=CACHE_LEN,
@@ -551,13 +717,11 @@ def serve_full_width():
         return real_fetch(tree)
 
     engine_mod._host_fetch = counting_fetch
-    per_serve_decode = MAX_NEW * (eng.s.cfg.num_layers + eng.l.cfg.num_layers)
-    per_serve_gate = 2 * MAX_NEW
-    log(f"  expected launches per serve: decode_attention = T*(L_S + L_L) = "
-        f"{MAX_NEW}*({eng.s.cfg.num_layers}+{eng.l.cfg.num_layers}) = "
-        f"{per_serve_decode}; hi_gate = 2*T = {per_serve_gate}")
-    # the paged kernels belong to the stream path: none launches here
-    drain_zero = dict.fromkeys(ops.KERNELS, 0)
+    want = _drain_expected(eng)
+    log(f"  expected launches per serve (hi_gate = 2*T; decode_attention = "
+        f"T*(L_S + L_L) for the dense family; ssd_chunk = L_S + L_L for the "
+        f"SSM family, T = {MAX_NEW}, L_S = {eng.s.cfg.num_layers}, L_L = "
+        f"{eng.l.cfg.num_layers}): {want}")
     torch.cuda.reset_peak_memory_stats()
     served = gen_tokens = 0
     t_serve = 0.0
@@ -576,9 +740,8 @@ def serve_full_width():
                 raise AssertionError(f"serve made {len(fetches) - n_fetch} "
                                      "host fetches, expected 1")
             got = {k: after[k] - before[k] for k in after}
-            if got != dict(drain_zero, hi_gate=per_serve_gate,
-                           decode_attention=per_serve_decode):
-                raise AssertionError(f"launches per serve {got}")
+            if got != want:
+                raise AssertionError(f"launches per serve {got}, want {want}")
             _check_outputs(out, batch, cfg, THETA)
             live = batch.request_ids >= 0
             served += int(live.sum())
@@ -599,9 +762,7 @@ def serve_full_width():
         out = eng.serve(batch.tokens)
         after = ops.launch_counts()
         got = {k: after[k] - before[k] for k in after}
-        if got != dict(drain_zero, hi_gate=per_serve_gate,
-                       decode_attention=per_serve_decode) or \
-                len(fetches) - n_fetch != 1:
+        if got != want or len(fetches) - n_fetch != 1:
             raise AssertionError(f"launches per serve {got}, host fetches "
                                  f"{len(fetches) - n_fetch}")
         _check_outputs(out, batch, cfg, theta)
@@ -633,8 +794,8 @@ def serve_full_width():
 # phase 5: the continuous path
 # ---------------------------------------------------------------------------
 
-def check_small_stream_reference():
-    """Reduced qwen2-1.5b ``serve_stream`` (prefix sharing with COW, the
+def check_small_stream_reference(arch=ARCH):
+    """Reduced ``arch`` ``serve_stream`` (prefix sharing with COW, the
     chunk lane) on the card against the CPU (plain versions), same params:
     equal statuses, and S tokens equal up to the CPU's first position whose
     top1 - top2 logit margin is under ``2 * SMALL_LOGIT_TOL``
@@ -647,7 +808,7 @@ def check_small_stream_reference():
     from repro_torch.parity import decisive
     from repro_torch.serving.batcher import Request, pad_to_bucket
     from repro_torch.serving.engine import HIEngine, TierModel
-    cfg = ARCHS[ARCH].reduced()
+    cfg = ARCHS[arch].reduced()
     g = torch.Generator().manual_seed(2)
     cpu = [TierModel(c, model_zoo.init_params(g, c))
            for c in (cfg.s_variant(4), cfg)]
@@ -697,7 +858,7 @@ def check_small_stream_reference():
                                  f"{k['s_tokens']} != CPU {c['s_tokens']}")
         n_cmp += first
         n_tok += len(c["s_tokens"])
-    log(f"  small stream (reduced {ARCH}, card vs CPU, {len(reqs)} requests):"
+    log(f"  small stream (reduced {arch}, card vs CPU, {len(reqs)} requests):"
         f" statuses equal; {n_cmp}/{n_tok} S tokens compared (up to the "
         f"first margin under {2 * SMALL_LOGIT_TOL:g}), all equal")
     if n_cmp == 0:
@@ -728,35 +889,52 @@ def _stream_trace(cfg, seed=0):
             for i, j in enumerate(order)]
 
 
-def _expected_launches(sched, before, kb):
+def _expected_launches(sched, before, kb, chunk):
     """Each kernel's launches over a run, from the ticks in which the host
     ran each lane on each tier (``lane_ticks`` at the run's end less
-    ``before``)."""
-    exp = {"hi_gate": 0, "decode_attention": 0, "decode_attention_paged": 0,
-           "decode_attention_chunk_paged": 0, "copy_pages": 0}
+    ``before``).  Dense: the paged kernels once per layer and decode step or
+    chunk pass, copy_pages once per COW tick.  SSM: ssd_chunk once per layer
+    and prefill, no pages.  Hybrid: ssd_chunk once per mamba layer and
+    prefill, the paged decode kernel once per group and step (the chunk
+    lane's ``chunk`` per-token steps included), copy_pages per COW tick."""
+    exp = dict.fromkeys(_kernel_names(), 0)
     for rt in (sched.srt, sched.lrt):
         d = {k: rt.lane_ticks[k] - before[rt.name][k] for k in rt.lane_ticks}
-        n_layers = rt.pool.cfg.num_layers
+        cfg = rt.pool.cfg
+        n_layers = cfg.num_layers
         exp["hi_gate"] += d["admit"] + d["chunk"] + kb * d["live"]
-        exp["decode_attention_paged"] += kb * n_layers * d["live"]
-        exp["decode_attention_chunk_paged"] += n_layers * d["chunk"]
-        exp["copy_pages"] += d["cow"]
+        if cfg.family == "dense":
+            exp["decode_attention_paged"] += kb * n_layers * d["live"]
+            exp["decode_attention_chunk_paged"] += n_layers * d["chunk"]
+            exp["copy_pages"] += d["cow"]
+            continue
+        exp["ssd_chunk"] += n_layers * d["prefill"]
+        if cfg.family == "hybrid":
+            g = n_layers // cfg.shared_attn_every
+            exp["decode_attention_paged"] += g * (kb * d["live"]
+                                                  + chunk * d["chunk"])
+            exp["copy_pages"] += d["cow"]
     return exp
 
 
-def serve_stream_full_width(eng):
-    """The continuous path at full width; returns the launches of its two
-    runs (counts set to 0 just before the first, read after the second)."""
+def serve_stream_full_width(eng, kw=STREAM_KW, reqs=None,
+                            need=("cow", "saved", "chunk")):
+    """The continuous path at full width, two runs (theta 0.6, then the
+    median S confidence of the first); ``need`` names the lanes that must
+    have worked: "cow" (copy-on-write copies), "saved" (prefill tokens
+    saved by the prefix cache), "restore" (whole-prompt restores), "chunk"
+    (chunk-lane ticks).  Returns the launches of the two runs (counts set
+    to 0 just before the first, read after the second) and the trace."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serving import engine as engine_mod
     from repro_torch.serving.faults import STATUSES
 
-    reqs = _stream_trace(eng.l.cfg)
+    reqs = _stream_trace(eng.l.cfg) if reqs is None else reqs
     lens = sorted(len(r.prompt) for r in reqs)
     log(f"  trace: {len(reqs)} requests, prompt lengths {lens[0]}..{lens[-1]}"
-        f" (median {lens[len(lens) // 2]}); settings {STREAM_KW}")
+        f" (median {lens[len(lens) // 2]}); settings {kw}")
     fetches = []
     real_fetch = engine_mod._host_fetch
 
@@ -766,10 +944,11 @@ def serve_stream_full_width(eng):
 
     engine_mod._host_fetch = counting_fetch
     torch.cuda.reset_peak_memory_stats()
-    kb = STREAM_KW["decode_block"]
+    kb = kw["decode_block"]
+    chunk = kw["chunk_size"] if kw.get("chunk_prefill") else 0
     total = {}
     theta = THETA
-    cow0 = saved0 = chunk_ticks = 0
+    cow0 = saved0 = full0 = chunk_ticks = 0
     try:
         ops.reset_launch_counts()
         for run in range(2):
@@ -781,9 +960,10 @@ def serve_stream_full_width(eng):
             n_fetch = len(fetches)
             if sched:
                 cow0 = sched.prefix_stats["cow_copies"]
+                full0 = sched.prefix_stats["full_hits"]
             saved0 = eng.stats["prefill_tokens_saved"]
             t0 = time.perf_counter()
-            out = eng.serve_stream(reqs, **STREAM_KW)
+            out = eng.serve_stream(reqs, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             sched = eng._stream[1]
@@ -792,7 +972,7 @@ def serve_stream_full_width(eng):
                           for rt in (sched.srt, sched.lrt)}
             ticks = eng.stats["stream_ticks"] - ticks0
             counts = {k: v - counts0[k] for k, v in ops.launch_counts().items()}
-            want = _expected_launches(sched, lanes0, kb)
+            want = _expected_launches(sched, lanes0, kb, chunk)
             if len(fetches) - n_fetch != ticks or ticks == 0:
                 raise AssertionError(f"{len(fetches) - n_fetch} host fetches "
                                      f"in {ticks} ticks")
@@ -805,6 +985,7 @@ def serve_stream_full_width(eng):
                 raise AssertionError("slots held after drain")
             _check_stream_outputs(out, reqs, eng.l.cfg, theta, STATUSES)
             cow = sched.prefix_stats["cow_copies"] - cow0
+            full = sched.prefix_stats["full_hits"] - full0
             saved = eng.stats["prefill_tokens_saved"] - saved0
             chunk_ticks += sum(want_l for want_l in (
                 sched.srt.lane_ticks["chunk"] - lanes0["S"]["chunk"],
@@ -819,7 +1000,8 @@ def serve_stream_full_width(eng):
                 f"; offload_frac {n_off / n_req:.3f} drop_frac "
                 f"{n_drop / n_req:.3f}; served remote "
                 f"{sum(r['served_remote'] for r in out.values())}; "
-                f"prefill_tokens_saved {saved}, cow_copies {cow}; one host "
+                f"prefill_tokens_saved {saved}, full restores {full}, "
+                f"cow_copies {cow}; one host "
                 f"fetch per tick; launches {counts} as the lane flags "
                 f"predict")
             for k, v in counts.items():
@@ -833,12 +1015,11 @@ def serve_stream_full_width(eng):
             if run == 0:
                 first_cow, first_saved = cow, saved
         cow_total = sched.prefix_stats["cow_copies"]
-        if not (cow_total > 0 and eng.stats["prefill_tokens_saved"] > 0
-                and chunk_ticks > 0):
-            raise AssertionError(f"cow_copies {cow_total}, prefill_tokens_"
-                                 f"saved {eng.stats['prefill_tokens_saved']},"
-                                 f" chunk ticks {chunk_ticks}: a lane never "
-                                 "ran")
+        worked = {"cow": cow_total, "chunk": chunk_ticks,
+                  "saved": eng.stats["prefill_tokens_saved"],
+                  "restore": sched.prefix_stats["full_hits"]}
+        if not all(worked[k] > 0 for k in need):
+            raise AssertionError(f"{worked}: a lane of {need} never ran")
     finally:
         engine_mod._host_fetch = real_fetch
         eng.hi = dataclasses.replace(eng.hi, theta=THETA)
@@ -846,11 +1027,165 @@ def serve_stream_full_width(eng):
     pools = sum(rt.pool.kv_bytes_total for rt in (sched.srt, sched.lrt))
     log(f"  stream totals: cow_copies {cow_total} (first run {first_cow}), "
         f"prefill_tokens_saved {eng.stats['prefill_tokens_saved']} (first "
-        f"run {first_saved}), chunk ticks {chunk_ticks}; KV pools "
+        f"run {first_saved}), chunk ticks {chunk_ticks}; pool buffers (pages, "
+        f"state rows) "
         f"{pools / 2 ** 30:.2f} GiB; peak max_memory_allocated "
         f"{peak / 2 ** 30:.2f} GiB; stream_compiles "
         f"{eng.stats['stream_compiles']}")
     return total, reqs
+
+
+# ---------------------------------------------------------------------------
+# phases 6-8: the recurrent families
+# ---------------------------------------------------------------------------
+
+def chunk_lane_phase():
+    """The chunk lane at mamba2 widths, cut to 8 layers (S: 2): four prompts
+    of 96..200 tokens fed 64 per tick through the per-token recurrent lane,
+    with its staged rollback (rows committed after exactly ``chunk_keep``
+    inputs, slots mid-prefill restored after the decode lane).  Launches
+    against the lane flags, one fetch per tick; then each request's S tokens
+    against the same per-token steps run on a one-row contiguous cache from
+    a zero state (what the lane must compute, without its staging and
+    rollback), teacher-forced, up to the first margin under
+    ``2 * CHUNK_LOGIT_TOL``.  Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo
+    from repro_torch.parity import decisive
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.batcher import Request, pad_to_bucket
+    from repro_torch.serving.faults import STATUSES
+
+    cfg = dataclasses.replace(ARCHS[SSM_ARCH], num_layers=CHUNK_DEPTH)
+    eng = engine_mod.build_engine(
+        cfg, HIConfig(theta=THETA, capacity_factor=CAPACITY), seed=0,
+        cache_len=CACHE_LEN, max_new_tokens=MAX_NEW, device="cuda")
+    rng = np.random.default_rng(5)
+    reqs = [Request(i, rng.integers(1, cfg.vocab_size, int(n))
+                    .astype(np.int32), max_new_tokens=MAX_NEW)
+            for i, n in enumerate(rng.integers(96, 201, 4))]
+    fetches = []
+    real_fetch = engine_mod._host_fetch
+    engine_mod._host_fetch = lambda tree: (fetches.append(1),
+                                           real_fetch(tree))[1]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = eng.serve_stream(reqs, **CHUNK_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        engine_mod._host_fetch = real_fetch
+    sched = eng._stream[1]
+    zero = {rt.name: dict.fromkeys(rt.lane_ticks, 0)
+            for rt in (sched.srt, sched.lrt)}
+    want = _expected_launches(sched, zero, CHUNK_KW["decode_block"],
+                              CHUNK_KW["chunk_size"])
+    ticks = eng.stats["stream_ticks"]
+    chunk_ticks = sched.srt.lane_ticks["chunk"] + sched.lrt.lane_ticks["chunk"]
+    if counts != want or len(fetches) != ticks or chunk_ticks == 0:
+        raise AssertionError(f"launches {counts} (lane flags predict {want}),"
+                             f" {len(fetches)} fetches in {ticks} ticks, "
+                             f"{chunk_ticks} chunk ticks")
+    if sched.srt.pool.held_slots or sched.lrt.pool.held_slots:
+        raise AssertionError("slots held after drain")
+    _check_stream_outputs(out, reqs, cfg, THETA, STATUSES)
+    n_cmp = n_tok = 0
+    tier = eng.s
+    for r in reqs:
+        rec = out[r.request_id]
+        prompt = np.zeros(pad_to_bucket(len(r.prompt), CHUNK_KW["buckets"]),
+                          np.int64)
+        prompt[: len(r.prompt)] = r.prompt
+        cache = model_zoo.init_cache(tier.cfg, 1, CACHE_LEN)
+        feed = torch.as_tensor(prompt[:, None], device="cuda")
+        for t in feed:
+            lg, cache = model_zoo.decode_step(tier.params, tier.cfg, t[None],
+                                              cache)
+        logs = [lg[0]]
+        for t in rec["s_tokens"][:-1]:
+            lg, cache = model_zoo.decode_step(
+                tier.params, tier.cfg,
+                torch.tensor([[int(t)]], device="cuda"), cache)
+            logs.append(lg[0])
+        logs = torch.stack(logs).cpu().numpy()
+        dec = decisive(logs, 2 * CHUNK_LOGIT_TOL)
+        first = int(np.argmin(dec)) if not dec.all() else len(dec)
+        if not np.array_equal(rec["s_tokens"][:first],
+                              logs.argmax(-1)[:first]):
+            raise AssertionError(f"request {r.request_id}: chunk-lane S "
+                                 f"tokens {rec['s_tokens']} != the per-token"
+                                 f" path's {logs.argmax(-1)}")
+        n_cmp += first
+        n_tok += len(rec["s_tokens"])
+    if n_cmp == 0:
+        raise AssertionError("no decisive token to compare")
+    log(f"  chunk lane ({cfg.name} at {CHUNK_DEPTH} layers, S "
+        f"{eng.s.cfg.num_layers}; {len(reqs)} prompts of "
+        f"{sorted(len(r.prompt) for r in reqs)} tokens; {CHUNK_KW}): "
+        f"{wall * 1e3:.1f} ms, {ticks} ticks of which {chunk_ticks} ran the "
+        f"chunk lane (S {sched.srt.lane_ticks['chunk']}, L "
+        f"{sched.lrt.lane_ticks['chunk']}); launches {counts} as the lane "
+        f"flags predict; {n_cmp}/{n_tok} S tokens equal to the per-token "
+        f"path's (up to the first margin under {2 * CHUNK_LOGIT_TOL:g}); "
+        f"peak max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return counts
+
+
+def _hybrid_trace(cfg, seed=0):
+    """12 requests: 6 take the 224-token system prompt with one of two
+    tails (232 and 248 tokens, both in the 248 bucket, whose partial tail
+    page restores copy), 6 mixed prompts of 32..256 tokens."""
+    import numpy as np
+    from repro_torch.serving.batcher import Request
+    rng = np.random.default_rng(seed)
+    v = cfg.vocab_size
+    sys_prompt = rng.integers(1, v, SYS_PREFIX)
+    tails = [rng.integers(1, v, n) for n in (8, 24)]
+    prompts = [(np.concatenate([sys_prompt, tails[i % 2]]), MAX_NEW)
+               for i in range(6)]
+    prompts += [(rng.integers(1, v, int(rng.integers(32, 257))),
+                 int(rng.integers(4, 17))) for _ in range(6)]
+    order = rng.permutation(len(prompts))
+    return [Request(i, prompts[j][0].astype(np.int32),
+                    max_new_tokens=prompts[j][1])
+            for i, j in enumerate(order)]
+
+
+def hybrid_stream_phase():
+    """zamba2-2.7b at full width, cut to 24 layers (S: 6): the reference
+    cannot build the full-depth cascade.  ``serve_stream`` with sharing on
+    and chunking off at theta 0.6 and at the median: ssd_chunk on every
+    prefill, the paged decode kernel at head dim 80, copy_pages on the
+    restores of the 248 bucket.  Returns the launches."""
+    import torch
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.serving import engine as engine_mod
+    cfg = dataclasses.replace(ARCHS[HYBRID_ARCH], num_layers=HYBRID_DEPTH)
+    t0 = time.perf_counter()
+    eng = engine_mod.build_engine(
+        cfg, HIConfig(theta=THETA, capacity_factor=CAPACITY), seed=0,
+        cache_len=CACHE_LEN, max_new_tokens=MAX_NEW, device="cuda")
+    torch.cuda.synchronize()
+    n_params = {t: sum(v.numel() for v in _leaves(tier.params))
+                for t, tier in (("L", eng.l), ("S", eng.s))}
+    log(f"  built {cfg.name} at {HYBRID_DEPTH} layers: L "
+        f"({n_params['L'] / 1e9:.3f} B params, head dim "
+        f"{cfg.resolved_head_dim}, {cfg.num_layers // cfg.shared_attn_every}"
+        f" groups) + S ({n_params['S'] / 1e9:.3f} B, "
+        f"{eng.s.cfg.num_layers} layers) in {time.perf_counter() - t0:.1f} s")
+    launches, _ = serve_stream_full_width(eng, HYBRID_KW,
+                                          _hybrid_trace(cfg),
+                                          need=("cow", "saved", "restore"))
+    return launches
 
 
 def _check_stream_outputs(out, reqs, cfg, theta, statuses):
@@ -878,6 +1213,7 @@ def _check_stream_outputs(out, reqs, cfg, theta, statuses):
 
 
 KERNEL_KINDS = (  # (kind, regex over the kernel's name), first match wins
+    ("ssd_chunk", r"ssd_chunk_kernel"),
     ("decode_attention", r"decode_attention_kernel"),
     ("paged_attention (decode + chunk)", r"paged_attention_kernel"),
     ("copy_pages", r"copy_pages_kernel"),
@@ -887,26 +1223,34 @@ KERNEL_KINDS = (  # (kind, regex over the kernel's name), first match wins
 )
 
 
-def trace_phase(eng, tokens, stream_reqs, keep: Path | None):
+def trace_phase(eng, tokens, windows, keep: Path | None, kw=STREAM_KW,
+                name=ARCH):
     """One more drain serve of ``tokens``, and one ``serve_stream`` call of
-    the first 8 stream requests (a tick window with every lane, on the warm
+    8 requests (a tick window of the lanes of ``kw``, on the warm
     scheduler), each under ``torch.profiler``: the device's kernel time by
-    kind, and its busy share of the host wall time.  The gzipped Chrome
-    traces are kept in ``keep`` if given."""
+    kind, and its busy share of the host wall time.  ``windows(i)`` gives
+    the i-th call's requests (``_trace`` calls each function twice).  The
+    gzipped Chrome traces are kept in ``keep`` if given."""
+    import itertools
     import tempfile
-    from repro_torch.serving.batcher import Request
-    window = [Request(1000 + r.request_id, r.prompt,
-                      max_new_tokens=r.max_new_tokens)
-              for r in stream_reqs[:8]]
+    calls = itertools.count()
     with tempfile.TemporaryDirectory() as tmp:
         out_dir = keep or Path(tmp)
         out_dir.mkdir(parents=True, exist_ok=True)
-        _trace(lambda: eng.serve(tokens), "drain serve",
-               out_dir / "serve_trace.json.gz")
+        _trace(lambda: eng.serve(tokens), f"{name} drain serve",
+               out_dir / f"{name}_serve_trace.json.gz")
         ticks0 = eng.stats["stream_ticks"]
-        _trace(lambda: eng.serve_stream(window, **STREAM_KW),
-               "serve_stream window", out_dir / "stream_trace.json.gz",
+        _trace(lambda: eng.serve_stream(windows(next(calls)), **kw),
+               f"{name} serve_stream window",
+               out_dir / f"{name}_stream_trace.json.gz",
                lambda: eng.stats["stream_ticks"] - ticks0)
+
+
+def _window(reqs):
+    """The first 8 of ``reqs`` as new requests."""
+    from repro_torch.serving.batcher import Request
+    return [Request(1000 + r.request_id, r.prompt,
+                    max_new_tokens=r.max_new_tokens) for r in reqs[:8]]
 
 
 def _trace(fn, label, path: Path, ticks=None):
@@ -1015,26 +1359,69 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_hi_gate(gen), check_decode_attention(gen),
                check_decode_attention_paged(gen),
-               check_decode_attention_chunk_paged(gen), check_copy_pages(gen)]
+               check_decode_attention_chunk_paged(gen), check_copy_pages(gen),
+               check_ssd_chunk(gen)]
+    total = dict.fromkeys(_kernel_names(), 0)   # launches over every path
 
-    log("== serve (the drain path)")
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    log(f"== serve (the drain path, {ARCH})")
     check_small_reference()
     launches, eng, tokens = serve_full_width()
-    log("== serve_stream (the continuous path)")
+    add(launches)
+    log(f"== serve_stream (the continuous path, {ARCH})")
     check_small_stream_reference()
     stream_launches, stream_reqs = serve_stream_full_width(eng)
-    log(f"  hi_gate launches on the stream path: {stream_launches['hi_gate']};"
-        f" decode_attention (the drain path's kernel): "
-        f"{stream_launches['decode_attention']}")
+    add(stream_launches)
+    log(f"== trace ({ARCH}: one more serve, and a serve_stream window, under "
+        "torch.profiler)")
+    # the trace's own first 8 requests, on the scheduler that served it
+    trace_phase(eng, tokens, lambda i: _window(stream_reqs), args.trace)
+    del eng
+    torch.cuda.empty_cache()
+
+    log(f"== serve (the drain path, {SSM_ARCH})")
+    check_small_reference(SSM_ARCH)
+    ssm_launches, eng, tokens = serve_full_width(SSM_ARCH)
+    add(ssm_launches)
+    log(f"== serve_stream ({SSM_ARCH}, chunk lane off)")
+    check_small_stream_reference(SSM_ARCH)
+    ssm_stream, _ = serve_stream_full_width(
+        eng, SSM_STREAM_KW, need=("saved", "restore"))
+    add(ssm_stream)
+    log(f"== trace ({SSM_ARCH}: one more serve, and a serve_stream window, "
+        "under torch.profiler)")
+    # fresh prompts in each call: the SSM shares whole prompts only, so the
+    # trace's own (or a repeated window) would all restore and skip prefill
+    trace_phase(eng, tokens,
+                lambda i: _window(_stream_trace(eng.l.cfg, seed=1 + i)),
+                args.trace, SSM_STREAM_KW, SSM_ARCH)
+    del eng
+    torch.cuda.empty_cache()
+    log(f"== chunk lane ({SSM_ARCH} widths, {CHUNK_DEPTH} layers)")
+    add(chunk_lane_phase())
+    torch.cuda.empty_cache()
+
+    log(f"== serve_stream ({HYBRID_ARCH} widths, {HYBRID_DEPTH} layers)")
+    check_small_reference(HYBRID_ARCH)
+    check_small_stream_reference(HYBRID_ARCH)
+    hybrid_launches = hybrid_stream_phase()
+    add(hybrid_launches)
+    for path, counts, names in (
+            (SSM_ARCH, ssm_launches, ("ssd_chunk",)),
+            (f"{SSM_ARCH} stream", ssm_stream, ("ssd_chunk",)),
+            (HYBRID_ARCH, hybrid_launches,
+             ("ssd_chunk", "decode_attention_paged", "copy_pages"))):
+        for n in names:
+            if counts[n] == 0:
+                raise AssertionError(f"{n} never launched on the {path} path")
+    log(f"  launches over every main-path run: {total}")
     for k in kernels:
-        path = launches if k["name"] in ("hi_gate", "decode_attention") \
-            else stream_launches
-        k["launches"] = path[k["name"]]
+        k["launches"] = total[k["name"]]
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
-    log("== trace (one more serve, and a serve_stream window, under "
-        "torch.profiler)")
-    trace_phase(eng, tokens, stream_reqs, args.trace)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

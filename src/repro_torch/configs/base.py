@@ -1,9 +1,9 @@
-"""Configuration dataclasses for the port (dense decoder family).
+"""Configuration dataclasses for the port (dense, SSM and hybrid families).
 
-A copy of the dense-family part of the reference's ``configs/base.py``:
+A copy of the ported families' part of the reference's ``configs/base.py``:
 :class:`ModelConfig` with its ``reduced`` and ``s_variant`` derivations, and
-:class:`HIConfig`.  Fields of the other families (MoE, SSM, hybrid, enc-dec,
-VLM) join when those families are ported.
+:class:`HIConfig`.  Fields of the other families (MoE, enc-dec, VLM) join
+when those families are ported.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ FAMILIES = (DENSE, MOE, SSM, HYBRID, ENCDEC, VLM)
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One architecture of the dense decoder family."""
+    """One architecture.  Fields unused by a family stay at their defaults."""
 
     name: str
     family: str
@@ -36,6 +36,15 @@ class ModelConfig:
     qkv_bias: bool = False
     sliding_window: int = 0            # 0 -> full causal attention
     local_global_ratio: int = 0        # gemma3: N local layers per 1 global
+    # -- SSM (mamba2 / SSD) ---------------------------------------------------
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
+    ssm_conv_width: int = 4
+    ssm_ngroups: int = 1
+    # -- hybrid (zamba2) ------------------------------------------------------
+    shared_attn_every: int = 0         # the shared attn block every k layers
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     source: str = ""                   # citation for the config numbers
@@ -48,6 +57,14 @@ class ModelConfig:
             return self.d_model // self.num_heads
         return 0
 
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
     def reduced(self, *, num_layers: int = 2, d_model: int = 256,
                 vocab: int = 512) -> "ModelConfig":
         """Smoke-test variant of the same architecture (<= 2 layers,
@@ -55,8 +72,15 @@ class ModelConfig:
         nh = max(1, min(self.num_heads, 4))
         nkv = max(1, min(self.num_kv_heads, nh))
         hd = max(8, d_model // max(nh, 1)) if self.num_heads else 0
+        changes = {}
+        if self.family in (SSM, HYBRID):
+            changes.update(ssm_state=min(self.ssm_state, 16), ssm_head_dim=16,
+                           ssm_chunk=32)
+        if self.family == HYBRID:
+            changes.update(shared_attn_every=2)
         return dataclasses.replace(
             self,
+            **changes,
             name=self.name + "-smoke",
             num_layers=num_layers,
             d_model=d_model,

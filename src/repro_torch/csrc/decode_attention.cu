@@ -52,8 +52,10 @@ decode_attention_kernel(const float* __restrict__ q,
                         const uint8_t* __restrict__ valid,
                         float* __restrict__ out, int s_len, int kv_heads,
                         int group, float scale) {
+  // lane l owns elements [l * kEpl, l * kEpl + kEpl) below D; where D is
+  // not a multiple of 32 (80) the last lanes own fewer or none
   constexpr int kLanes = D >= 32 ? 32 : D;       // lanes that own elements
-  constexpr int kEpl = D / kLanes;               // elements per lane
+  constexpr int kEpl = (D + kLanes - 1) / kLanes;  // elements per lane
   constexpr int kTile = (16384 / (D * (int)sizeof(T))) < 64
                             ? 16384 / (D * (int)sizeof(T)) : 64;
   constexpr int kVec = 16 / (int)sizeof(T);      // elements per 16-byte load
@@ -85,7 +87,7 @@ decode_attention_kernel(const float* __restrict__ q,
     l[g] = 0.f;
 #pragma unroll
     for (int e = 0; e < kEpl; ++e) {
-      qr[g][e] = (g < group && owns) ? qb[g * D + e0 + e] : 0.f;
+      qr[g][e] = (g < group && owns && e0 + e < D) ? qb[g * D + e0 + e] : 0.f;
       acc[g][e] = 0.f;
     }
   }
@@ -121,8 +123,9 @@ decode_attention_kernel(const float* __restrict__ q,
       float kf[kEpl], vf[kEpl];
 #pragma unroll
       for (int e = 0; e < kEpl; ++e) {
-        kf[e] = owns ? to_float(k_tile[r * D + e0 + e]) : 0.f;
-        vf[e] = owns ? to_float(v_tile[r * D + e0 + e]) : 0.f;
+        const bool in = owns && e0 + e < D;
+        kf[e] = in ? to_float(k_tile[r * D + e0 + e]) : 0.f;
+        vf[e] = in ? to_float(v_tile[r * D + e0 + e]) : 0.f;
       }
 #pragma unroll
       for (int g = 0; g < kMaxGroup; ++g) {
@@ -169,7 +172,8 @@ decode_attention_kernel(const float* __restrict__ q,
         if (g >= group) break;
         const float f = expf(m[g] - m_all[g]);
 #pragma unroll
-        for (int e = 0; e < kEpl; ++e) acc_sum[g * D + e0 + e] += acc[g][e] * f;
+        for (int e = 0; e < kEpl; ++e)
+          if (e0 + e < D) acc_sum[g * D + e0 + e] += acc[g][e] * f;
       }
     }
     __syncthreads();
@@ -202,6 +206,7 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
     case 16: launch<T, 16>(q, k, v, valid, out, b, s, kv, group, scale, st); break;
     case 32: launch<T, 32>(q, k, v, valid, out, b, s, kv, group, scale, st); break;
     case 64: launch<T, 64>(q, k, v, valid, out, b, s, kv, group, scale, st); break;
+    case 80: launch<T, 80>(q, k, v, valid, out, b, s, kv, group, scale, st); break;
     case 128: launch<T, 128>(q, k, v, valid, out, b, s, kv, group, scale, st); break;
     case 256: launch<T, 256>(q, k, v, valid, out, b, s, kv, group, scale, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -213,7 +218,8 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 
 // q: (B, 1, H, D) float32; cache_k/v: (B, S, K, D) of `dtype` (0 = float32,
 // 1 = bfloat16); valid: (S,) bytes; out: (B, 1, H, D) float32.  All
-// contiguous; H = K * group with group <= 8; D in {16, 32, 64, 128, 256}.
+// contiguous; H = K * group with group <= 8; D in {16, 32, 64, 80, 128,
+// 256}.
 // Returns cudaGetLastError() after the launch.
 extern "C" int decode_attention_launch(const void* q, const void* cache_k,
                                        const void* cache_v, const void* valid,

@@ -63,12 +63,15 @@ paged_attention_kernel(const float* __restrict__ q,
                        const uint8_t* __restrict__ valid,
                        float* __restrict__ out, int c_len, int kv_heads,
                        int group, int page, int n_pages, float scale) {
-  constexpr int kEpl = D / 32;                   // elements per lane
+  // lane l owns elements [l * kEpl, l * kEpl + kEpl) below D; where D is
+  // not a multiple of 32 (80) the last lanes own fewer or none: they load
+  // nothing and add 0 to every dot product
+  constexpr int kEpl = (D + 31) / 32;            // elements per lane
   constexpr int kTileCap = 16384 / (D * (int)sizeof(T));
   constexpr int kTile = kTileCap < 64 ? kTileCap : 64;
   constexpr int kVec = 16 / (int)sizeof(T);      // elements per 16-byte load
   constexpr int kVecPerRow = D / kVec;
-  static_assert(D % 32 == 0 && D % kVec == 0, "unsupported head dim");
+  static_assert(D % 16 == 0 && D % kVec == 0, "unsupported head dim");
 
   __shared__ __align__(16) unsigned char k_raw[kTile * D * sizeof(T)];
   __shared__ __align__(16) unsigned char v_raw[kTile * D * sizeof(T)];
@@ -104,7 +107,7 @@ paged_attention_kernel(const float* __restrict__ q,
              kh * group + r % group) * D;
 #pragma unroll
     for (int e = 0; e < kEpl; ++e) {
-      qr[i][e] = r < n_q ? qp[e0 + e] : 0.f;
+      qr[i][e] = (r < n_q && e0 + e < D) ? qp[e0 + e] : 0.f;
       acc[i][e] = 0.f;
     }
   }
@@ -154,8 +157,9 @@ paged_attention_kernel(const float* __restrict__ q,
       float kf[kEpl], vf[kEpl];
 #pragma unroll
       for (int e = 0; e < kEpl; ++e) {
-        kf[e] = to_float(k_tile[r * D + e0 + e]);
-        vf[e] = to_float(v_tile[r * D + e0 + e]);
+        const bool in = e0 + e < D;
+        kf[e] = in ? to_float(k_tile[r * D + e0 + e]) : 0.f;
+        vf[e] = in ? to_float(v_tile[r * D + e0 + e]) : 0.f;
       }
       float dot[kRows];
 #pragma unroll
@@ -208,7 +212,8 @@ paged_attention_kernel(const float* __restrict__ q,
       for (int i = 0; i < kRows; ++i) {
         const float f = expf(m[i] - m_all[i]);
 #pragma unroll
-        for (int e = 0; e < kEpl; ++e) acc_sum[i * D + e0 + e] += acc[i][e] * f;
+        for (int e = 0; e < kEpl; ++e)
+          if (e0 + e < D) acc_sum[i * D + e0 + e] += acc[i][e] * f;
       }
     }
     __syncthreads();
@@ -247,6 +252,7 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
   switch (d) {
     case 32: return launch<T, 32>(q, k, v, block, valid, out, b, c, kv, group, page, n_pages, scale, st);
     case 64: return launch<T, 64>(q, k, v, block, valid, out, b, c, kv, group, page, n_pages, scale, st);
+    case 80: return launch<T, 80>(q, k, v, block, valid, out, b, c, kv, group, page, n_pages, scale, st);
     case 128: return launch<T, 128>(q, k, v, block, valid, out, b, c, kv, group, page, n_pages, scale, st);
     case 256: return launch<T, 256>(q, k, v, block, valid, out, b, c, kv, group, page, n_pages, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -258,7 +264,7 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 // q: (B, C, H, D) float32; pool_k/v: (P, page, K, D) of `dtype` (0 =
 // float32, 1 = bfloat16); block: (B, n_pages) int32; valid: (B, C,
 // n_pages * page) bytes; out: (B, C, H, D) float32.  All contiguous;
-// H = K * group; D in {32, 64, 128, 256}.  The decode kernel is C = 1.
+// H = K * group; D in {32, 64, 80, 128, 256}.  The decode kernel is C = 1.
 // Returns cudaGetLastError() after the launch.
 extern "C" int paged_attention_launch(const void* q, const void* pool_k,
                                       const void* pool_v, const void* block,

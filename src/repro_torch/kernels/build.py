@@ -29,7 +29,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 SOURCES = ("hi_gate.cu", "decode_attention.cu", "decode_attention_paged.cu",
-           "copy_pages.cu")
+           "copy_pages.cu", "ssd_scan.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -47,6 +47,7 @@ SIGNATURES = {
     "paged_attention_launch": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                                _i, _i, _i, _i, ctypes.c_float, _vp),
     "copy_pages_launch": (_vp, _vp, _i, _i, _i64, _i64, _vp, _vp, _i, _vp),
+    "ssd_chunk_launch": (_vp,) * 9 + (_i,) * 6 + (_vp,),
 }
 
 

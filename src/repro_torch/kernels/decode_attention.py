@@ -25,7 +25,7 @@ from repro_torch.kernels import build
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 MAX_GROUP = 8
 
 
@@ -124,7 +124,7 @@ decode_attention_cuda.launches = 0
 # Keys are always seen by some query wherever a chunk's queries see them,
 # so only keys visible to no query of the slot may hold such garbage.
 
-PAGED_HEAD_DIMS = (32, 64, 128, 256)
+PAGED_HEAD_DIMS = (32, 64, 80, 128, 256)
 
 
 def _paged_plain(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,

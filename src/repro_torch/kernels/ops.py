@@ -10,10 +10,12 @@ from __future__ import annotations
 from typing import Dict, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import copy_pages as _cp
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import hi_gate as _hg
+from repro_torch.kernels import ssd_scan as _ssd
 
 # wrapper name -> the function whose ``launches`` counter it bumps
 KERNELS = {"hi_gate": _hg.hi_gate_cuda,
@@ -21,7 +23,8 @@ KERNELS = {"hi_gate": _hg.hi_gate_cuda,
            "decode_attention_paged": _da.decode_attention_paged_cuda,
            "decode_attention_chunk_paged":
                _da.decode_attention_chunk_paged_cuda,
-           "copy_pages": _cp.copy_pages_cuda}
+           "copy_pages": _cp.copy_pages_cuda,
+           "ssd_chunk": _ssd.ssd_chunk_cuda}
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -83,6 +86,56 @@ def copy_pages(pools: Sequence[torch.Tensor], src, dst) -> None:
     if _on_cpu(pools[0]):
         return _cp.copy_pages_plain(pools, src, dst)
     return _cp.copy_pages_cuda(pools, src, dst)
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor):
+    """The SSD intra-chunk terms (see ``ssd_scan.py``).  x: (b, nc, Q, H, P);
+    dt: (b, nc, Q, H); A: (H,); B/C: (b, nc, Q, N), float32."""
+    if _on_cpu(x):
+        return _ssd.ssd_chunk_ref(x, dt, A, B, C)
+    return _ssd.ssd_chunk_cuda(x, dt, A, B, C)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD: the intra-chunk kernel, then the inter-chunk recurrence
+    and its ``y_off`` term in plain torch, as the reference's ``ops.ssd``.
+
+    x: (b, l, h, p); dt: (b, l, h); A: (h,); B/C: (b, l, n).  The sequence
+    is padded to a multiple of the chunk with dt = 0 steps (decay 1, zero
+    input: a no-op on the state).  A sequence shorter than the chunk is one
+    chunk, as in the reference, rounded up to a multiple of 8 positions
+    (the kernel's tile) by the same no-op steps.  Returns (y (b, l, h, p)
+    in x's dtype, final state (b, h, p, n) float32)."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    chunk = min(chunk, -(-l // 8) * 8)
+    orig_l = l
+    if l % chunk:
+        pad = chunk - l % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+        l += pad
+    nc = l // chunk
+    f32 = torch.float32
+    xc = x.to(f32).reshape(b, nc, chunk, h, p).contiguous()
+    dtc = dt.to(f32).reshape(b, nc, chunk, h).contiguous()
+    Bc = B.to(f32).reshape(b, nc, chunk, n).contiguous()
+    Cc = C.to(f32).reshape(b, nc, chunk, n).contiguous()
+    y_diag, S, g, eacs = ssd_chunk(xc, dtc, A.to(f32).contiguous(), Bc, Cc)
+    # inter-chunk linear recurrence (nc steps over (b, h, p, n))
+    hprev = torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(hprev)
+        hprev = g[:, c, :, None, None] * hprev + S[:, c]
+    h_prevs = torch.stack(h_prevs, dim=1)                 # (b, nc, h, p, n)
+    y_off = torch.einsum("bcih,bcin,bchpn->bcihp", eacs, Cc, h_prevs)
+    y = (y_diag + y_off).reshape(b, l, h, p)[:, :orig_l]
+    return y.to(x.dtype), hprev
 
 
 def launch_counts() -> Dict[str, int]:

@@ -7,9 +7,9 @@ Conventions follow the reference's ``models/layers.py``:
   ``(in, out)`` layout and are applied as ``x @ W``;
 * masks are boolean, True = attend; masked scores are ``-1e30``.
 
-Only what the dense family runs is here: the contiguous-cache path and, at
-bf16, the paged-pool path of continuous serving (the int8 page
-quantisation is ROADMAP Queue A item 6).  Large matmuls go to
+Only what the dense family and the hybrid's shared attention block run is
+here: the contiguous-cache path and, at bf16, the paged-pool path of
+continuous serving (the int8 page quantisation is ROADMAP Queue A item 6).  Large matmuls go to
 ``torch.matmul``; decode and chunk attention and the copy-on-write page
 copies go through ``kernels/ops.py``.
 """

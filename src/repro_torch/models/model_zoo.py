@@ -1,5 +1,6 @@
-"""Uniform model API of the port.  Only the dense decoder family is ported;
-every other family raises ``NotImplementedError`` naming its ROADMAP item.
+"""Uniform model API of the port.  The dense decoder, SSM (mamba2) and
+hybrid (zamba2) families are ported; the MoE, enc-dec and VLM families
+raise ``NotImplementedError`` naming their ROADMAP items.
 
   init_params(gen, cfg)                        -> float32 params dict
   forward(params, cfg, tokens)                 -> logits (B, S, V) float32
@@ -7,20 +8,27 @@ every other family raises ``NotImplementedError`` naming its ROADMAP item.
   prefill(params, cfg, tokens, cache)          -> (logits (B, V), cache)
   decode_step(params, cfg, token, cache)       -> (logits (B, V), cache)
 
-The paged API of continuous serving (dense family, bf16 pages):
+The paged API of continuous serving (bf16 pages):
 
   init_paged_cache(cfg, slots, pages, page_size, dtype, device) -> pools
   prefill_paged(params, cfg, tokens, lengths, slots, block_rows, cache,
                 start=None)                    -> (logits (A, V), cache)
   decode_step_paged(params, cfg, token, pos, block, cache, write_block=None)
   forward_chunk_paged(params, cfg, tokens, pos, block, cache,
-                      write_block=None)        -> (logits (B, C, V), cache, {})
+                      write_block=None, keep=None)
+                                               -> (logits (B, C, V), cache,
+                                                   staged)
   cow_pages(cfg, cache, src, dst)              -> cache (copied in place)
-  init_prefix_cache(cfg, entries, device)      -> {"logits": (E + 1, V)}
+  init_prefix_cache(cfg, entries, device)      -> {"logits": (E + 1, V), ...}
 
 and the recurrent-state hooks the scheduler calls for every family
-(``gather_chunk_slots`` ... ``snapshot_restore``), which pass through for
-the dense family: its state is the pages.
+(``gather_chunk_slots`` ... ``snapshot_restore``).  They pass through for
+the dense family, whose state is the pages; for the SSM and hybrid
+families they move per-slot state rows.  Every hook updates the caches IN
+PLACE, as the pages are: the scheduler's tick uses no return value but
+the chunk lane's gathered rows.  Recurrent leaves carry a padding row past
+the slots (index ``num_slots``) and the prefix cache a drop row (index
+``entries``), where the scheduler's sentinel indices land.
 """
 from __future__ import annotations
 
@@ -33,54 +41,58 @@ import torch
 from repro_torch.configs.base import (DENSE, ENCDEC, HYBRID, MOE, SSM, VLM,
                                       ModelConfig)
 from repro_torch.kernels import ops
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, mamba2, transformer
 
 Params = Dict[str, Any]
 
 _NOT_PORTED = {
-    SSM: "ROADMAP Queue A item 10 (SSM and hybrid families)",
-    HYBRID: "ROADMAP Queue A item 10 (SSM and hybrid families)",
     MOE: "ROADMAP Queue A item 11 (MoE)",
     ENCDEC: "ROADMAP Queue A item 12 (the paper's own applications: "
             "enc-dec)",
     VLM: "ROADMAP Queue A item 12 (the paper's own applications: VLM)",
 }
+_MODULES = {DENSE: transformer, SSM: mamba2, HYBRID: hybrid}
+# slot axis of the recurrent leaves
+_SLOT_AXIS = {SSM: 1, HYBRID: hybrid.AXIS}
 
 
-def _dense(cfg: ModelConfig) -> None:
-    if cfg.family != DENSE:
+def _module(cfg: ModelConfig):
+    mod = _MODULES.get(cfg.family)
+    if mod is None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: "
             f"{_NOT_PORTED.get(cfg.family, 'unknown family')}")
+    return mod
+
+
+def _recurrent(cfg: ModelConfig) -> bool:
+    return _module(cfg) is not transformer
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    _dense(cfg)
-    return transformer.init_decoder(gen, cfg)
+    if cfg.family == DENSE:
+        return transformer.init_decoder(gen, cfg)
+    return _module(cfg).init_model(gen, cfg)
 
 
 def forward(params: Params, cfg: ModelConfig,
             tokens: torch.Tensor) -> torch.Tensor:
-    _dense(cfg)
-    return transformer.forward(params, cfg, tokens)
+    return _module(cfg).forward(params, cfg, tokens)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device="cuda") -> Params:
-    _dense(cfg)
-    return transformer.init_cache(cfg, batch, seq_len, dtype, device)
+    return _module(cfg).init_cache(cfg, batch, seq_len, dtype, device)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Params):
-    _dense(cfg)
-    return transformer.prefill(params, cfg, tokens, cache)
+    return _module(cfg).prefill(params, cfg, tokens, cache)
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 cache: Params):
-    _dense(cfg)
-    return transformer.decode_step(params, cfg, token, cache)
+    return _module(cfg).decode_step(params, cfg, token, cache)
 
 
 # ---------------------------------------------------------------------------
@@ -89,97 +101,141 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
 
 def init_paged_cache(cfg: ModelConfig, num_slots: int, num_pages: int,
                      page_size: int, dtype=torch.bfloat16, device="cuda"):
-    _dense(cfg)
-    return transformer.init_paged_cache(cfg, num_slots, num_pages, page_size,
-                                        dtype, device)
+    return _module(cfg).init_paged_cache(cfg, num_slots, num_pages,
+                                         page_size, dtype, device)
 
 
 def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   lengths: torch.Tensor, slots: torch.Tensor,
                   block_rows: torch.Tensor, cache, *, start=None):
-    """Admit a batch of requests in one pass (see
-    ``transformer.prefill_paged``)."""
-    _dense(cfg)
-    return transformer.prefill_paged(params, cfg, tokens, lengths, slots,
-                                     block_rows, cache, start=start)
+    """Admit a batch of requests in one pass.  ``start`` (A,): the dense
+    family splices cached prefix K/V below it; the recurrent families share
+    whole prompts only (see each module)."""
+    return _module(cfg).prefill_paged(params, cfg, tokens, lengths, slots,
+                                      block_rows, cache, start=start)
 
 
 def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
                       pos: torch.Tensor, block: torch.Tensor, cache, *,
                       write_block=None):
-    _dense(cfg)
-    return transformer.decode_step_paged(params, cfg, token, pos, block,
-                                         cache, write_block=write_block)
+    return _module(cfg).decode_step_paged(params, cfg, token, pos, block,
+                                          cache, write_block=write_block)
 
 
 def forward_chunk_paged(params: Params, cfg: ModelConfig,
                         tokens: torch.Tensor, pos: torch.Tensor,
-                        block: torch.Tensor, cache, *, write_block=None):
-    _dense(cfg)
-    return transformer.forward_chunk_paged(params, cfg, tokens, pos, block,
-                                           cache, write_block=write_block)
+                        block: torch.Tensor, cache, *, write_block=None,
+                        keep=None):
+    """One multi-token paged pass: token i of slot b at ``pos[b] + i``.
+    The dense family's ``staged`` is {}; the recurrent families' chunk is
+    C per-token steps (bitwise the per-token path) and ``staged`` their
+    boundary snapshots: all C of them, or with ``keep`` ((B,) host ints)
+    only each row's snapshot after exactly ``keep`` inputs, which is
+    ``select_stage(staged, keep)``."""
+    if cfg.family == DENSE:
+        return transformer.forward_chunk_paged(params, cfg, tokens, pos,
+                                               block, cache,
+                                               write_block=write_block)
+    return _module(cfg).forward_chunk_paged(params, cfg, tokens, pos, block,
+                                            cache, write_block=write_block,
+                                            keep=keep)
 
 
-def gather_chunk_slots(cfg: ModelConfig, cache, slots: torch.Tensor):
-    """The chunk lane's W-row view of the cache: the dense state lives in the
-    shared pages, routed by the lane's block rows, so the cache passes."""
-    _dense(cfg)
-    return cache
+def gather_chunk_slots(cfg: ModelConfig, cache, slots: torch.Tensor,
+                       fresh=None):
+    """The chunk lane's W-row view of the cache: the page pools pass (the
+    lane's block rows route them); recurrent rows are gathered (a copy;
+    sentinel slots gather the padding row).  Rows where ``fresh`` (W,) bool
+    is True start a prompt: their state is zero, as a prefill's."""
+    if not _recurrent(cfg):
+        return cache
+    axis, idx = _SLOT_AXIS[cfg.family], slots.long()
+    mini = dict(cache)
+    for key in ("state", "conv"):
+        rows = cache[key].index_select(axis, idx)
+        if fresh is not None:
+            shape = [1] * rows.ndim
+            shape[axis] = -1
+            rows = torch.where(fresh.reshape(shape), 0, rows)
+        mini[key] = rows
+    return mini
 
 
 def scatter_chunk_slots(cfg: ModelConfig, cache, mini, stage_sel,
                         slots: torch.Tensor):
-    """Merge the chunk lane back: the pages were written in place."""
-    _dense(cfg)
-    return mini
+    """Merge the chunk lane back, in place: the pages were written in place;
+    recurrent rows take the selected boundary snapshot (``stage_sel``,
+    exactly ``chunk_keep`` inputs absorbed) at ``slots`` (sentinels land in
+    the padding row)."""
+    if not _recurrent(cfg):
+        return cache
+    return mamba2.copy_rows(cache, slots, stage_sel, None,
+                            axis=_SLOT_AXIS[cfg.family])
 
 
 def chunk_stage(cfg: ModelConfig, cache):
-    """The rollback-able recurrent state: none for the dense family."""
-    _dense(cfg)
-    return {}
+    """A copy of the rollback-able recurrent state: {} for the dense
+    family, whose chunk state is positional."""
+    if not _recurrent(cfg):
+        return {}
+    return mamba2.chunk_stage(cfg, cache)
 
 
 def restore_stage(cfg: ModelConfig, cache, stage, mask: torch.Tensor):
-    _dense(cfg)
-    return cache
+    """Slots where ``mask`` (B,) is True take ``stage``'s recurrent state,
+    in place (a no-op for the dense family)."""
+    if not _recurrent(cfg):
+        return cache
+    return mamba2.restore_stage(cfg, cache, stage, mask,
+                                axis=_SLOT_AXIS[cfg.family])
 
 
 def select_stage(cfg: ModelConfig, staged, keep: torch.Tensor):
-    _dense(cfg)
-    return {}
+    if not _recurrent(cfg):
+        return {}
+    return mamba2.select_stage(cfg, staged, keep,
+                               axis=_SLOT_AXIS[cfg.family])
 
 
-def init_prefix_cache(cfg: ModelConfig, entries: int, device="cuda"):
+def init_prefix_cache(cfg: ModelConfig, entries: int, device="cuda",
+                      dtype=torch.bfloat16):
     """Device-side prefix-cache rows: the last-prompt-position logits of
-    each full-prompt entry, (entries + 1, V) float32.  Row ``entries`` is
-    the drop row: the scheduler's sentinel saves (index ``entries``, the
-    reference's ``mode="drop"``) land there and nothing reads it."""
-    _dense(cfg)
-    return {"logits": torch.zeros((entries + 1, cfg.vocab_size),
+    each full-prompt entry, (entries + 1, V) float32, and for the recurrent
+    families the state and conv rows at the prompt boundary.  Row
+    ``entries`` is the drop row: the scheduler's sentinel saves (index
+    ``entries``, the reference's ``mode="drop"``) land there and nothing
+    reads it."""
+    mod = _module(cfg)
+    base = {"logits": torch.zeros((entries + 1, cfg.vocab_size),
                                   dtype=torch.float32, device=device)}
+    if mod is not transformer:
+        base.update(mod.init_prefix_cache(cfg, entries, dtype, device))
+    return base
 
 
 def snapshot_save(cfg: ModelConfig, cache, prefix, rows: torch.Tensor,
                   slots: torch.Tensor):
-    """Save admitted slots' recurrent state into prefix rows: none for the
-    dense family (its prompt state is the retained pages; the scheduler
-    saves the logits)."""
-    _dense(cfg)
-    return prefix
+    """Save admitted slots' recurrent state into prefix rows, in place:
+    none for the dense family (its prompt state is the retained pages; the
+    scheduler saves the logits)."""
+    if not _recurrent(cfg):
+        return prefix
+    return _module(cfg).snapshot_save(cfg, cache, prefix, rows, slots)
 
 
 def snapshot_restore(cfg: ModelConfig, cache, prefix, rows: torch.Tensor,
                      slots: torch.Tensor):
-    _dense(cfg)
-    return cache
+    if not _recurrent(cfg):
+        return cache
+    return _module(cfg).snapshot_restore(cfg, cache, prefix, rows, slots)
 
 
 def cow_pages(cfg: ModelConfig, cache, src: np.ndarray, dst: np.ndarray):
     """Run the tick's copy-on-write page duplications in place: in every
-    layer, pages ``dst`` become copies of pages ``src`` (host int arrays,
-    padded with (0, 0) pairs).  K and V pools go through one
-    ``ops.copy_pages`` call."""
-    _dense(cfg)
+    layer (group, for the hybrid), pages ``dst`` become copies of pages
+    ``src`` (host int arrays, padded with (0, 0) pairs).  K and V pools go
+    through one ``ops.copy_pages`` call.  The SSM family has no pages."""
+    if _module(cfg) is mamba2:
+        return cache
     ops.copy_pages((cache["kp"], cache["vp"]), src, dst)
     return cache

@@ -16,8 +16,10 @@ content-addressed by a rolling chain hash (``batcher.prompt_hashes``), so
 looking up a new prompt walks its chain until the first miss and aliases
 every hit page read-only into the new slot's block row.  A completed prompt
 also registers a full-prompt entry that pins every prompt page and one row
-of the device prefix cache (its last-position logits), so a later identical
-prompt restores and skips prefill.
+of the device prefix cache (its last-position logits and, for the
+recurrent families, the state at the prompt's end), so a later identical
+prompt restores and skips prefill.  The recurrent families share whole
+prompts only (``partial_prefix``).
 
 Copy-on-write.  A slot writes only pages it holds exclusively.  When a
 full-prompt restore would append into a retained partial tail page,
@@ -44,7 +46,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import DENSE, MOE, VLM, ModelConfig
 from repro_torch.models import model_zoo
 
 
@@ -104,6 +106,10 @@ class KVPool:
         if max_context % page_size:
             raise ValueError(f"max_context {max_context} must be a multiple "
                              f"of page_size {page_size}")
+        # page-granular partial hits need per-position attention pages; the
+        # recurrent families (SSM, and the hybrid's mamba half) have no state
+        # snapshot at mid-prompt boundaries, so they share whole prompts only
+        self.partial_prefix = cfg.family in (DENSE, VLM, MOE)
         self.cfg = cfg
         self.num_slots = num_slots
         self.page_size = page_size
@@ -352,9 +358,8 @@ class KVPool:
         if fe is not None and fe.ready <= tick and fe.bucket == bucket:
             fe.used = tick
             return fe, list(fe.pages)
-        # page-granular partial hits: the dense family's state is per-position
-        # pages (the reference's recurrent families share whole prompts only)
-        max_pages = (bucket - 1) // self.page_size
+        max_pages = ((bucket - 1) // self.page_size if self.partial_prefix
+                     else 0)
         pages: List[int] = []
         for h in page_hashes[:max_pages]:
             e = self._page_index.get(h)
@@ -433,7 +438,8 @@ class KVPool:
             # fresh pages for the uncached prompt suffix; register the FULL
             # ones in the page index (their content lands this tick, usable
             # from the next)
-            n_full = bucket // self.page_size if register else 0
+            n_full = (bucket // self.page_size
+                      if self.partial_prefix and register else 0)
             for i in range(len(row), n_ctx):
                 p = self._pop_page(slot)
                 row.append(p)

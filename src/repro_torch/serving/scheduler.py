@@ -32,8 +32,17 @@ read the pre-save prefix-cache logits.
 Sentinels.  The reference marks unused rows with out-of-range indices and
 lets XLA drop their writes (``mode="drop"``).  Here every such write has a
 row to land in: the slot sentinel ``num_slots`` indexes a padding entry
-past the real slots, the prefix-row sentinel ``entries`` the prefix cache's
-drop row, and unused pages the null page 0.
+past the real slots (of the last-token vector and of the recurrent
+families' state rows), the prefix-row sentinel ``entries`` the prefix
+cache's drop row, and unused pages the null page 0.
+
+Recurrent state (SSM and hybrid families).  Every ``model_zoo`` hook
+updates the pool in place, as the pages are: prefill and restores write the
+admitted slots' rows, the chunk lane works on a gathered copy of its rows
+and scatters back each row's state after exactly its ``chunk_keep`` inputs,
+and the decode lane restores slots still mid chunk-prefill from a copy
+taken before its steps.  A prompt whose first chunk starts at position 0
+starts from a zero state, as a prefill does.
 
 The L-tier queue enforces the time-constrained offloading drop rule (Fresa
 & Champati, arXiv:2112.11413), and every S->L escalation crosses the
@@ -69,7 +78,10 @@ from repro_torch.serving.faults import (FAIL_LOCAL_THETA, NO_FAULTS,
 from repro_torch.serving.kv_pool import AdmitPlan, KVPool
 from repro_torch.serving.telemetry import SchedCounters, StatsView
 
-LANES = ("cow", "admit", "chunk", "live")
+# lanes whose ticks each tier counts from its host flags; "prefill" is the
+# admit lane's batched prefill, skipped on ticks whose admissions all
+# restore a whole prompt
+LANES = ("cow", "admit", "prefill", "chunk", "live")
 
 
 def _upload(arrays: Dict[str, np.ndarray],
@@ -149,11 +161,14 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
             return (torch.zeros((w,), dtype=torch.int64, device=dev),
                     torch.zeros((w,), dtype=torch.float32, device=dev))
         core = pool.buffers
-        mini = model_zoo.gather_chunk_slots(cfg, core, tin["chunk_slot"])
-        logits_c, mini, staged = model_zoo.forward_chunk_paged(
+        mini = model_zoo.gather_chunk_slots(cfg, core, tin["chunk_slot"],
+                                            fresh=tin["chunk_pos"] == 0)
+        # with the host's keep counts the recurrent families stage only
+        # the boundary each row commits: select_stage(staged, keep)
+        logits_c, mini, sel = model_zoo.forward_chunk_paged(
             params, cfg, tin["chunk_tokens"], tin["chunk_pos"],
-            tin["chunk_block"], mini, write_block=tin["chunk_wblock"])
-        sel = model_zoo.select_stage(cfg, staged, tin["chunk_keep"])
+            tin["chunk_block"], mini, write_block=tin["chunk_wblock"],
+            keep=flags["chunk_keep"])
         model_zoo.scatter_chunk_slots(cfg, core, mini, sel, tin["chunk_slot"])
         idx = torch.clamp(tin["chunk_keep"].long() - 1, min=0)
         last = logits_c[torch.arange(w, device=dev), idx]
@@ -203,8 +218,8 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
                 toks.append(last)
             if chunk:
                 # slots still mid chunk-prefill took garbage decode steps:
-                # their page writes went to the null page; restore any
-                # recurrent state (none for the dense family)
+                # their page writes went to the null page; restore their
+                # recurrent state (none for the dense family) from the copy
                 model_zoo.restore_stage(cfg, core, pre_d, ~tin["draft_live"])
             out["toks"] = torch.stack(toks)                  # (K, B)
             out["confs"] = torch.stack(confs)
@@ -418,6 +433,7 @@ class _TierRuntime:
                                          0).astype(np.int32),
             })
             flags["any_chunk"] = bool(ckeep.any())
+            flags["chunk_keep"] = ckeep
             flags["any_live"] = bool(dlive.any())
         else:
             flags["any_live"] = self.busy > 0

@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import hi_gate as hg
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan
 
 pytestmark = pytest.mark.cuda
 
@@ -179,7 +180,8 @@ def test_engine_on_card_matches_cpu_teacher_forced(gen):
                                                + cfg.num_layers),
                       # the paged kernels belong to serve_stream
                       "decode_attention_paged": 0,
-                      "decode_attention_chunk_paged": 0, "copy_pages": 0}
+                      "decode_attention_chunk_paged": 0, "copy_pages": 0,
+                      "ssd_chunk": 0}
     # teacher-forced S-tier logits along the CPU's tokens
     logs = {}
     for name, tier, dev in (("cpu", cpu[0], "cpu"), ("cuda", gpu[0], "cuda")):
@@ -365,11 +367,11 @@ def test_copy_pages_kernel_copies_only_its_pairs(gen, dtype, layers, pages,
         ops.copy_pages((pk, pv), src[:2], np.array([dst[0], src[0]]))
 
 
-def _reduced_tiers():
+def _reduced_tiers(name="qwen2-1.5b"):
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models import model_zoo
     from repro_torch.serving.engine import TierModel
-    cfg = ARCHS["qwen2-1.5b"].reduced()
+    cfg = ARCHS[name].reduced()
     g = torch.Generator().manual_seed(0)
     cpu = [TierModel(c, model_zoo.init_params(g, c))
            for c in (cfg.s_variant(4), cfg)]
@@ -445,7 +447,8 @@ def test_stream_on_card_matches_cpu(gen, monkeypatch):
                                         + ll * l.lane_ticks["live"]),
         "decode_attention_chunk_paged": (ls * s.lane_ticks["chunk"]
                                          + ll * l.lane_ticks["chunk"]),
-        "copy_pages": s.lane_ticks["cow"] + l.lane_ticks["cow"]}
+        "copy_pages": s.lane_ticks["cow"] + l.lane_ticks["cow"],
+        "ssd_chunk": 0}
     assert counts["copy_pages"] > 0 and counts["decode_attention_chunk_paged"]
     assert s.pool.held_slots == l.pool.held_slots == []
     for r in reqs:
@@ -499,6 +502,220 @@ def test_stream_tick_synchronises_only_in_host_fetch(gen, monkeypatch):
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = eng.serve_stream(reqs, **STREAM_KW)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(out) == len(reqs)
+
+
+# ---------------------------------------------------------------------------
+# the SSD intra-chunk kernel, the paged kernel at head dim 80, and the
+# recurrent families' continuous serving
+# ---------------------------------------------------------------------------
+
+# float32 on both sides; the kernel sums in another order over <= 128 terms
+SSD_ATOL, SSD_RTOL = 1e-4, 1e-4
+
+
+def _ssd_inputs(gen, b, nc, q, h, p, n, live=None):
+    x = torch.randn((b, nc, q, h, p), generator=gen, device="cuda")
+    dt = torch.rand((b, nc, q, h), generator=gen, device="cuda") * 0.5
+    if live is not None:
+        dt[:, :, live:] = 0.0            # a right-padded row's tail
+    A = -torch.rand((h,), generator=gen, device="cuda") - 0.2
+    B = torch.randn((b, nc, q, n), generator=gen, device="cuda")
+    C = torch.randn((b, nc, q, n), generator=gen, device="cuda")
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("b,nc,q,h,p,n", [
+    (2, 2, 32, 4, 16, 16),               # reduced test shape
+    (1, 3, 16, 3, 8, 8),                 # heads not a multiple of 4
+    (4, 4, 128, 32, 64, 128),            # mamba2-370m L admission
+    (8, 4, 128, 8, 64, 128),             # mamba2-370m S admission
+    (2, 2, 128, 80, 64, 64),             # zamba2-2.7b L
+])
+def test_ssd_chunk_kernel_matches_plain(gen, b, nc, q, h, p, n):
+    args = _ssd_inputs(gen, b, nc, q, h, p, n)
+    want = ssd_scan.ssd_chunk_ref(*args)
+    before = ssd_scan.ssd_chunk_cuda.launches
+    got = ops.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_chunk_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+def test_ssd_chunk_kernel_padded_tail_is_exact(gen):
+    """dt = 0 past a row's length: g is exp(a_cs) at the length bit for bit
+    and S does not move, whatever x holds in the tail."""
+    x, dt, A, B, C = _ssd_inputs(gen, 2, 2, 128, 8, 64, 128, live=77)
+    y, S, g, eacs = ssd_scan.ssd_chunk_cuda(x, dt, A, B, C)
+    x2 = x.clone()
+    x2[:, :, 77:] = 1e4
+    _, S2, g2, _ = ssd_scan.ssd_chunk_cuda(x2, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert torch.equal(S2, S) and torch.equal(g2, g)
+    assert torch.equal(g, eacs[:, :, 76])
+    assert bool(torch.isfinite(y).all())
+
+
+def test_ssd_through_ops_matches_plain_on_the_card(gen):
+    """``ops.ssd`` (kernel + torch recurrence) against the model's plain
+    chunked path, lengths not a multiple of the chunk."""
+    from repro_torch.models import mamba2
+    b, l, h, p, n = 2, 300, 8, 64, 128
+    x = torch.randn((b, l, h, p), generator=gen, device="cuda")
+    dt = torch.rand((b, l, h), generator=gen, device="cuda") * 0.5
+    A = -torch.rand((h,), generator=gen, device="cuda") - 0.2
+    B = torch.randn((b, l, n), generator=gen, device="cuda")
+    C = torch.randn((b, l, n), generator=gen, device="cuda")
+    y, hT = ops.ssd(x, dt, A, B, C, chunk=128)
+    yr, hr = mamba2.ssd_chunked(x, dt, A, B, C, 128)
+    torch.testing.assert_close(y, yr, atol=3e-4, rtol=3e-4)
+    torch.testing.assert_close(hT, hr, atol=3e-4, rtol=3e-4)
+
+
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    args = list(_ssd_inputs(gen, 1, 1, 32, 4, 16, 16))
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan.ssd_chunk_cuda(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="not supported"):
+        ssd_scan.ssd_chunk_cuda(*_ssd_inputs(gen, 1, 1, 256, 4, 16, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan.ssd_chunk_cuda(*(t.cpu() for t in args))
+
+
+def test_paged_decode_kernel_at_head_dim_80(gen):
+    """zamba2-2.7b's shared block at its L-tier decode shape: 32 heads over
+    32 kv heads of 80, bf16 pages, NaN and inf in every position no query
+    may see (page 0, unallocated pages, stale tails)."""
+    from repro_torch.kernels import decode_attention as da
+    b, h, d, page, npg = 4, 32, 80, 16, 18
+    pages = b * npg + 9
+    pool_k = torch.randn((pages, page, h, d), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    pool_v = torch.randn_like(pool_k)
+    block = (torch.randperm(pages - 1, generator=gen, device="cuda")[
+        : b * npg] + 1).to(torch.int32).reshape(b, npg)
+    block[1, 10:] = 0                     # a slot with unallocated pages
+    pos = torch.tensor([250, 120, 17, 287], device="cuda")
+    kpos = torch.arange(npg * page, device="cuda")
+    valid = kpos[None, :] <= pos[:, None]
+    for bi in range(b):
+        hidden = (~valid[bi]).nonzero()[:, 0]
+        phys = block[bi].long()[hidden // page]
+        pool_k[phys, hidden % page] = float("nan")
+        pool_v[phys, hidden % page] = float("inf")
+    pool_k[0], pool_v[0] = float("nan"), float("nan")
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda")
+    out_k = da.decode_attention_paged_cuda(q, pool_k, pool_v, block, valid)
+    out_p = da.decode_attention_paged_plain(q, pool_k, pool_v, block, valid)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out_k).all())
+    torch.testing.assert_close(out_k, out_p, atol=ATT_ATOL, rtol=0)
+
+
+RECURRENT_KW = dict(buckets=(8, 20, 48), num_slots=4, l_slots=2, page_size=8,
+                    decode_block=2, chunk_prefill=True, chunk_size=20,
+                    chunk_width=2, validate=True)
+
+
+@pytest.mark.parametrize("name", ["mamba2-370m", "zamba2-2.7b"])
+def test_recurrent_stream_on_card_matches_cpu(gen, monkeypatch, name):
+    """Reduced mamba2 / zamba2 ``serve_stream`` (whole-prompt restores, the
+    chunk lane) on the card against the CPU: equal statuses and decisive S
+    tokens, one host fetch per tick, and the launches the lane flags
+    predict: ``ssd_chunk`` once per mamba layer per prefill, the paged
+    kernel once per group per decode step (chunk-lane steps included)."""
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.models import model_zoo
+    from repro_torch.parity import decisive
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.batcher import pad_to_bucket
+    from repro_torch.serving.engine import HIEngine
+
+    cpu, gpu = _reduced_tiers(name)
+    reqs = _stream_requests(cpu[0].cfg.vocab_size)
+    fetches = []
+    real = engine_mod._host_fetch
+    monkeypatch.setattr(engine_mod, "_host_fetch",
+                        lambda tree: (fetches.append(1), real(tree))[1])
+    outs = {}
+    for dev, tiers in (("cpu", cpu), ("cuda", gpu)):
+        eng = HIEngine(*tiers, HIConfig(theta=0.02, capacity_factor=1.0),
+                       max_new_tokens=6)
+        ops.reset_launch_counts()
+        n0 = len(fetches)
+        outs[dev] = eng.serve_stream(reqs, **RECURRENT_KW)
+        assert len(fetches) - n0 == eng.stats["stream_ticks"]
+        counts = ops.launch_counts()
+        sched = eng._stream[1]
+    kb, c = RECURRENT_KW["decode_block"], RECURRENT_KW["chunk_size"]
+    want = dict.fromkeys(counts, 0)
+    for rt in (sched.srt, sched.lrt):
+        cfg, t = rt.pool.cfg, rt.lane_ticks
+        want["hi_gate"] += t["admit"] + t["chunk"] + kb * t["live"]
+        want["ssd_chunk"] += cfg.num_layers * t["prefill"]
+        if cfg.family == "hybrid":
+            g = cfg.num_layers // cfg.shared_attn_every
+            want["decode_attention_paged"] += g * (kb * t["live"]
+                                                   + c * t["chunk"])
+            want["copy_pages"] += t["cow"]
+    assert counts == want
+    assert counts["ssd_chunk"] > 0 and sched.srt.lane_ticks["chunk"] > 0
+    assert sched.srt.pool.held_slots == sched.lrt.pool.held_slots == []
+    for r in reqs:
+        cr, gr = outs["cpu"][r.request_id], outs["cuda"][r.request_id]
+        assert cr["status"] == gr["status"]
+        prompt = np.zeros(pad_to_bucket(len(r.prompt),
+                                        RECURRENT_KW["buckets"]), np.int64)
+        prompt[: len(r.prompt)] = r.prompt
+        tier = cpu[0]
+        cache = model_zoo.init_cache(tier.cfg, 1, 64, device="cpu")
+        lg, cache = model_zoo.prefill(tier.params, tier.cfg,
+                                      torch.from_numpy(prompt[None]), cache)
+        logs = [lg[0].numpy()]
+        for t in cr["s_tokens"][:-1]:
+            lg, cache = model_zoo.decode_step(
+                tier.params, tier.cfg, torch.tensor([[int(t)]]), cache)
+            logs.append(lg[0].numpy())
+        dec = decisive(np.stack(logs), 1e-2)
+        first = int(np.argmin(dec)) if not dec.all() else len(dec)
+        np.testing.assert_array_equal(gr["s_tokens"][:first],
+                                      cr["s_tokens"][:first])
+
+
+def test_mamba2_stream_synchronises_only_in_host_fetch(gen, monkeypatch):
+    """Every tick of a reduced mamba2 ``serve_stream`` (the SSD kernel in
+    the admit lane, the chunk lane's staged rollback, whole-prompt
+    restores) runs under the sync debugger set to raise, which
+    ``_host_fetch`` alone lifts."""
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.kernels import build
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.engine import HIEngine
+
+    _, gpu = _reduced_tiers("mamba2-370m")
+    reqs = _stream_requests(gpu[0].cfg.vocab_size, seed=1)
+    eng = HIEngine(*gpu, HIConfig(theta=0.02, capacity_factor=1.0),
+                   max_new_tokens=6)
+    build.library()
+    eng.serve_stream(reqs, **RECURRENT_KW)       # warm: allocations, build
+    torch.cuda.synchronize()
+    real = engine_mod._host_fetch
+
+    def fetch(tree):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(tree)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(engine_mod, "_host_fetch", fetch)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = eng.serve_stream(reqs, **RECURRENT_KW)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert len(out) == len(reqs)

@@ -133,9 +133,12 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     ops.decode_attention_chunk_paged(torch.randn(1, 3, 2, 16), pool, pool,
                                      block, torch.ones(1, 3, 8, dtype=bool))
     ops.copy_pages((pool[None].clone(),), [1], [3])
+    ops.ssd_chunk(torch.randn(1, 1, 8, 2, 8), torch.rand(1, 1, 8, 2),
+                  -torch.rand(2), torch.randn(1, 1, 8, 8),
+                  torch.randn(1, 1, 8, 8))
     assert ops.launch_counts() == {
         "hi_gate": 0, "decode_attention": 0, "decode_attention_paged": 0,
-        "decode_attention_chunk_paged": 0, "copy_pages": 0}
+        "decode_attention_chunk_paged": 0, "copy_pages": 0, "ssd_chunk": 0}
 
 
 def test_kernel_wrappers_refuse_non_cuda_tensors():
@@ -159,7 +162,7 @@ def test_build_commands_target_sm90a_in_parallel(tmp_path):
     link into a single shared library; the build key follows the sources."""
     from repro_torch.kernels import build
     compiles, link = build.compile_commands("nvcc", tmp_path)
-    assert len(compiles) == len(build.SOURCES) == 4
+    assert len(compiles) == len(build.SOURCES) == 5
     for cmd in compiles:
         assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
         assert "-Xptxas" in cmd and "-v" in cmd and "-O3" in cmd

@@ -163,6 +163,6 @@ def test_prefill_chunked_attention_matches_reference():
 
 def test_other_families_raise_naming_roadmap():
     import dataclasses
-    cfg = dataclasses.replace(ARCHS["qwen2-1.5b"].reduced(), family="ssm")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
+    cfg = dataclasses.replace(ARCHS["qwen2-1.5b"].reduced(), family="moe")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 11"):
         tzoo.init_cache(cfg, 1, 8, device="cpu")
