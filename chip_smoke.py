@@ -15,7 +15,12 @@ Phases (any failure exits non-zero before the last line):
    exists, one PyTorch call that computes the same function.  ssd_chunk at
    mamba2-370m's L and S admission shapes and zamba2-2.7b's L shape, with
    its padded-tail exactness; the paged decode kernel also at zamba2's head
-   dim 80 with NaN and inf planted where no query may look.
+   dim 80 with NaN and inf planted where no query may look.  The int8
+   bodies of the paged decode kernel (qwen2's L shape at head dim 128,
+   zamba2's at 80) and of the chunk kernel (C = 256), each with NaN / inf
+   scales and arbitrary bytes planted where no query may look (the output
+   must not move), and copy_pages over int8 pools with their scale rows at
+   K = 2 (8-byte rows) and K = 32, byte-equal to the plain version.
 4. serve   — the drain path: ``HIEngine.serve`` on the full-width qwen2-1.5b
    cascade (L = qwen2-1.5b, S = its ``s_variant(4)``), random float32 params
    from a seeded ``torch.Generator``, bf16 KV cache; 16 requests through
@@ -33,11 +38,18 @@ Phases (any failure exits non-zero before the last line):
    predict, copy-on-write copies, saved prefill tokens and chunk ticks, one
    record per request, the pools' invariants every tick and no held slot
    after drain; and holds the stream on the card against the CPU on a
-   small input.
+   small input, and a fixed run of the paged API over an int8 pool
+   (prefill, COW, decode, a chunk) on the card against the CPU: logits
+   within a limit below the int8-vs-bf16 gap, levels within 1, scales.
 6. trace   — one more drain serve, and one ``serve_stream`` tick window,
    under ``torch.profiler``: the device's time by kernel kind and its busy
    share of the wall time (``--trace DIR`` keeps the gzipped Chrome traces
-   in DIR).
+   in DIR).  Then the stream phase again with ``kv_dtype="int8"``: the int8
+   kernels' launches against the lane flags, pool bytes at most 0.55x the
+   bf16 run's, the slots the bf16 byte budget admits in int8, the free-run
+   token agreement with the bf16 run, the L tier's decode step time over
+   bf16 and int8 pools, and the reference's teacher-forced measure on the
+   L tier (reported).
 7. mamba2  — the SSM family at full size (L mamba2-370m, 48 layers; S 12):
    phases 4 to 6 again (drain with ssd_chunk launched once per layer per
    prefill; the 32-request stream trace at vocab 50,280 with the chunk lane
@@ -49,10 +61,17 @@ Phases (any failure exits non-zero before the last line):
 9. hybrid  — zamba2-2.7b at full width cut to 24 layers (S 6; the
    reference cannot build the full-depth cascade): a 12-request stream
    with repeated system prompts, asserting ssd_chunk, the paged kernel at
-   head dim 80, copy_pages and hi_gate against the lane flags.
-10. the ``{"kernels": [...]}`` line (launches summed over every main-path
-   run, each run's counts set to 0 just before it), the ``nvidia-smi``
-   line, and last ``{"ok": true, "device": {...}}``.
+   head dim 80, copy_pages and hi_gate against the lane flags (the small
+   card-against-CPU checks first, the int8 paged run among them); then the
+   same with int8 pools (the byte ratio reported: the recurrent state does
+   not shrink).
+10. gate   — the reference's int8 fidelity gate on the card with the
+   kernels: reduced zamba2-2.7b, 8 slots, 16 teacher-forced steps, bf16
+   against int8 pools, >= 0.99 of the 136 greedy decisions agree.
+11. the ``{"kernels": [...]}`` line (launches summed over every main-path
+   run, each run's counts set to 0 just before it; the int8 bodies listed
+   apart as ``name[int8]``), the ``nvidia-smi`` line, and last
+   ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and cuDNN throughout, so float32 stays float32.
 Imports nothing of JAX and nothing of the JAX package.
@@ -122,6 +141,10 @@ HYBRID_KW = dict(buckets=(64, 128, 248, 256), num_slots=8, l_slots=4,
 Z_NPG = 18
 Z_L_PAGES = 4 * Z_NPG + 1 + 8 * 16
 
+# the reference's byte contract for int8 pools against bf16 on qwen2
+# (benchmarks/bench_serving.py, asserted <= 0.55x)
+INT8_MAX_RATIO = 0.55
+
 # tolerances of kernel vs plain version (both float32 arithmetic; only the
 # order of the sums differs)
 CONF_ATOL, CONF_RTOL = 1e-5, 1e-4        # over 151,936 exp terms
@@ -133,7 +156,14 @@ SSD_ATOL, SSD_RTOL = 1e-4, 1e-4          # ssd_chunk, sums of <= 128 terms
 CHUNK_LOGIT_TOL = 1e-3
 
 
+T0 = time.perf_counter()
+
+
 def log(*a):
+    """Print at once; a phase header ("== ...") carries the seconds since
+    the script started, so a run shows where its time limit goes."""
+    if a and str(a[0]).startswith("=="):
+        a = (f"{a[0]} [{time.perf_counter() - T0:.1f} s]",) + a[1:]
     print(*a, flush=True)
 
 
@@ -321,18 +351,32 @@ def check_decode_attention(gen):
     return main
 
 
-def _paged_case(gen, b, h, k, pages, pos, c, d=128, npg=NPG, plant=False):
+def _paged_case(gen, b, h, k, pages, pos, c, d=128, npg=NPG, plant=False,
+                quant=False):
     """A main-path paged input: a (pages, 16, K, D) bf16 pool, each slot's
     ``npg``-page block row drawn without repeats from shuffled pages,
-    queries at positions pos[b] .. pos[b] + c - 1.  ``plant``: NaN and inf
-    in every pool position no query may see (page 0, stale page tails),
-    which the kernel must never let into a result."""
+    queries at positions pos[b] .. pos[b] + c - 1.  ``quant``: int8 pools
+    with their (pages, K) float32 scales instead.  ``plant``: garbage in
+    every pool position no query may see (page 0, stale page tails, pages
+    no slot sees), which the kernel must never let into a result: NaN and
+    inf in a bf16 pool; for int8, arbitrary bytes there and NaN / inf
+    scales on every page no query of its slot reaches.  Returns (q, pool_k,
+    pool_v, block, valid, scales), scales () for bf16 or (scale_k,
+    scale_v)."""
     import torch
     page = 16
-    pool_k = torch.randn((pages, page, k, d), generator=gen,
-                         device="cuda").to(torch.bfloat16)
-    pool_v = torch.randn((pages, page, k, d), generator=gen,
-                         device="cuda").to(torch.bfloat16)
+    if quant:
+        pool_k, pool_v = (torch.randint(-128, 128, (pages, page, k, d),
+                                        generator=gen, device="cuda")
+                          .to(torch.int8) for _ in range(2))
+        scales = tuple(torch.rand((pages, k), generator=gen, device="cuda")
+                       * 0.05 for _ in range(2))
+    else:
+        pool_k = torch.randn((pages, page, k, d), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+        pool_v = torch.randn((pages, page, k, d), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+        scales = ()
     perm = torch.randperm(pages - 1, generator=gen, device="cuda") + 1
     block = perm[: b * npg].to(torch.int32).reshape(b, npg)
     q = torch.randn((b, c, h, d), generator=gen, device="cuda")
@@ -343,22 +387,32 @@ def _paged_case(gen, b, h, k, pages, pos, c, d=128, npg=NPG, plant=False):
     if plant:
         hidden = ~valid.any(dim=1)                    # (B, S_tot)
         phys = block.long()[:, kpos // page] * page + kpos % page
-        for pool, bad in ((pool_k, float("nan")), (pool_v, float("inf"))):
-            pool.view(-1, k, d)[phys[hidden]] = bad
-            pool[0] = float("nan")
-    return q, pool_k, pool_v, block, valid
+        bad = ((-128, -128) if quant else (float("nan"), float("inf")))
+        for pool, x in zip((pool_k, pool_v), bad):
+            pool.view(-1, k, d)[phys[hidden]] = x
+            pool[0] = x
+        if quant:
+            seen = (~hidden).reshape(b, npg, page).any(dim=2)
+            dark = torch.ones(pages, dtype=torch.bool, device="cuda")
+            dark[block[seen].long()] = False
+            scales[0][dark], scales[1][dark] = float("nan"), float("inf")
+    return q, pool_k, pool_v, block, valid, scales
 
 
-def _paged_library(q, pool_k, pool_v, block, valid):
-    """Yardstick inputs: K/V gathered through the block table beforehand
-    into (B, K, S, D), so one SDPA call computes the same function."""
+def _paged_library(q, pool_k, pool_v, block, valid, *scales):
+    """Yardstick inputs: K/V gathered through the block table (and, for
+    int8, dequantised) beforehand into (B, K, S, D) bf16, so one SDPA call
+    computes the same function."""
     import torch
-    b, c, h, d = q.shape
-    kk = pool_k[block.long()].reshape(b, -1, pool_k.shape[2], d)
-    vv = pool_v[block.long()].reshape(b, -1, pool_k.shape[2], d)
-    return (q.transpose(1, 2).to(torch.bfloat16),
-            kk.transpose(1, 2).contiguous(), vv.transpose(1, 2).contiguous(),
-            valid[:, None])
+    from repro_torch.kernels.decode_attention import dequant_gather
+
+    def gather(pool, scale):
+        return dequant_gather(pool, scale, block).transpose(1, 2) \
+            .to(torch.bfloat16).contiguous()
+
+    sk, sv = scales or (None, None)
+    return (q.transpose(1, 2).to(torch.bfloat16), gather(pool_k, sk),
+            gather(pool_v, sv), valid[:, None])
 
 
 def _sdpa(q, kk, vv, m):
@@ -367,65 +421,101 @@ def _sdpa(q, kk, vv, m):
                                           enable_gqa=True)
 
 
-def _gather_sdpa(q, pool_k, pool_v, block, valid):
-    return _sdpa(*_paged_library(q, pool_k, pool_v, block, valid))
+def _gather_sdpa(q, pool_k, pool_v, block, valid, *scales):
+    return _sdpa(*_paged_library(q, pool_k, pool_v, block, valid, *scales))
 
 
-def check_paged(gen, name, c, cases):
+def check_paged(gen, name, c, cases, quant=False):
     """Kernels 3 and 4 (one source): each case is (label, B, H, K, D, pages,
-    first query positions, pages per slot, plant NaN/inf).  The main path's
-    L-tier case is timed first."""
+    first query positions, pages per slot, plant garbage).  ``quant``: the
+    int8 bodies, over int8 pools and their scales; a planted case must also
+    give bit for bit what the same inputs give without the garbage.  The
+    main path's L-tier case is timed first."""
     import torch
     from repro_torch.kernels import decode_attention as da
     kernel = (da.decode_attention_paged_cuda if c == 1
               else da.decode_attention_chunk_paged_cuda)
     plain = (da.decode_attention_paged_plain if c == 1
              else da.decode_attention_chunk_paged_plain)
+    kind = "int8" if quant else "bf16"
 
     def mask(valid):
         return valid[:, 0] if c == 1 else valid
 
+    def args(case):
+        q, pk, pv, block, valid, scales = case
+        return (q, pk, pv, block, mask(valid), *scales)
+
     worst, main = 0.0, None
     for label, b, h, k, d, pages, pos, npg, plant in cases:
-        q, pk, pv, block, valid = _paged_case(gen, b, h, k, pages, pos, c, d,
-                                              npg, plant)
-        out_k = kernel(q, pk, pv, block, mask(valid))
-        out_p = plain(q, pk, pv, block, mask(valid))
+        case = _paged_case(gen, b, h, k, pages, pos, c, d, npg, plant, quant)
+        out_k = kernel(*args(case))
+        out_p = plain(*args(case))
         torch.cuda.synchronize()
         err = (out_k - out_p).abs().max().item()
         if not err <= ATT_ATOL or not bool(torch.isfinite(out_k).all()):
             raise AssertionError(f"{name} {label}: max err {err:.3e}")
+        if quant and plant:
+            # the same inputs with other values wherever nothing is read:
+            # finite scales, other bytes in the unseen rows
+            q, pk, pv, block, valid, scales = case
+            hidden = ~valid.any(dim=1)
+            phys = (block.long()[:, :, None] * 16
+                    + torch.arange(16, device="cuda")).reshape(b, -1)
+            other = tuple(torch.where(torch.isfinite(t), t, 0.5)
+                          for t in scales)
+            opk, opv = pk.clone(), pv.clone()
+            for t in (opk, opv):
+                t.view(-1, k, d)[phys[hidden]] = 3
+            if not torch.equal(kernel(q, opk, opv, block, mask(valid),
+                                      *other), out_k):
+                raise AssertionError(f"{name} {label}: the garbage planted "
+                                     "where no query looks changed the "
+                                     "output")
         worst = max(worst, err)
+        q, pk, _, block, valid, scales = case
         seen = valid.any(dim=1)                      # keys any query sees
         n_seen, n_pairs = int(seen.sum()), int(valid.sum())
-        nbytes = (2 * b * c * h * d * 4 + 2 * n_seen * k * d * 2
+        pages_seen = int(seen.reshape(b, npg, 16).any(dim=2).sum())
+        item = pk.element_size()
+        nbytes = (2 * b * c * h * d * 4 + 2 * n_seen * k * d * item
+                  + (2 * pages_seen * k * 4 if quant else 0)
                   + valid.numel() + block.numel() * 4)
         sets = copies(lambda: _paged_case(gen, b, h, k, pages, pos, c, d,
-                                          npg, plant), 2 * pk.numel() * 2)
-        msets = [(q_, a, v_, bl, mask(m)) for q_, a, v_, bl, m in sets]
+                                          npg, plant, quant),
+                      2 * pk.numel() * item)
+        msets = [args(x) for x in sets]
         ms = timed(kernel, msets, 200)
         dev_ms = device_ms(kernel, msets, r"paged_attention_kernel")
         plain_ms = timed(plain, msets, 20)
-        lib_sets = [_paged_library(*x) for x in sets]
+        raw = [(x[0], x[1], x[2], x[3], x[4], *x[5]) for x in sets]
+        lib_sets = [_paged_library(*x) for x in raw]
         lib_ms = timed(_sdpa, lib_sets, 200)
-        gather_ms = timed(_gather_sdpa, sets, 50)
+        gather_ms = timed(_gather_sdpa, raw, 50)
         bound_ms, by = bound(nbytes, 4 * h * d * n_pairs)
-        log(f"  {name} {label}: B={b} C={c} H={h} K={k} D={d} pool "
-            f"({pages},16,{k},{d}) bf16, {n_pairs} (query, key) pairs"
-            f"{', NaN/inf planted where no query looks' if plant else ''}  "
-            f"max_abs_err {err:.2e} (tol {ATT_ATOL:g})  {ms * 1e3:.1f} us "
+        pool = f"({pages},16,{k},{d}) {kind}"
+        log(f"  {name} {label}: B={b} C={c} H={h} K={k} D={d} pool {pool}"
+            f"{' + (P,K) f32 scales' if quant else ''}, {n_pairs} (query, "
+            f"key) pairs{', garbage planted where no query looks' if plant else ''}"
+            f"  max_abs_err {err:.2e} (tol {ATT_ATOL:g})  {ms * 1e3:.1f} us "
             f"(device {dev_ms * 1e3:.1f} us)  "
-            f"plain {plain_ms * 1e3:.1f} us  sdpa on gathered K/V "
-            f"{lib_ms * 1e3:.1f} us  gather+sdpa {gather_ms * 1e3:.1f} us  "
+            f"plain {plain_ms * 1e3:.1f} us  sdpa on gathered "
+            f"{'dequantised ' if quant else ''}K/V {lib_ms * 1e3:.1f} us  "
+            f"gather+sdpa {gather_ms * 1e3:.1f} us  "
             f"bound {bound_ms * 1e3:.2f} us ({by})")
         if main is None:
-            main = {"name": name, "route": "cuda",
+            main = {"name": name + ("[int8]" if quant else ""),
+                    "route": "cuda",
                     "source": "src/repro_torch/csrc/decode_attention_paged.cu",
-                    "replaces": ("src/repro/kernels/decode_attention.py:376"
+                    "replaces": (("src/repro/kernels/decode_attention.py:192"
+                                  if quant else
+                                  "src/repro/kernels/decode_attention.py:376")
                                  if c == 1 else
-                                 "src/repro/kernels/decode_attention.py:307"),
+                                 ("src/repro/kernels/decode_attention.py:265"
+                                  if quant else
+                                  "src/repro/kernels/decode_attention.py:307")),
                     "shape": (f"{label}: q ({b},{c},{h},{d}) f32, pool "
-                              f"({pages},16,{k},{d}) bf16, {n_pairs} pairs"),
+                              f"{pool}, {n_pairs} pairs"),
                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": by,
                     "library_ms": lib_ms, "gather_sdpa_ms": gather_ms}
@@ -433,17 +523,24 @@ def check_paged(gen, name, c, cases):
     return main
 
 
-def check_decode_attention_paged(gen):
+def _decode_positions():
+    """The decode cases' query positions: qwen2's L and S tiers (prompts of
+    32..527), zamba2's L tier (32..271); the int8 cases take the same."""
     import numpy as np
     rng = np.random.default_rng(3)
+    return (rng.integers(32, 528, 4).tolist(),
+            rng.integers(32, 528, 8).tolist(),
+            rng.integers(32, 272, 4).tolist())
+
+
+def check_decode_attention_paged(gen):
+    pos_l, pos_s, pos_z = _decode_positions()
     return check_paged(gen, "decode_attention_paged", 1, [
-        ("L tier qwen2-1.5b", 4, 12, 2, 128, L_PAGES,
-         rng.integers(32, 528, 4).tolist(), NPG, False),
-        ("S tier qwen2-1.5b-s4", 8, 3, 1, 128, S_PAGES,
-         rng.integers(32, 528, 8).tolist(), NPG, False),
+        ("L tier qwen2-1.5b", 4, 12, 2, 128, L_PAGES, pos_l, NPG, False),
+        ("S tier qwen2-1.5b-s4", 8, 3, 1, 128, S_PAGES, pos_s, NPG, False),
         # zamba2's shared block: 32 heads over 32 kv heads of 80
-        ("L tier zamba2-2.7b", 4, 32, 32, 80, Z_L_PAGES,
-         rng.integers(32, 272, 4).tolist(), Z_NPG, True)])
+        ("L tier zamba2-2.7b", 4, 32, 32, 80, Z_L_PAGES, pos_z, Z_NPG,
+         True)])
 
 
 def check_decode_attention_chunk_paged(gen):
@@ -457,68 +554,109 @@ def check_decode_attention_chunk_paged(gen):
          False)])
 
 
-def check_copy_pages(gen):
+def check_decode_attention_paged_int8(gen):
+    """The int8 body at the main path's decode shapes: qwen2-1.5b's L tier
+    at head dim 128 and zamba2-2.7b's shared block at 80, both with
+    garbage planted where no query looks, at the bf16 cases' positions."""
+    pos_l, _, pos_z = _decode_positions()
+    return check_paged(gen, "decode_attention_paged", 1, [
+        ("L tier qwen2-1.5b", 4, 12, 2, 128, L_PAGES, pos_l, NPG, True),
+        ("L tier zamba2-2.7b", 4, 32, 32, 80, Z_L_PAGES, pos_z, Z_NPG,
+         True)], quant=True)
+
+
+def check_decode_attention_chunk_paged_int8(gen):
+    c = STREAM_KW["chunk_size"]
+    return check_paged(gen, "decode_attention_chunk_paged", c, [
+        ("L tier qwen2-1.5b", 2, 12, 2, 128, L_PAGES, [0, 512 - c], NPG,
+         True)], quant=True)
+
+
+def check_copy_pages(gen, quant=False):
     """Kernel 5 on a tier's K and V pools at the main path's shapes: the
-    pools are NaN except the source pages, so a stray write shows."""
+    pools are NaN except the source pages, so a stray write shows.
+    ``quant``: int8 pools and their (L, P, K) float32 scale rows in the
+    same launch, at qwen2-1.5b's K = 2 (8-byte rows) and zamba2-2.7b's
+    K = 32 (128-byte rows); the untouched pages hold -128 and NaN scales."""
     import numpy as np
     import torch
     from repro_torch.kernels import copy_pages as cp
     main = None
-    for label, layers, pages, k, pairs in (
-            ("L tier qwen2-1.5b", 28, L_PAGES, 2, 4),
-            ("S tier qwen2-1.5b-s4", 7, S_PAGES, 1, 8)):
-        shape = (layers, pages, 16, k, 128)
+    cases = ((("L tier qwen2-1.5b", 28, L_PAGES, 2, 128, 4),
+              ("L tier zamba2-2.7b", HYBRID_DEPTH // 6, Z_L_PAGES, 32, 80,
+               4)) if quant else
+             (("L tier qwen2-1.5b", 28, L_PAGES, 2, 128, 4),
+              ("S tier qwen2-1.5b-s4", 7, S_PAGES, 1, 128, 8)))
+    for label, layers, pages, k, d, pairs in cases:
+        shape = (layers, pages, 16, k, d)
 
         def make():
-            pools = [torch.full(shape, float("nan"), device="cuda")
-                     .to(torch.bfloat16) for _ in range(2)]
             perm = torch.randperm(pages - 1, generator=gen,
                                   device="cuda").cpu().numpy() + 1
             src = perm[:pairs].astype(np.int32)
             dst = perm[pairs:2 * pairs].astype(np.int32)
+            if quant:
+                pools = [torch.full(shape, -128, dtype=torch.int8,
+                                    device="cuda") for _ in range(2)]
+                rows = [torch.full((layers, pages, k), float("nan"),
+                                   device="cuda") for _ in range(2)]
+                for t in pools:
+                    t[:, src] = torch.randint(
+                        -127, 128, (layers, pairs) + shape[2:],
+                        generator=gen, device="cuda").to(torch.int8)
+                for t in rows:
+                    t[:, src] = torch.rand((layers, pairs, k), generator=gen,
+                                           device="cuda")
+                return tuple(pools + rows), src, dst
+            pools = [torch.full(shape, float("nan"), device="cuda")
+                     .to(torch.bfloat16) for _ in range(2)]
             for t in pools:
                 t[:, src] = torch.randn((layers, pairs) + shape[2:],
                                         generator=gen, device="cuda") \
                     .to(torch.bfloat16)
             return tuple(pools), src, dst
 
-        pools, src, dst = make()
-        want = tuple(t.clone() for t in pools)
+        tensors, src, dst = make()
+        want = tuple(t.clone() for t in tensors)
         cp.copy_pages_plain(want, src, dst)
-        cp.copy_pages_cuda(pools, src, dst)
+        cp.copy_pages_cuda(tensors, src, dst)
         torch.cuda.synchronize()
-        for got, ref in zip(pools, want):
-            if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
-                raise AssertionError(f"copy_pages {label}: pools differ from "
+        for got, ref in zip(tensors, want):
+            if not torch.equal(got.view(torch.uint8), ref.view(torch.uint8)):
+                raise AssertionError(f"copy_pages {label}: bytes differ from "
                                      "the plain version's")
-        page_bytes = 16 * k * 128 * 2
-        nbytes = 2 * 2 * layers * pairs * page_bytes     # read + write, K + V
-        sets = copies(make, 2 * pools[0].numel() * 2)
+        # read + write of each copied page (and scale row) of each tensor
+        nbytes = 2 * pairs * sum(t[0, 0].numel() * t.element_size() * layers
+                                 for t in tensors)
+        sets = copies(make, sum(t.numel() * t.element_size()
+                                for t in tensors))
         ms = timed(cp.copy_pages_cuda, sets, 200)
         dev_ms = device_ms(cp.copy_pages_cuda, sets, r"copy_pages_kernel")
         plain_ms = timed(cp.copy_pages_plain, sets, 50)
-        lib_sets = [(p, torch.as_tensor(d, device="cuda").long(),
+        lib_sets = [(p, torch.as_tensor(d_, device="cuda").long(),
                      tuple(t[:, torch.as_tensor(s_, device="cuda").long()]
-                           for t in p)) for p, s_, d in sets]
+                           for t in p)) for p, s_, d_ in sets]
 
-        def index_copy(p, d, srcs):
+        def index_copy(p, d_, srcs):
             for t, x in zip(p, srcs):
-                t.index_copy_(1, d, x)
+                t.index_copy_(1, d_, x)
 
         lib_ms = timed(index_copy, lib_sets, 200)
         bound_ms, by = bound(nbytes, 0)
-        log(f"  copy_pages {label}: 2 pools ({layers},{pages},16,{k},128) "
-            f"bf16, {pairs} pairs  exact  {ms * 1e3:.1f} us (device "
-            f"{dev_ms * 1e3:.1f} us)  plain "
-            f"{plain_ms * 1e3:.1f} us  index_copy_ (one per pool, sources "
+        what = (f"2 int8 pools ({layers},{pages},16,{k},{d}) + 2 f32 scale "
+                f"rows ({layers},{pages},{k})" if quant else
+                f"2 pools ({layers},{pages},16,{k},{d}) bf16")
+        log(f"  copy_pages {label}: {what}, {pairs} pairs, one launch  exact"
+            f"  {ms * 1e3:.1f} us (device {dev_ms * 1e3:.1f} us)  plain "
+            f"{plain_ms * 1e3:.1f} us  index_copy_ (one per tensor, sources "
             f"gathered beforehand) {lib_ms * 1e3:.1f} us  bound "
             f"{bound_ms * 1e3:.2f} us ({by})")
         if main is None:
-            main = {"name": "copy_pages", "route": "cuda",
+            main = {"name": "copy_pages[int8]" if quant else "copy_pages",
+                    "route": "cuda",
                     "source": "src/repro_torch/csrc/copy_pages.cu",
                     "replaces": "src/repro/kernels/decode_attention.py:206",
-                    "shape": (f"{label}: K and V pools ({layers},{pages},16,"
-                              f"{k},128) bf16, {pairs} pairs"),
+                    "shape": f"{label}: {what}, {pairs} pairs",
                     "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
                     "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": by,
@@ -654,6 +792,45 @@ def check_small_reference(arch=ARCH):
         f"{err:.2e} (tol {SMALL_LOGIT_TOL:g}); decisive tokens {agree}/{n}")
     if not err <= SMALL_LOGIT_TOL or n == 0 or agree != n:
         raise AssertionError("card and CPU disagree on the small input")
+
+
+def check_small_int8_reference(arch=ARCH):
+    """``parity.paged_trace`` over reduced ``arch``'s int8 pool on the card
+    (the int8 kernel bodies, the in-place write side on CUDA tensors)
+    against the CPU (plain versions), same params: a prefill, a COW of a
+    part-filled page, decode steps, and a chunk that writes one page up to
+    six times and crosses into the next.  ``parity.traces_close``: logits
+    within the family's ``TRACE_LOGIT_TOL``, levels within 1 (at most 1 in
+    200 off by 1), scale rows within rtol 5e-3.  The CPU's int8-vs-bf16
+    logit gap on the same trace must exceed the logit limit, so that a card
+    that attended over unquantised K/V would fail."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo
+    from repro_torch.parity import TRACE_LOGIT_TOL, paged_trace, traces_close
+    cfg = ARCHS[arch].reduced()
+    params = model_zoo.init_params(torch.Generator().manual_seed(2), cfg)
+    cpu = paged_trace(params, cfg, torch.int8)
+    gap = max(float(np.abs(a - b).max()) for a, b in
+              zip(cpu[0], paged_trace(params, cfg, torch.bfloat16)[0]))
+    before = ops.launch_counts()
+    card = paged_trace(_to(params, "cuda"), cfg, torch.int8, "cuda")
+    ran = {k: v - before[k] for k, v in ops.launch_counts().items()
+           if k.endswith("[int8]") and v > before[k]}
+    tol = TRACE_LOGIT_TOL[arch]
+    err, flips, rel = traces_close(card, cpu, tol)
+    log(f"  small int8 trace (reduced {arch}, card vs CPU): max logit err "
+        f"{err:.2e} (limit {tol:g}; the CPU's int8-vs-bf16 gap {gap:.2e}); "
+        f"levels off by 1: {flips}; max scale rel err {rel:.2e}; "
+        f"launches {ran}")
+    want = {"decode_attention_paged[int8]", "copy_pages[int8]"}
+    if cfg.family == "dense":
+        want.add("decode_attention_chunk_paged[int8]")
+    if not gap > tol or set(ran) != want:
+        raise AssertionError("the int8 trace check cannot tell int8 from "
+                             "bf16, or missed a kernel")
 
 
 def _to(tree, dev):
@@ -902,18 +1079,20 @@ def _expected_launches(sched, before, kb, chunk):
         d = {k: rt.lane_ticks[k] - before[rt.name][k] for k in rt.lane_ticks}
         cfg = rt.pool.cfg
         n_layers = cfg.num_layers
+        # over int8 pools the paged kernels count as their int8 variants
+        q = "[int8]" if rt.pool.kv_dtype == "int8" else ""
         exp["hi_gate"] += d["admit"] + d["chunk"] + kb * d["live"]
         if cfg.family == "dense":
-            exp["decode_attention_paged"] += kb * n_layers * d["live"]
-            exp["decode_attention_chunk_paged"] += n_layers * d["chunk"]
-            exp["copy_pages"] += d["cow"]
+            exp["decode_attention_paged" + q] += kb * n_layers * d["live"]
+            exp["decode_attention_chunk_paged" + q] += n_layers * d["chunk"]
+            exp["copy_pages" + q] += d["cow"]
             continue
         exp["ssd_chunk"] += n_layers * d["prefill"]
         if cfg.family == "hybrid":
             g = n_layers // cfg.shared_attn_every
-            exp["decode_attention_paged"] += g * (kb * d["live"]
-                                                  + chunk * d["chunk"])
-            exp["copy_pages"] += d["cow"]
+            exp["decode_attention_paged" + q] += g * (kb * d["live"]
+                                                      + chunk * d["chunk"])
+            exp["copy_pages" + q] += d["cow"]
     return exp
 
 
@@ -924,7 +1103,8 @@ def serve_stream_full_width(eng, kw=STREAM_KW, reqs=None,
     have worked: "cow" (copy-on-write copies), "saved" (prefill tokens
     saved by the prefix cache), "restore" (whole-prompt restores), "chunk"
     (chunk-lane ticks).  Returns the launches of the two runs (counts set
-    to 0 just before the first, read after the second) and the trace."""
+    to 0 just before the first, read after the second), the trace and the
+    first run's records."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -949,27 +1129,29 @@ def serve_stream_full_width(eng, kw=STREAM_KW, reqs=None,
     total = {}
     theta = THETA
     cow0 = saved0 = full0 = chunk_ticks = 0
+    worked = dict.fromkeys(("cow", "saved", "restore"), 0)
     try:
         ops.reset_launch_counts()
         for run in range(2):
             eng.hi = dataclasses.replace(eng.hi, theta=theta)
-            sched = eng._stream[1] if eng._stream else None
+            prev = eng._stream[1] if eng._stream else None
             lanes0 = ({rt.name: dict(rt.lane_ticks)
-                       for rt in (sched.srt, sched.lrt)} if sched else None)
+                       for rt in (prev.srt, prev.lrt)} if prev else None)
             counts0, ticks0 = ops.launch_counts(), eng.stats["stream_ticks"]
             n_fetch = len(fetches)
-            if sched:
-                cow0 = sched.prefix_stats["cow_copies"]
-                full0 = sched.prefix_stats["full_hits"]
+            if prev:
+                cow0 = prev.prefix_stats["cow_copies"]
+                full0 = prev.prefix_stats["full_hits"]
             saved0 = eng.stats["prefill_tokens_saved"]
             t0 = time.perf_counter()
             out = eng.serve_stream(reqs, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             sched = eng._stream[1]
-            if lanes0 is None:
+            if sched is not prev:         # a new scheduler (other settings)
                 lanes0 = {rt.name: dict.fromkeys(rt.lane_ticks, 0)
                           for rt in (sched.srt, sched.lrt)}
+                cow0 = full0 = 0
             ticks = eng.stats["stream_ticks"] - ticks0
             counts = {k: v - counts0[k] for k, v in ops.launch_counts().items()}
             want = _expected_launches(sched, lanes0, kb, chunk)
@@ -1013,11 +1195,11 @@ def serve_stream_full_width(eng, kw=STREAM_KW, reqs=None,
             theta = float(np.float32(np.median(
                 [r["confidence"] for r in out.values()])))
             if run == 0:
-                first_cow, first_saved = cow, saved
-        cow_total = sched.prefix_stats["cow_copies"]
-        worked = {"cow": cow_total, "chunk": chunk_ticks,
-                  "saved": eng.stats["prefill_tokens_saved"],
-                  "restore": sched.prefix_stats["full_hits"]}
+                first_cow, first_saved, first_out = cow, saved, out
+            worked["cow"] += cow
+            worked["saved"] += saved
+            worked["restore"] += full
+        worked["chunk"] = chunk_ticks
         if not all(worked[k] > 0 for k in need):
             raise AssertionError(f"{worked}: a lane of {need} never ran")
     finally:
@@ -1025,14 +1207,14 @@ def serve_stream_full_width(eng, kw=STREAM_KW, reqs=None,
         eng.hi = dataclasses.replace(eng.hi, theta=THETA)
     peak = torch.cuda.max_memory_allocated()
     pools = sum(rt.pool.kv_bytes_total for rt in (sched.srt, sched.lrt))
-    log(f"  stream totals: cow_copies {cow_total} (first run {first_cow}), "
-        f"prefill_tokens_saved {eng.stats['prefill_tokens_saved']} (first "
-        f"run {first_saved}), chunk ticks {chunk_ticks}; pool buffers (pages, "
-        f"state rows) "
+    log(f"  stream totals: cow_copies {worked['cow']} (first run "
+        f"{first_cow}), prefill_tokens_saved {worked['saved']} (first run "
+        f"{first_saved}), chunk ticks {chunk_ticks}; pool buffers (pages, "
+        f"scale and state rows) "
         f"{pools / 2 ** 30:.2f} GiB; peak max_memory_allocated "
         f"{peak / 2 ** 30:.2f} GiB; stream_compiles "
         f"{eng.stats['stream_compiles']}")
-    return total, reqs
+    return total, reqs, first_out
 
 
 # ---------------------------------------------------------------------------
@@ -1164,7 +1346,8 @@ def hybrid_stream_phase():
     cannot build the full-depth cascade.  ``serve_stream`` with sharing on
     and chunking off at theta 0.6 and at the median: ssd_chunk on every
     prefill, the paged decode kernel at head dim 80, copy_pages on the
-    restores of the 248 bucket.  Returns the launches."""
+    restores of the 248 bucket; then the same with int8 pools
+    (:func:`int8_stream_phase`).  Returns the launches of both."""
     import torch
     from repro_torch.configs.base import HIConfig
     from repro_torch.configs.registry import ARCHS
@@ -1182,10 +1365,131 @@ def hybrid_stream_phase():
         f"{cfg.resolved_head_dim}, {cfg.num_layers // cfg.shared_attn_every}"
         f" groups) + S ({n_params['S'] / 1e9:.3f} B, "
         f"{eng.s.cfg.num_layers} layers) in {time.perf_counter() - t0:.1f} s")
-    launches, _ = serve_stream_full_width(eng, HYBRID_KW,
-                                          _hybrid_trace(cfg),
-                                          need=("cow", "saved", "restore"))
+    reqs = _hybrid_trace(cfg)
+    need = ("cow", "saved", "restore")
+    launches, _, out = serve_stream_full_width(eng, HYBRID_KW, reqs,
+                                               need=need)
+    log(f"== serve_stream ({HYBRID_ARCH}, int8 pools)")
+    launches8 = int8_stream_phase(eng, HYBRID_KW, reqs, out, need)
+    return launches, launches8
+
+
+# ---------------------------------------------------------------------------
+# int8 paged pools
+# ---------------------------------------------------------------------------
+
+def int8_stream_phase(eng, kw, reqs, bf16_out, need, max_ratio=None):
+    """``serve_stream`` on the same engine and trace with
+    ``kv_dtype="int8"``, right after the bf16 run whose scheduler is still
+    ``eng._stream``: launches of the int8 bodies against the lane flags, one
+    fetch per tick and the rest of :func:`serve_stream_full_width`; then the
+    pool bytes against bf16's (at most ``max_ratio`` when given, else
+    reported), the slots the bf16 byte budget admits in int8, the free-run
+    token agreement with the bf16 run at theta 0.6, and the reference's
+    teacher-forced measure on the L tier's params (reported: random-init
+    margins sit near ties at full width), and the L tier's decode step time
+    over both pool dtypes.  Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.parity import int8_agreement
+    sched = eng._stream[1]
+    g16 = {rt.name: rt.pool.gauges() for rt in (sched.srt, sched.lrt)}
+    n_slots = {rt.name: rt.num_slots for rt in (sched.srt, sched.lrt)}
+    launches, _, out8 = serve_stream_full_width(
+        eng, dict(kw, kv_dtype="int8"), reqs, need=need)
+    sched = eng._stream[1]
+    g8 = {rt.name: rt.pool.gauges() for rt in (sched.srt, sched.lrt)}
+    if any(g["kv_bits"] != 8 for g in g8.values()):
+        raise AssertionError(f"int8 pools report {g8}")
+    b16 = sum(g["kv_bytes_total"] for g in g16.values())
+    b8 = sum(g["kv_bytes_total"] for g in g8.values())
+    ratio = b8 / b16
+    if max_ratio is not None and not ratio <= max_ratio:
+        raise AssertionError(f"int8 pools are {ratio:.4f}x the bf16 pools' "
+                             f"bytes (limit {max_ratio})")
+    at_budget = {t: n_slots[t] * g16[t]["bytes_per_slot"]
+                 // g8[t]["bytes_per_slot"] for t in g8}
+    same = [np.mean(np.asarray(bf16_out[r]["tokens"])
+                    == np.asarray(out8[r]["tokens"]))
+            for r in bf16_out
+            if len(bf16_out[r]["tokens"]) == len(out8[r]["tokens"])]
+    match, total, err = int8_agreement(eng.l.params, eng.l.cfg, "cuda")
+    step = {dt: _decode_step_ms(eng.l, dt)
+            for dt in (torch.bfloat16, torch.int8)}
+    log(f"  int8 vs bf16 ({eng.l.cfg.name}, {eng.l.cfg.num_layers} layers): "
+        f"pool bytes {b8} / {b16} = {ratio:.4f}"
+        f"{f' (limit {max_ratio})' if max_ratio else ' (reported: the recurrent state does not shrink)'}"
+        f"; slots the bf16 budget admits in int8: S {at_budget['S']} (bf16 "
+        f"{n_slots['S']}), L {at_budget['L']} (bf16 {n_slots['L']}); "
+        f"free-run token agreement at theta {THETA} {np.mean(same):.4f} over "
+        f"{len(same)} requests; L-tier decode step (8 slots) "
+        f"{step[torch.int8]:.2f} ms over int8 pools, "
+        f"{step[torch.bfloat16]:.2f} ms over bf16; teacher-forced agreement "
+        f"on the L tier "
+        f"(8 slots, 16 steps, page 8) {match}/{total} = {match / total:.4f},"
+        f" max logit diff {err:.4f} (reported)")
     return launches
+
+
+def _decode_step_ms(tier, dtype):
+    """Host wall per ``decode_step_paged`` of ``tier`` (synchronised, after
+    two warm-up steps) over a fresh pool of ``dtype`` with pages of 16: 8
+    prompts of 16 tokens prefilled, then 16 greedy steps."""
+    import torch
+    from repro_torch.models import model_zoo
+    cfg = tier.cfg
+    slots, prompt, steps, page = 8, 16, 16, 16
+    npg = (prompt + steps + 2) // page + 1
+    block = torch.arange(1, slots * npg + 1, dtype=torch.int32,
+                         device="cuda").reshape(slots, npg)
+    cache = model_zoo.init_paged_cache(cfg, slots, slots * npg + 1, page,
+                                       dtype, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(1, cfg.vocab_size, (slots, prompt), generator=gen,
+                         device="cuda")
+    lg, cache = model_zoo.prefill_paged(
+        tier.params, cfg, toks, torch.full((slots,), prompt, device="cuda"),
+        torch.arange(slots, device="cuda"), block, cache)
+    pos = torch.full((slots,), prompt, device="cuda")
+    for i in range(steps + 2):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        lg, cache = model_zoo.decode_step_paged(tier.params, cfg,
+                                                lg.argmax(-1)[:, None],
+                                                pos + i, block, cache)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def int8_gate_phase():
+    """The reference's int8 fidelity gate (``benchmarks/bench_serving.py``
+    ``_teacher_forced_agreement``, asserted there at >= 0.99 on zamba2) on
+    the card with the kernels: reduced zamba2-2.7b, random params from seed
+    0 (the port's generator on the card, as ``build_engine``), prompts from
+    numpy seed 1, 8 slots, 16 steps, page 8, prompt 16; bf16 against int8
+    pools, teacher-forced on the bf16 argmax, 136 decisions.  The same
+    params on the CPU (plain versions) are reported beside it."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo
+    from repro_torch.parity import int8_agreement
+    cfg = ARCHS[HYBRID_ARCH].reduced()
+    params = model_zoo.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    before = ops.launch_counts()
+    match, total, err = int8_agreement(params, cfg, "cuda")
+    torch.cuda.synchronize()
+    ran = ops.launch_counts()["decode_attention_paged[int8]"] \
+        - before["decode_attention_paged[int8]"]
+    cpu = int8_agreement(_to(params, "cpu"), cfg)
+    log(f"  int8 gate (reduced {HYBRID_ARCH}, card with the kernels, "
+        f"{ran} int8 paged launches): {match}/{total} = {match / total:.4f} "
+        f"(limit 0.99), max logit diff {err:.4f}; the same params on the "
+        f"CPU: {cpu[0]}/{cpu[1]}")
+    if total != 136 or ran == 0 or not match / total >= 0.99:
+        raise AssertionError("the int8 fidelity gate failed")
 
 
 def _check_stream_outputs(out, reqs, cfg, theta, statuses):
@@ -1360,7 +1664,9 @@ def main(argv=None) -> int:
     kernels = [check_hi_gate(gen), check_decode_attention(gen),
                check_decode_attention_paged(gen),
                check_decode_attention_chunk_paged(gen), check_copy_pages(gen),
-               check_ssd_chunk(gen)]
+               check_ssd_chunk(gen), check_decode_attention_paged_int8(gen),
+               check_decode_attention_chunk_paged_int8(gen),
+               check_copy_pages(gen, quant=True)]
     total = dict.fromkeys(_kernel_names(), 0)   # launches over every path
 
     def add(counts):
@@ -1373,12 +1679,18 @@ def main(argv=None) -> int:
     add(launches)
     log(f"== serve_stream (the continuous path, {ARCH})")
     check_small_stream_reference()
-    stream_launches, stream_reqs = serve_stream_full_width(eng)
+    check_small_int8_reference()
+    stream_launches, stream_reqs, stream_out = serve_stream_full_width(eng)
     add(stream_launches)
     log(f"== trace ({ARCH}: one more serve, and a serve_stream window, under "
         "torch.profiler)")
     # the trace's own first 8 requests, on the scheduler that served it
     trace_phase(eng, tokens, lambda i: _window(stream_reqs), args.trace)
+    log(f"== serve_stream ({ARCH}, int8 pools)")
+    int8_launches = int8_stream_phase(eng, STREAM_KW, stream_reqs, stream_out,
+                                      ("cow", "saved", "chunk"),
+                                      max_ratio=INT8_MAX_RATIO)
+    add(int8_launches)
     del eng
     torch.cuda.empty_cache()
 
@@ -1388,7 +1700,7 @@ def main(argv=None) -> int:
     add(ssm_launches)
     log(f"== serve_stream ({SSM_ARCH}, chunk lane off)")
     check_small_stream_reference(SSM_ARCH)
-    ssm_stream, _ = serve_stream_full_width(
+    ssm_stream, _, _ = serve_stream_full_width(
         eng, SSM_STREAM_KW, need=("saved", "restore"))
     add(ssm_stream)
     log(f"== trace ({SSM_ARCH}: one more serve, and a serve_stream window, "
@@ -1407,13 +1719,23 @@ def main(argv=None) -> int:
     log(f"== serve_stream ({HYBRID_ARCH} widths, {HYBRID_DEPTH} layers)")
     check_small_reference(HYBRID_ARCH)
     check_small_stream_reference(HYBRID_ARCH)
-    hybrid_launches = hybrid_stream_phase()
+    check_small_int8_reference(HYBRID_ARCH)
+    hybrid_launches, hybrid_int8 = hybrid_stream_phase()
     add(hybrid_launches)
+    add(hybrid_int8)
+    log(f"== int8 fidelity gate (reduced {HYBRID_ARCH})")
+    int8_gate_phase()
     for path, counts, names in (
             (SSM_ARCH, ssm_launches, ("ssd_chunk",)),
             (f"{SSM_ARCH} stream", ssm_stream, ("ssd_chunk",)),
             (HYBRID_ARCH, hybrid_launches,
-             ("ssd_chunk", "decode_attention_paged", "copy_pages"))):
+             ("ssd_chunk", "decode_attention_paged", "copy_pages")),
+            (f"{ARCH} int8", int8_launches,
+             ("decode_attention_paged[int8]",
+              "decode_attention_chunk_paged[int8]", "copy_pages[int8]")),
+            (f"{HYBRID_ARCH} int8", hybrid_int8,
+             ("ssd_chunk", "decode_attention_paged[int8]",
+              "copy_pages[int8]"))):
         for n in names:
             if counts[n] == 0:
                 raise AssertionError(f"{n} never launched on the {path} path")

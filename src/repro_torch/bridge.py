@@ -4,7 +4,10 @@ The reference's params are nested dicts of arrays; the caller hands them
 over as numpy (``jax.tree.map(np.asarray, params)``), so this module never
 imports jax.  The port keeps the reference's layout unchanged: layers
 stacked on a leading ``(L, ...)`` axis, dense weights ``(in, out)`` applied
-as ``x @ W``.  The bridge therefore only converts leaves.
+as ``x @ W``.  The bridge therefore only converts leaves.  The same holds
+for the reference's caches (bf16 pools and conv windows, int8 pools and
+their float32 scale rows), so the tests can hand a reference pool to the
+port and compare pools.
 """
 from __future__ import annotations
 
@@ -16,11 +19,17 @@ import torch
 
 def params_from_numpy(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """Nested dict of numpy arrays -> the same nesting of torch tensors, of
-    the same dtypes, on ``device``."""
+    the same dtypes (bfloat16 included, which numpy holds as
+    ``ml_dtypes.bfloat16``), on ``device``."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
             out[k] = params_from_numpy(v, device)
+            continue
+        a = np.array(v, copy=True)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
         else:
-            out[k] = torch.from_numpy(np.array(v, copy=True)).to(device)
+            t = torch.from_numpy(a)
+        out[k] = t.to(device)
     return out

@@ -3,19 +3,24 @@
 // Replaces: src/repro/kernels/decode_attention.py, copy_pages_pallas.  The
 // TPU kernel writes every one of the pool's P pages, identity pages
 // included, driven by a scalar-prefetched per-page source map, so that its
-// grid stays well-formed.  Here only the real (src, dst) pairs are copied,
-// in place, across all L layers of up to two pools (a tier's K and V) in
+// grid stays well-formed; the reference runs it once per pool and once per
+// int8 pool's (L, P, K) float32 scale rows.  Here only the real (src, dst)
+// pairs are copied, in place, across all L layers of up to four tensors (a
+// tier's K and V pools and, for int8 pools, their K and V scale rows) in
 // one launch; the pairs travel in the kernel's parameter block.
 //
 // What bounds it on the H100: HBM bytes, 2 * pages * L * page_bytes per
-// pool (each copied page read once and written once).  A tick copies at
+// tensor (each copied page read once and written once).  A tick copies at
 // most admit_width pages per layer, a few hundred KiB at full width.
 //
-// What the design does about that: one block per (pair, layer, pool), each
-// moving one page with 16-byte loads and stores, neighbouring threads on
-// neighbouring addresses.  The wrapper checks on the host that destinations
-// are distinct and disjoint from sources, so the blocks' order does not
-// matter.
+// What the design does about that: one block per (pair, layer, tensor),
+// each moving one page with 16-byte loads and stores, neighbouring threads
+// on neighbouring addresses.  A tensor whose page or layer stride, or base,
+// is not a multiple of 16 bytes (a scale row is K * 4 bytes: 8 for
+// qwen2-1.5b, 4 for gemma3-1b) moves in 4-byte words, or bytes when not a
+// multiple of 4 either; that choice is uniform over a block.  The wrapper
+// checks on the host that destinations are distinct and disjoint from
+// sources, so the blocks' order does not matter.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -23,48 +28,80 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxPairs = 256;
+constexpr int kMaxTensors = 4;
 
 struct PagePairs {
   int src[kMaxPairs];
   int dst[kMaxPairs];
 };
 
+struct Tensors {
+  unsigned char* base[kMaxTensors];
+  int64_t layer_bytes[kMaxTensors];
+  int64_t page_bytes[kMaxTensors];
+};
+
+template <typename W>
+__device__ __forceinline__ void copy_words(const unsigned char* src,
+                                           unsigned char* dst, int64_t bytes) {
+  const W* s = reinterpret_cast<const W*>(src);
+  W* d = reinterpret_cast<W*>(dst);
+  const int64_t n = bytes / static_cast<int64_t>(sizeof(W));
+  for (int64_t i = threadIdx.x; i < n; i += kThreads) d[i] = s[i];
+}
+
+// __grid_constant__: the block indexes the parameter structs with its own
+// ids; without it the compiler copies them to a local stack frame first
 __global__ void __launch_bounds__(kThreads)
-copy_pages_kernel(unsigned char* __restrict__ pool_a,
-                  unsigned char* __restrict__ pool_b,
-                  int64_t layer_bytes, int64_t page_bytes, PagePairs pairs) {
-  const int pair = blockIdx.x, layer = blockIdx.y;
-  unsigned char* base = (blockIdx.z ? pool_b : pool_a) + layer * layer_bytes;
-  const int4* src =
-      reinterpret_cast<const int4*>(base + pairs.src[pair] * page_bytes);
-  int4* dst = reinterpret_cast<int4*>(base + pairs.dst[pair] * page_bytes);
-  const int64_t n = page_bytes / 16;
-  for (int64_t i = threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
+copy_pages_kernel(const __grid_constant__ Tensors t,
+                  const __grid_constant__ PagePairs pairs) {
+  const int pair = blockIdx.x, layer = blockIdx.y, z = blockIdx.z;
+  const int64_t pb = t.page_bytes[z];
+  unsigned char* base = t.base[z] + layer * t.layer_bytes[z];
+  const unsigned char* src = base + pairs.src[pair] * pb;
+  unsigned char* dst = base + pairs.dst[pair] * pb;
+  const uint64_t align = static_cast<uint64_t>(pb) |
+                         static_cast<uint64_t>(t.layer_bytes[z]) |
+                         reinterpret_cast<uintptr_t>(t.base[z]);
+  if (align % 16 == 0)
+    copy_words<int4>(src, dst, pb);
+  else if (align % 4 == 0)
+    copy_words<int>(src, dst, pb);
+  else
+    copy_words<unsigned char>(src, dst, pb);
 }
 
 }  // namespace
 
-// pool_a, pool_b: (L, P, ...) pools of one shape (pool_b unused when
-// n_pools == 1), each layer `layer_bytes` and each page `page_bytes` long,
-// both multiples of 16, on 16-byte boundaries; src/dst: host int32 arrays
-// of n <= 256 page ids, destinations distinct and disjoint from sources.
-// Returns cudaGetLastError() after the launch.
-extern "C" int copy_pages_launch(void* pool_a, void* pool_b, int n_pools,
-                                 int layers, long long layer_bytes,
-                                 long long page_bytes, const int* src,
-                                 const int* dst, int n, void* stream) {
-  if (n < 0 || n > kMaxPairs || n_pools < 1 || n_pools > 2 || layers < 1 ||
-      page_bytes % 16 || layer_bytes % 16)
+// bases: host array of n_tensors (1..4) device pointers to (L, P, ...)
+// tensors with the same L and P; layer_bytes / page_bytes: host arrays of
+// each tensor's strides in bytes; src/dst: host int32 arrays of n <= 256
+// page ids, destinations distinct and disjoint from sources.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int copy_pages_launch(const void* const* bases,
+                                 const long long* layer_bytes,
+                                 const long long* page_bytes, int n_tensors,
+                                 int layers, const int* src, const int* dst,
+                                 int n, void* stream) {
+  if (n < 0 || n > kMaxPairs || n_tensors < 1 || n_tensors > kMaxTensors ||
+      layers < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  Tensors t = {};
+  for (int i = 0; i < n_tensors; ++i) {
+    if (bases[i] == nullptr || page_bytes[i] < 1 ||
+        layer_bytes[i] < page_bytes[i])
+      return static_cast<int>(cudaErrorInvalidValue);
+    t.base[i] = static_cast<unsigned char*>(const_cast<void*>(bases[i]));
+    t.layer_bytes[i] = layer_bytes[i];
+    t.page_bytes[i] = page_bytes[i];
+  }
   if (n == 0) return 0;
   PagePairs pairs;
   for (int i = 0; i < n; ++i) {
     pairs.src[i] = src[i];
     pairs.dst[i] = dst[i];
   }
-  copy_pages_kernel<<<dim3(n, layers, n_pools), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<unsigned char*>(pool_a), static_cast<unsigned char*>(pool_b),
-      layer_bytes, page_bytes, pairs);
+  copy_pages_kernel<<<dim3(n, layers, n_tensors), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(t, pairs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,9 +3,10 @@
 // (chunked prefill) in one pass over the slot's pages.
 //
 // Replaces: src/repro/kernels/decode_attention.py,
-//   decode_attention_paged_pallas (body _paged_kernel, bf16 pools) and
-//   decode_attention_chunk_paged_pallas (body _chunk_paged_kernel), which
-//   share the online-softmax step _flash_update / _chunk_flash_update.
+//   decode_attention_paged_pallas (bodies _paged_kernel and, for int8
+//   pools, _paged_kernel_quant) and decode_attention_chunk_paged_pallas
+//   (_chunk_paged_kernel and _chunk_paged_kernel_quant), which share the
+//   online-softmax step _flash_update / _chunk_flash_update.
 // The pool is (P, page, K, D); an int32 block table (B, n_pages) maps each
 // slot's logical pages to physical ones; a (B, C, n_pages * page) byte mask
 // says which key positions each query may see (position, sliding window and,
@@ -13,11 +14,18 @@
 // keeps q in float32, upcasts K/V to float32, starts the running max at
 // -1e30, gives masked keys probability 0 and finishes with
 // acc / max(l, 1e-30), so a query that sees no key returns 0.
+// An int8 pool comes with (P, K) float32 scales, one per physical page and
+// kv head: a staged key row is dequantised in registers, float(int8) *
+// scale[block[b, j], kv], before the same float32 online-softmax step (the
+// TPU bodies' `k.astype(f32) * sk`).  The scale is read once per staged
+// row, and only for rows some query of the block sees: a stale or
+// unallocated page's scale may hold anything.
 //
 // What bounds it on the H100: HBM bytes.  Each slot's visible K/V rows are
 // read once per block that needs them, 2 * K * D * 2 bytes per position in
-// bf16, against 4 * G * C * D float32 operations per position and kv head:
-// at decode (C = 1, G <= 6) well under the ALU line; the chunk lane's
+// bf16 (half that, plus 8 bytes of scales per page and kv head, in int8),
+// against 4 * G * C * D float32 operations per position and kv head: at
+// decode (C = 1, G <= 6) well under the ALU line; the chunk lane's
 // C * G = 384 query rows per kv head make it about 100 operations per byte.
 //
 // What the design does about that:
@@ -42,6 +50,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -53,12 +63,19 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
 
+// T = int8_t reads scale_k / scale_v; the other types get null pointers and
+// compile without the scale code.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const float* __restrict__ q,
                        const T* __restrict__ pool_k,
                        const T* __restrict__ pool_v,
+                       const float* __restrict__ scale_k,
+                       const float* __restrict__ scale_v,
                        const int* __restrict__ block,
                        const uint8_t* __restrict__ valid,
                        float* __restrict__ out, int c_len, int kv_heads,
@@ -71,6 +88,7 @@ paged_attention_kernel(const float* __restrict__ q,
   constexpr int kTile = kTileCap < 64 ? kTileCap : 64;
   constexpr int kVec = 16 / (int)sizeof(T);      // elements per 16-byte load
   constexpr int kVecPerRow = D / kVec;
+  constexpr bool kQuant = std::is_same<T, int8_t>::value;
   static_assert(D % 16 == 0 && D % kVec == 0, "unsupported head dim");
 
   __shared__ __align__(16) unsigned char k_raw[kTile * D * sizeof(T)];
@@ -80,6 +98,8 @@ paged_attention_kernel(const float* __restrict__ q,
   __shared__ uint8_t m_tile[kRows][kTile];   // query row may see key row
   __shared__ uint8_t live[kTile];            // some query row sees it
   __shared__ int64_t row_off[kTile];         // the key row's element offset
+  __shared__ float row_sk[kQuant ? kTile : 1];  // its page's scales (int8)
+  __shared__ float row_sv[kQuant ? kTile : 1];
   __shared__ float acc_sum[kRows * D];
   __shared__ float m_part[kWarps][kRows];
   __shared__ float l_part[kWarps][kRows];
@@ -137,6 +157,10 @@ paged_attention_kernel(const float* __restrict__ q,
         const int64_t phys = blk[s / page];
         row_off[tid] = (phys * page + s % page) * row_stride +
                        static_cast<int64_t>(kh) * D;
+        if constexpr (kQuant) {
+          row_sk[tid] = scale_k[phys * kv_heads + kh];
+          row_sv[tid] = scale_v[phys * kv_heads + kh];
+        }
       }
     }
     if (!__syncthreads_or(any)) continue;   // no query row sees this tile
@@ -160,6 +184,10 @@ paged_attention_kernel(const float* __restrict__ q,
         const bool in = e0 + e < D;
         kf[e] = in ? to_float(k_tile[r * D + e0 + e]) : 0.f;
         vf[e] = in ? to_float(v_tile[r * D + e0 + e]) : 0.f;
+        if constexpr (kQuant) {
+          kf[e] *= row_sk[r];
+          vf[e] *= row_sv[r];
+        }
       }
       float dot[kRows];
 #pragma unroll
@@ -231,30 +259,33 @@ paged_attention_kernel(const float* __restrict__ q,
   }
 }
 
+struct Args {
+  const void *q, *k, *v, *sk, *sv, *block, *valid;
+  void* out;
+  int b, c, kv, group, page, n_pages;
+  float scale;
+};
+
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* block,
-           const void* valid, void* out, int b, int c, int kv, int group,
-           int page, int n_pages, float scale, cudaStream_t st) {
-  const int tiles = (c * group + kRows - 1) / kRows;
-  paged_attention_kernel<T, D><<<dim3(kv, b, tiles), kThreads, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(block),
-      static_cast<const uint8_t*>(valid), static_cast<float*>(out), c, kv,
-      group, page, n_pages, scale);
+int launch(const Args& a, cudaStream_t st) {
+  const int tiles = (a.c * a.group + kRows - 1) / kRows;
+  paged_attention_kernel<T, D><<<dim3(a.kv, a.b, tiles), kThreads, 0, st>>>(
+      static_cast<const float*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.sk),
+      static_cast<const float*>(a.sv), static_cast<const int*>(a.block),
+      static_cast<const uint8_t*>(a.valid), static_cast<float*>(a.out), a.c,
+      a.kv, a.group, a.page, a.n_pages, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_d(int d, const void* q, const void* k, const void* v,
-               const void* block, const void* valid, void* out, int b, int c,
-               int kv, int group, int page, int n_pages, float scale,
-               cudaStream_t st) {
+int dispatch_d(int d, const Args& a, cudaStream_t st) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, block, valid, out, b, c, kv, group, page, n_pages, scale, st);
-    case 64: return launch<T, 64>(q, k, v, block, valid, out, b, c, kv, group, page, n_pages, scale, st);
-    case 80: return launch<T, 80>(q, k, v, block, valid, out, b, c, kv, group, page, n_pages, scale, st);
-    case 128: return launch<T, 128>(q, k, v, block, valid, out, b, c, kv, group, page, n_pages, scale, st);
-    case 256: return launch<T, 256>(q, k, v, block, valid, out, b, c, kv, group, page, n_pages, scale, st);
+    case 32: return launch<T, 32>(a, st);
+    case 64: return launch<T, 64>(a, st);
+    case 80: return launch<T, 80>(a, st);
+    case 128: return launch<T, 128>(a, st);
+    case 256: return launch<T, 256>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -262,22 +293,39 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q: (B, C, H, D) float32; pool_k/v: (P, page, K, D) of `dtype` (0 =
-// float32, 1 = bfloat16); block: (B, n_pages) int32; valid: (B, C,
+// float32, 1 = bfloat16, 2 = int8); scale_k/v: (P, K) float32 for int8
+// pools, null otherwise; block: (B, n_pages) int32; valid: (B, C,
 // n_pages * page) bytes; out: (B, C, H, D) float32.  All contiguous;
 // H = K * group; D in {32, 64, 80, 128, 256}.  The decode kernel is C = 1.
-// Returns cudaGetLastError() after the launch.
+// An unknown dtype code, or scales that do not match the dtype, is
+// cudaErrorInvalidValue and launches nothing.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int paged_attention_launch(const void* q, const void* pool_k,
-                                      const void* pool_v, const void* block,
+                                      const void* pool_v, const void* scale_k,
+                                      const void* scale_v, const void* block,
                                       const void* valid, void* out, int dtype,
                                       int b, int c, int kv, int group, int d,
                                       int page, int n_pages, float scale,
                                       void* stream) {
   if (b < 1 || c < 1 || kv < 1 || group < 1 || page < 1 || n_pages < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool has_scales = scale_k != nullptr && scale_v != nullptr;
+  const bool no_scales = scale_k == nullptr && scale_v == nullptr;
+  const Args a{q, pool_k, pool_v, scale_k, scale_v, block, valid, out,
+               b, c, kv, group, page, n_pages, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(d, q, pool_k, pool_v, block, valid, out, b, c,
-                             kv, group, page, n_pages, scale, st);
-  return dispatch_d<__nv_bfloat16>(d, q, pool_k, pool_v, block, valid, out, b,
-                                   c, kv, group, page, n_pages, scale, st);
+  switch (dtype) {
+    case 0:
+      if (!no_scales) break;
+      return dispatch_d<float>(d, a, st);
+    case 1:
+      if (!no_scales) break;
+      return dispatch_d<__nv_bfloat16>(d, a, st);
+    case 2:
+      if (!has_scales) break;
+      return dispatch_d<int8_t>(d, a, st);
+    default:
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

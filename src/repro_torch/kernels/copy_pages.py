@@ -1,17 +1,21 @@
 """copy_pages — copy-on-write page duplication over (L, P, ...) page pools.
 
 Replaces the reference's ``kernels/decode_attention.py`` ``copy_pages_pallas``
-(bf16 and float32 page pools; the int8 pools' (L, P, K) scale rows go with
-ROADMAP Queue A item 6).  The TPU kernel streams every one of the P pages,
-identity pages included, only to keep its grid well-formed; here only the
-real (src, dst) pairs are copied, in place, across all L layers and both
-pools of a tier in one launch.
+over bf16, float32 and int8 page pools and the int8 pools' (L, P, K)
+float32 scale rows, which move with their pages.  The TPU kernel streams
+every one of the P pages, identity pages included, only to keep its grid
+well-formed, and the reference calls it once per tensor; here only the real
+(src, dst) pairs are copied, in place, across all L layers of up to four
+tensors of a tier (K and V pools, K and V scale rows) in one launch.
 
 * :func:`copy_pages_plain` — the plain PyTorch version with the reference's
-  ``cow_copy_pages`` semantics: every pool's pages ``dst`` become copies of
-  pages ``src``, all read before any is written.
+  ``cow_copy_pages`` / ``cow_copy_scales`` semantics: in every tensor,
+  pages ``dst`` become copies of pages ``src``, all read before any is
+  written.
 * :func:`copy_pages_cuda` — launches ``csrc/copy_pages.cu``;
-  ``copy_pages_cuda.launches`` counts its launches.
+  ``copy_pages_cuda.launches`` counts its launches over float32 and bf16
+  pools, ``copy_pages_cuda.launches_int8`` those over int8 pools with their
+  scale rows.
 
 The pairs are host int arrays (the scheduler builds them on the host), so the
 wrapper drops the (0, 0) pad pairs and checks on the host, before anything
@@ -31,7 +35,7 @@ from repro_torch.kernels import build
 
 MAX_PAIRS = 256          # pairs per launch: they travel in the kernel's
 #                          parameter block (csrc/copy_pages.cu kMaxPairs)
-MAX_POOLS = 2
+MAX_POOLS = 4            # csrc/copy_pages.cu kMaxTensors
 
 
 def real_pairs(src, dst) -> Tuple[np.ndarray, np.ndarray]:
@@ -55,6 +59,8 @@ def real_pairs(src, dst) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def _check_pools(pools: Sequence[torch.Tensor]) -> None:
+    """1..4 tensors (L, P, ...) on one device with the same L and P; their
+    page shapes and dtypes may differ (pools and scale rows)."""
     if not 1 <= len(pools) <= MAX_POOLS:
         raise ValueError(f"copy_pages: 1..{MAX_POOLS} pools, got {len(pools)}")
     p0 = pools[0]
@@ -62,9 +68,8 @@ def _check_pools(pools: Sequence[torch.Tensor]) -> None:
         raise ValueError(f"copy_pages: pool {tuple(p0.shape)} must be "
                          "(L, P, ...)")
     for p in pools[1:]:
-        if p.shape != p0.shape or p.dtype != p0.dtype or p.device != p0.device:
-            raise ValueError("copy_pages: pools must share shape, dtype and "
-                             "device")
+        if p.ndim < 2 or p.shape[:2] != p0.shape[:2] or p.device != p0.device:
+            raise ValueError("copy_pages: pools must share (L, P) and device")
 
 
 def copy_pages_plain(pools: Sequence[torch.Tensor], src, dst) -> None:
@@ -81,8 +86,9 @@ def copy_pages_plain(pools: Sequence[torch.Tensor], src, dst) -> None:
 
 def copy_pages_cuda(pools: Sequence[torch.Tensor], src, dst) -> None:
     """Launch the kernel (nothing is launched when every pair is padding).
-    Pools: contiguous, on one CUDA device, of one shape and dtype, each page
-    a whole number of 16-byte vectors starting on a 16-byte boundary."""
+    Pools: contiguous, distinct, on one CUDA device, of one (L, P); each
+    moves in 16-byte vectors where its strides and base allow, else in
+    4-byte words or bytes."""
     _check_pools(pools)
     p0 = pools[0]
     if p0.device.type != "cuda":
@@ -90,27 +96,34 @@ def copy_pages_cuda(pools: Sequence[torch.Tensor], src, dst) -> None:
                          f"{p0.device}")
     if not all(p.is_contiguous() for p in pools):
         raise ValueError("copy_pages: pools must be contiguous")
+    if len({p.data_ptr() for p in pools}) != len(pools):
+        raise ValueError("copy_pages: a pool is passed twice")
     s, d = real_pairs(src, dst)
     n_pages = p0.shape[1]
     if len(d) and (s.min() < 0 or max(s.max(), d.max()) >= n_pages):
         raise ValueError(f"copy_pages: page ids outside 0..{n_pages - 1}")
-    page_bytes = p0[0, 0].numel() * p0.element_size()
-    if page_bytes % 16 or any(p.data_ptr() % 16 for p in pools):
-        raise ValueError("copy_pages: pages must be whole 16-byte vectors on "
-                         "16-byte boundaries")
+    bases = (ctypes.c_void_p * len(pools))(*(p.data_ptr() for p in pools))
+    layer_bytes = np.array([p[0].numel() * p.element_size() for p in pools],
+                           np.int64)
+    page_bytes = np.array([p[0, 0].numel() * p.element_size() for p in pools],
+                          np.int64)
+    int8 = any(p.dtype == torch.int8 for p in pools)
     lib = build.library()
     stream = torch.cuda.current_stream(p0.device).cuda_stream
-    ptr_b = pools[1].data_ptr() if len(pools) > 1 else None
     for at in range(0, len(d), MAX_PAIRS):
         sc = np.ascontiguousarray(s[at:at + MAX_PAIRS])
         dc = np.ascontiguousarray(d[at:at + MAX_PAIRS])
         err = lib.copy_pages_launch(
-            p0.data_ptr(), ptr_b, len(pools), p0.shape[0],
-            p0[0].numel() * p0.element_size(), page_bytes,
-            sc.ctypes.data_as(ctypes.c_void_p),
+            bases, layer_bytes.ctypes.data_as(ctypes.c_void_p),
+            page_bytes.ctypes.data_as(ctypes.c_void_p), len(pools),
+            p0.shape[0], sc.ctypes.data_as(ctypes.c_void_p),
             dc.ctypes.data_as(ctypes.c_void_p), len(dc), stream)
         build.check(err, "copy_pages")
-        copy_pages_cuda.launches += 1
+        if int8:
+            copy_pages_cuda.launches_int8 += 1
+        else:
+            copy_pages_cuda.launches += 1
 
 
 copy_pages_cuda.launches = 0
+copy_pages_cuda.launches_int8 = 0

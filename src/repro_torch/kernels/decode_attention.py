@@ -3,9 +3,10 @@ KV cache, with a shared (S,) validity mask (position and sliding window),
 and its paged variants for continuous serving.
 
 Replaces the reference's ``kernels/decode_attention.py``
-``decode_attention_pallas`` and, for bf16 pools, ``decode_attention_paged_
-pallas`` and ``decode_attention_chunk_paged_pallas`` (see the second half of
-this module).  ``copy_pages_pallas`` is ported in ``copy_pages.py``.
+``decode_attention_pallas`` and ``decode_attention_paged_pallas`` and
+``decode_attention_chunk_paged_pallas`` with their int8 bodies (see the
+second half of this module).  ``copy_pages_pallas`` is ported in
+``copy_pages.py``.
 
 * :func:`decode_attention_plain` — the plain PyTorch version, following the
   Pallas kernel's arithmetic: q stays float32, K/V are upcast to float32
@@ -18,6 +19,7 @@ this module).  ``copy_pages_pallas`` is ported in ``copy_pages.py``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -114,30 +116,72 @@ decode_attention_cuda.launches = 0
 # paged variants: walk each slot's pages through an int32 block table
 # ---------------------------------------------------------------------------
 #
-# Replace the reference's ``decode_attention_paged_pallas`` (body
-# ``_paged_kernel``) and ``decode_attention_chunk_paged_pallas`` (body
-# ``_chunk_paged_kernel``), bf16 pools.  Both launch ``csrc/
+# Replace the reference's ``decode_attention_paged_pallas`` (bodies
+# ``_paged_kernel`` and, for int8 pools, ``_paged_kernel_quant``) and
+# ``decode_attention_chunk_paged_pallas`` (``_chunk_paged_kernel`` and
+# ``_chunk_paged_kernel_quant``).  Both launch ``csrc/
 # decode_attention_paged.cu``; the decode kernel is its chunk of one query
-# token.  A key position that no query of the slot may see (page 0, pages
-# not allocated, stale page tails) may hold anything, inf or NaN included:
-# both versions skip it, or select it out, and never multiply it by 0.
-# Keys are always seen by some query wherever a chunk's queries see them,
-# so only keys visible to no query of the slot may hold such garbage.
+# token.  An int8 pool comes with ``scale_k``/``scale_v`` (P, K) float32,
+# one scale per physical page and kv head: a key row dequantises to
+# ``float(int8) * scale[page, head]`` before the float32 online softmax.
+# A key position that no query of the slot may see (page 0, pages not
+# allocated, stale page tails) may hold anything, inf or NaN included, and
+# so may its page's scale: both versions skip it, or select it out, and
+# never multiply it by 0.  Keys are always seen by some query wherever a
+# chunk's queries see them, so only keys visible to no query of the slot
+# may hold such garbage.
 
 PAGED_HEAD_DIMS = (32, 64, 80, 128, 256)
+_PAGED_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _check_pool_dtypes(name: str, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                       scale_k: Optional[torch.Tensor],
+                       scale_v: Optional[torch.Tensor]) -> None:
+    """One pool dtype of float32, bfloat16 or int8; an int8 pool, and only
+    an int8 pool, comes with both (P, K) float32 scale tensors."""
+    if pool_k.dtype not in _PAGED_DTYPES or pool_v.dtype != pool_k.dtype:
+        raise TypeError(f"{name}: pool dtypes {pool_k.dtype}/{pool_v.dtype};"
+                        " need one of float32, bfloat16, int8")
+    quant = pool_k.dtype == torch.int8
+    if quant != (scale_k is not None) or quant != (scale_v is not None):
+        raise ValueError(f"{name}: an int8 pool needs scale_k and scale_v, "
+                         f"and only an int8 pool takes them (pool "
+                         f"{pool_k.dtype}, scales given: "
+                         f"{scale_k is not None}/{scale_v is not None})")
+    if quant:
+        want = (pool_k.shape[0], pool_k.shape[2])
+        for t in (scale_k, scale_v):
+            if t.dtype != torch.float32 or tuple(t.shape) != want:
+                raise ValueError(f"{name}: scales must be float32 {want}, "
+                                 f"got {t.dtype} {tuple(t.shape)}")
+
+
+def dequant_gather(pool: torch.Tensor, scale: Optional[torch.Tensor],
+                   block: torch.Tensor) -> torch.Tensor:
+    """The reference's ``layers.dequant_gather``: a batch's pages through
+    the block table (B, n_pages) as (B, n_pages * page, K, D) float32,
+    dequantised by the per-page scales (P, K) of an int8 pool."""
+    idx = block.long()
+    g = pool[idx].float()                                 # (B, npg, page, K, D)
+    if scale is not None:
+        g = g * scale[idx][:, :, None, :, None]
+    return g.reshape(idx.shape[0], -1, *pool.shape[2:])
 
 
 def _paged_plain(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
-                 block: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+                 block: torch.Tensor, valid: torch.Tensor,
+                 scale_k: Optional[torch.Tensor],
+                 scale_v: Optional[torch.Tensor]) -> torch.Tensor:
     """q: (B, C, H, D); valid: (B, C, S_tot) -> (B, C, H, D) in q's dtype.
-    The gather through the block table is the bf16 branch of the
-    reference's ``layers.dequant_gather``."""
+    The gather through the block table is :func:`dequant_gather`."""
+    _check_pool_dtypes("decode_attention_paged", pool_k, pool_v, scale_k,
+                       scale_v)
     b, c, h, d = q.shape
     kh = pool_k.shape[2]
     g = _check_heads(h, kh)
-    idx = block.long()
-    kk = pool_k[idx].reshape(b, -1, kh, d).float()       # (B, S_tot, K, D)
-    vv = pool_v[idx].reshape(b, -1, kh, d).float()
+    kk = dequant_gather(pool_k, scale_k, block)           # (B, S_tot, K, D)
+    vv = dequant_gather(pool_v, scale_v, block)
     seen = valid.any(dim=1)[:, :, None, None]             # (B, S_tot, 1, 1)
     kk = torch.where(seen, kk, 0.0)
     vv = torch.where(seen, vv, 0.0)
@@ -155,39 +199,46 @@ def _paged_plain(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
 
 def decode_attention_paged_plain(q: torch.Tensor, pool_k: torch.Tensor,
                                  pool_v: torch.Tensor, block: torch.Tensor,
-                                 valid: torch.Tensor) -> torch.Tensor:
+                                 valid: torch.Tensor,
+                                 scale_k: Optional[torch.Tensor] = None,
+                                 scale_v: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
     """q: (B, 1, H, D); pool_k/v: (P, page, K, D); block: (B, n_pages) int;
-    valid: (B, n_pages * page) bool.  Gathers each slot's pages through the
-    block table, then masked attention with float32 accumulation, following
-    the Pallas kernel (q kept in float32, K/V upcast, ``acc / max(l,
-    1e-30)``).  Returns (B, 1, H, D) in q's dtype."""
-    return _paged_plain(q, pool_k, pool_v, block, valid[:, None, :])
+    valid: (B, n_pages * page) bool; scale_k/v: (P, K) float32 for an int8
+    pool, else None.  Gathers (and dequantises) each slot's pages through
+    the block table, then masked attention with float32 accumulation,
+    following the Pallas kernel (q kept in float32, K/V upcast, ``acc /
+    max(l, 1e-30)``).  Returns (B, 1, H, D) in q's dtype."""
+    return _paged_plain(q, pool_k, pool_v, block, valid[:, None, :],
+                        scale_k, scale_v)
 
 
 def decode_attention_chunk_paged_plain(q: torch.Tensor, pool_k: torch.Tensor,
                                        pool_v: torch.Tensor,
                                        block: torch.Tensor,
-                                       valid: torch.Tensor) -> torch.Tensor:
+                                       valid: torch.Tensor,
+                                       scale_k: Optional[torch.Tensor] = None,
+                                       scale_v: Optional[torch.Tensor] = None
+                                       ) -> torch.Tensor:
     """q: (B, C, H, D); valid: (B, C, n_pages * page) bool, the positional
     and intra-chunk causal mask.  Otherwise as
     :func:`decode_attention_paged_plain`."""
-    return _paged_plain(q, pool_k, pool_v, block, valid)
+    return _paged_plain(q, pool_k, pool_v, block, valid, scale_k, scale_v)
 
 
 def _paged_cuda(name: str, q: torch.Tensor, pool_k: torch.Tensor,
                 pool_v: torch.Tensor, block: torch.Tensor,
-                valid: torch.Tensor) -> torch.Tensor:
+                valid: torch.Tensor, scale_k: Optional[torch.Tensor],
+                scale_v: Optional[torch.Tensor]) -> torch.Tensor:
     """Checks and launch shared by the two paged wrappers.  q (B, C, H, D);
     valid (B, C, S_tot)."""
+    _check_pool_dtypes(name, pool_k, pool_v, scale_k, scale_v)
+    scales = () if scale_k is None else (scale_k, scale_v)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{name}_cuda needs CUDA tensors, got {dev}")
-    if any(t.device != dev for t in (pool_k, pool_v, block, valid)):
+    if any(t.device != dev for t in (pool_k, pool_v, block, valid, *scales)):
         raise ValueError(f"{name}: all operands must share a device")
-    if pool_k.dtype not in _DTYPES or pool_v.dtype != pool_k.dtype:
-        raise TypeError(f"{name}: pool dtypes {pool_k.dtype}/{pool_v.dtype};"
-                        " need one of float32, bfloat16 (int8 pools are not "
-                        "ported)")
     if valid.dtype != torch.bool:
         raise TypeError(f"{name}: valid must be bool, got {valid.dtype}")
     if q.ndim != 4 or pool_k.ndim != 4 or block.ndim != 2 or valid.ndim != 3:
@@ -206,8 +257,8 @@ def _paged_cuda(name: str, q: torch.Tensor, pool_k: torch.Tensor,
     if d not in PAGED_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not supported by the kernel "
                          f"(need one of {PAGED_HEAD_DIMS})")
-    if not all(t.is_contiguous() for t in (pool_k, pool_v, valid)):
-        raise ValueError(f"{name}: pools and mask must be contiguous")
+    if not all(t.is_contiguous() for t in (pool_k, pool_v, valid, *scales)):
+        raise ValueError(f"{name}: pools, scales and mask must be contiguous")
     # K/V rows are staged with 16-byte loads
     if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
         raise ValueError(f"{name}: pools must start on a 16-byte boundary")
@@ -216,44 +267,62 @@ def _paged_cuda(name: str, q: torch.Tensor, pool_k: torch.Tensor,
     out = torch.empty((b, c, h, d), dtype=torch.float32, device=dev)
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # null scale pointers for float32 / bf16 pools
+    sk, sv = (t.data_ptr() for t in scales) if scales else (None, None)
     err = lib.paged_attention_launch(
-        q32.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), blk.data_ptr(),
-        valid.data_ptr(), out.data_ptr(), _DTYPES[pool_k.dtype], b, c, kh, g,
-        d, page, npg, 1.0 / math.sqrt(d), stream)
+        q32.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), sk, sv,
+        blk.data_ptr(), valid.data_ptr(), out.data_ptr(),
+        _PAGED_DTYPES[pool_k.dtype], b, c, kh, g, d, page, npg,
+        1.0 / math.sqrt(d), stream)
     build.check(err, name)
     return out.to(q.dtype)
 
 
+def _count(fn, pool: torch.Tensor) -> None:
+    if pool.dtype == torch.int8:
+        fn.launches_int8 += 1
+    else:
+        fn.launches += 1
+
+
 def decode_attention_paged_cuda(q: torch.Tensor, pool_k: torch.Tensor,
                                 pool_v: torch.Tensor, block: torch.Tensor,
-                                valid: torch.Tensor) -> torch.Tensor:
+                                valid: torch.Tensor,
+                                scale_k: Optional[torch.Tensor] = None,
+                                scale_v: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
     """Launch the paged kernel for one query token per slot.  Shapes as
-    :func:`decode_attention_paged_plain`; pools contiguous float32 or
-    bfloat16 of one dtype, each on a 16-byte boundary; D in
-    ``PAGED_HEAD_DIMS``.  ``decode_attention_paged_cuda.launches`` counts
-    its launches."""
+    :func:`decode_attention_paged_plain`; pools contiguous float32,
+    bfloat16 or int8 (with contiguous scales) of one dtype, each on a
+    16-byte boundary; D in ``PAGED_HEAD_DIMS``.
+    ``decode_attention_paged_cuda.launches`` counts its launches over
+    float32 and bf16 pools, ``.launches_int8`` those over int8 pools."""
     if q.ndim != 4 or q.shape[1] != 1 or valid.ndim != 2:
         raise ValueError(f"decode_attention_paged: q {tuple(q.shape)} must be "
                          "(B,1,H,D) and valid (B, S_tot)")
     out = _paged_cuda("decode_attention_paged", q, pool_k, pool_v, block,
-                      valid[:, None, :])
-    decode_attention_paged_cuda.launches += 1
+                      valid[:, None, :], scale_k, scale_v)
+    _count(decode_attention_paged_cuda, pool_k)
     return out
 
 
 def decode_attention_chunk_paged_cuda(q: torch.Tensor, pool_k: torch.Tensor,
                                       pool_v: torch.Tensor,
                                       block: torch.Tensor,
-                                      valid: torch.Tensor) -> torch.Tensor:
+                                      valid: torch.Tensor,
+                                      scale_k: Optional[torch.Tensor] = None,
+                                      scale_v: Optional[torch.Tensor] = None
+                                      ) -> torch.Tensor:
     """Launch the paged kernel for C query tokens per slot.  Shapes as
-    :func:`decode_attention_chunk_paged_plain`, requirements as
-    :func:`decode_attention_paged_cuda`.
-    ``decode_attention_chunk_paged_cuda.launches`` counts its launches."""
+    :func:`decode_attention_chunk_paged_plain`, requirements and counters
+    as :func:`decode_attention_paged_cuda`."""
     out = _paged_cuda("decode_attention_chunk_paged", q, pool_k, pool_v,
-                      block, valid)
-    decode_attention_chunk_paged_cuda.launches += 1
+                      block, valid, scale_k, scale_v)
+    _count(decode_attention_chunk_paged_cuda, pool_k)
     return out
 
 
 decode_attention_paged_cuda.launches = 0
+decode_attention_paged_cuda.launches_int8 = 0
 decode_attention_chunk_paged_cuda.launches = 0
+decode_attention_chunk_paged_cuda.launches_int8 = 0

@@ -7,7 +7,7 @@ or launch to the plain version.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -17,14 +17,21 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import hi_gate as _hg
 from repro_torch.kernels import ssd_scan as _ssd
 
-# wrapper name -> the function whose ``launches`` counter it bumps
-KERNELS = {"hi_gate": _hg.hi_gate_cuda,
-           "decode_attention": _da.decode_attention_cuda,
-           "decode_attention_paged": _da.decode_attention_paged_cuda,
-           "decode_attention_chunk_paged":
-               _da.decode_attention_chunk_paged_cuda,
-           "copy_pages": _cp.copy_pages_cuda,
-           "ssd_chunk": _ssd.ssd_chunk_cuda}
+# kernel name -> (the wrapper, the counter attribute its launches bump).
+# The int8 bodies count apart from the float32/bf16 ones.
+KERNELS = {"hi_gate": (_hg.hi_gate_cuda, "launches"),
+           "decode_attention": (_da.decode_attention_cuda, "launches"),
+           "decode_attention_paged": (_da.decode_attention_paged_cuda,
+                                      "launches"),
+           "decode_attention_chunk_paged": (
+               _da.decode_attention_chunk_paged_cuda, "launches"),
+           "copy_pages": (_cp.copy_pages_cuda, "launches"),
+           "ssd_chunk": (_ssd.ssd_chunk_cuda, "launches"),
+           "decode_attention_paged[int8]": (_da.decode_attention_paged_cuda,
+                                            "launches_int8"),
+           "decode_attention_chunk_paged[int8]": (
+               _da.decode_attention_chunk_paged_cuda, "launches_int8"),
+           "copy_pages[int8]": (_cp.copy_pages_cuda, "launches_int8")}
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -59,30 +66,40 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
 
 def decode_attention_paged(q: torch.Tensor, pool_k: torch.Tensor,
                            pool_v: torch.Tensor, block: torch.Tensor,
-                           valid: torch.Tensor) -> torch.Tensor:
+                           valid: torch.Tensor,
+                           scale_k: Optional[torch.Tensor] = None,
+                           scale_v: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Flash decode attention over a paged pool.  q: (B,1,H,D); pools:
-    (P, page, K, D); block: (B, n_pages); valid: (B, n_pages * page)."""
+    (P, page, K, D); block: (B, n_pages); valid: (B, n_pages * page);
+    scale_k/v: (P, K) float32 for int8 pools, else None."""
     if _on_cpu(q):
         return _da.decode_attention_paged_plain(q, pool_k, pool_v, block,
-                                                valid)
-    return _da.decode_attention_paged_cuda(q, pool_k, pool_v, block, valid)
+                                                valid, scale_k, scale_v)
+    return _da.decode_attention_paged_cuda(q, pool_k, pool_v, block, valid,
+                                           scale_k, scale_v)
 
 
 def decode_attention_chunk_paged(q: torch.Tensor, pool_k: torch.Tensor,
                                  pool_v: torch.Tensor, block: torch.Tensor,
-                                 valid: torch.Tensor) -> torch.Tensor:
+                                 valid: torch.Tensor,
+                                 scale_k: Optional[torch.Tensor] = None,
+                                 scale_v: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
     """C query tokens per slot in one pass over its pages.  q: (B,C,H,D);
-    valid: (B, C, n_pages * page) positional + intra-chunk causal mask."""
+    valid: (B, C, n_pages * page) positional + intra-chunk causal mask;
+    scales as :func:`decode_attention_paged`."""
     if _on_cpu(q):
-        return _da.decode_attention_chunk_paged_plain(q, pool_k, pool_v,
-                                                      block, valid)
+        return _da.decode_attention_chunk_paged_plain(
+            q, pool_k, pool_v, block, valid, scale_k, scale_v)
     return _da.decode_attention_chunk_paged_cuda(q, pool_k, pool_v, block,
-                                                 valid)
+                                                 valid, scale_k, scale_v)
 
 
 def copy_pages(pools: Sequence[torch.Tensor], src, dst) -> None:
-    """Copy-on-write, in place: in every (L, P, ...) pool, pages ``dst``
-    become copies of pages ``src`` (host int arrays, (0, 0) pairs pad)."""
+    """Copy-on-write, in place: in every (L, P, ...) tensor (pools and
+    scale rows, up to four), pages ``dst`` become copies of pages ``src``
+    (host int arrays, (0, 0) pairs pad)."""
     if _on_cpu(pools[0]):
         return _cp.copy_pages_plain(pools, src, dst)
     return _cp.copy_pages_cuda(pools, src, dst)
@@ -139,9 +156,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    for fn, attr in KERNELS.values():
+        setattr(fn, attr, 0)

@@ -8,7 +8,9 @@ slot axis 2, and the mamba helpers of ``mamba2.py`` run on them with that
 axis.  The shared block's K/V live in a contiguous (G, B, S, K, Dh) cache
 (drain path) or a (G, P, page, K, Dh) page pool indexed by the scheduler's
 one block table (continuous serving; one physical page holds one group's
-K/V for a page of positions).  Everything is updated IN PLACE.
+K/V for a page of positions), which under int8 carries (G, P, K) float32
+scale rows; the mamba state stays float32 and the conv window bf16.
+Everything is updated IN PLACE.
 
 Prompt attention runs in plain torch (``layers._sdpa``), as the
 reference's; decode attention goes through ``ops`` (the hand-written
@@ -24,7 +26,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
-from repro_torch.models.transformer import _dense, _normal, layer_params
+from repro_torch.models.transformer import (_dense, _normal, layer_params,
+                                            paged_kv, scales,
+                                            store_prefill_pages)
 
 Params = Dict[str, Any]
 # slot axis of the recurrent leaves (G, k, B, ...): the rollback stages,
@@ -100,13 +104,17 @@ def forward(params: Params, cfg: ModelConfig,
 
 def _prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
              states: Params, rows: Optional[torch.Tensor], kv_dtype,
-             length: Optional[torch.Tensor], store_kv) -> torch.Tensor:
+             length: Optional[torch.Tensor], store_kv,
+             page: int = 0) -> torch.Tensor:
     """The group loop of :func:`prefill` and :func:`prefill_paged` (the
     reference's ``_prefill_outer``): each mamba layer's state and conv
     window go to ``states`` rows ``rows`` (all rows when None), each
     group's shared-attention K/V (rounded to the cache dtype before the
-    in-pass attention) to ``store_kv(group, k, v)``.  Returns the final
-    hidden states (B, S, D)."""
+    in-pass attention) to ``store_kv(group, k, v)``.  ``kv_dtype`` int8 (a
+    ``page``-position pool): the in-pass attention sees K/V fake-quantised
+    on the per-page grid and ``store_kv`` gets the raw values, whose
+    quantised write recomputes the same scales.  Returns the final hidden
+    states (B, S, D)."""
     h = params["embed"][tokens]
     b, s, _ = h.shape
     sp = params["shared_attn"]
@@ -131,8 +139,14 @@ def _prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         if cfg.rope_theta > 0:
             q = L.apply_rope(q, pos, cfg.rope_theta)
             kt = L.apply_rope(kt, pos, cfg.rope_theta)
-        kt, vt = kt.to(kv_dtype), vt.to(kv_dtype)
-        a = L._sdpa(q, kt, vt, L.causal_window_mask(s, s, device=h.device))
+        if kv_dtype == torch.int8:
+            k_in = L.quant_dequant_pages(kt, page)
+            v_in = L.quant_dequant_pages(vt, page)
+        else:
+            kt, vt = kt.to(kv_dtype), vt.to(kv_dtype)
+            k_in, v_in = kt, vt
+        a = L._sdpa(q, k_in, v_in, L.causal_window_mask(s, s,
+                                                        device=h.device))
         h = h + a.reshape(b, s, cfg.num_heads * hd) @ sp["attn"]["wo"]
         h = _mlp(sp, cfg, h)
         store_kv(gi, kt, vt)
@@ -200,23 +214,22 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, num_pages: int,
                      page_size: int, dtype=torch.bfloat16,
                      device="cuda") -> Params:
     """Per-slot mamba rows (plus the padding row ``num_slots``) and the
-    shared block's (G, P, page, K, Dh) K/V pools."""
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(
-            f"paged pool dtype {dtype}: only bf16 (and f32) pages are ported; "
-            "int8 pages are ROADMAP Queue A item 6")
+    shared block's (G, P, page, K, Dh) K/V pools; under int8 the pools'
+    (G, P, K) scale rows, with the recurrent rows kept at full precision
+    (float32 state, bf16 conv window: per-slot and constant-size, they are
+    not paged)."""
     g, k = _num_groups(cfg), cfg.shared_attn_every
-    kv = (g, num_pages, page_size, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {**M.state_rows(cfg, (g, k), num_slots + 1, dtype, device),
-            "kp": torch.zeros(kv, dtype=dtype, device=device),
-            "vp": torch.zeros(kv, dtype=dtype, device=device)}
+            **paged_kv(g, num_pages, page_size, cfg.num_kv_heads,
+                       cfg.resolved_head_dim, dtype, device)}
 
 
 def init_prefix_cache(cfg: ModelConfig, entries: int, dtype=torch.bfloat16,
                       device="cuda") -> Params:
     """Full-prompt snapshot rows of the mamba half (plus the drop row
     ``entries``); the shared block's prompt K/V need none, their pages are
-    retained by the pool's prefix index and aliased on restore."""
+    retained by the pool's prefix index and aliased on restore.  Under
+    int8 the rows stay bf16 / float32 (``mamba2.state_rows``)."""
     g, k = _num_groups(cfg), cfg.shared_attn_every
     return M.state_rows(cfg, (g, k), entries + 1, dtype, device)
 
@@ -250,11 +263,11 @@ def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
              else L.suffix_write_rows(block_rows, start, npg, page))
 
     def store_kv(gi, k, v):
-        L.scatter_prefill_pages(cache["kp"][gi], k, wrows)
-        L.scatter_prefill_pages(cache["vp"][gi], v, wrows)
+        store_prefill_pages(cache["kp"][gi], cache["vp"][gi],
+                            scales(cache, gi), k, v, wrows)
 
     h = _prefill(params, cfg, tokens, cache, slots.long(),
-                 cache["kp"].dtype, lengths, store_kv)
+                 cache["kp"].dtype, lengths, store_kv, page)
     return M._head(params, cfg, M._last(h, lengths)[:, None])[:, 0], cache
 
 
@@ -275,7 +288,8 @@ def _step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
             h = h + L.attention_decode_paged(
                 sp["attn"], L.rmsnorm(sp["ln1"], h, cfg.norm_eps),
                 cache["kp"][gi], cache["vp"][gi], block, pos,
-                write_block=write_block, **_attn_kw(cfg))
+                write_block=write_block, **scales(cache, gi),
+                **_attn_kw(cfg))
             h = _mlp(sp, cfg, h)
     return M._head(params, cfg, h)[:, 0]
 

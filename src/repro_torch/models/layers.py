@@ -8,10 +8,10 @@ Conventions follow the reference's ``models/layers.py``:
 * masks are boolean, True = attend; masked scores are ``-1e30``.
 
 Only what the dense family and the hybrid's shared attention block run is
-here: the contiguous-cache path and, at bf16, the paged-pool path of
-continuous serving (the int8 page quantisation is ROADMAP Queue A item 6).  Large matmuls go to
-``torch.matmul``; decode and chunk attention and the copy-on-write page
-copies go through ``kernels/ops.py``.
+here: the contiguous-cache path and the paged-pool path of continuous
+serving, with bf16 (or float32) pages or int8 pages and their per-page,
+per-head scales.  Large matmuls go to ``torch.matmul``; decode and chunk
+attention and the copy-on-write page copies go through ``kernels/ops.py``.
 """
 from __future__ import annotations
 
@@ -177,7 +177,7 @@ def attention_decode(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# paged KV pool (continuous batching), bf16 pages
+# paged KV pool (continuous batching)
 # ---------------------------------------------------------------------------
 #
 # One physical pool per layer, (P, page, K, Dh), shared by every decode slot
@@ -186,8 +186,8 @@ def attention_decode(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
 # receives the benign raced writes of idle slots, and no positional mask ever
 # exposes it.  The pools are updated IN PLACE (the reference donates them);
 # where the reference relies on reading before writing, the order of the
-# calls below keeps it.  The reference's page gather (the bf16 branch of
-# ``dequant_gather``) and its plain COW (``cow_copy_pages``) live beside
+# calls below keeps it.  The reference's page gather (``dequant_gather``)
+# and its plain COW (``cow_copy_pages`` / ``cow_copy_scales``) live beside
 # their kernels, as the plain versions in ``kernels/decode_attention.py``
 # and ``kernels/copy_pages.py``.
 
@@ -204,12 +204,29 @@ def _positional_valid(positions: torch.Tensor, s_tot: int,
     return valid
 
 
+def _append(pool_k: torch.Tensor, pool_v: torch.Tensor,
+            scale_k: Optional[torch.Tensor], scale_v: Optional[torch.Tensor],
+            pg: torch.Tensor, off: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor) -> None:
+    """Write tokens' K/V (..., K, Dh) at (pg, off) IN PLACE: rounded to the
+    pool dtype, or, with scales, quantised by :func:`quant_append_page`.
+    Several writes to the null page race benignly: no mask exposes it."""
+    if scale_k is None:
+        pool_k[pg, off] = k.to(pool_k.dtype)
+        pool_v[pg, off] = v.to(pool_v.dtype)
+        return
+    quant_append_page(pool_k, scale_k, pg, off, k)
+    quant_append_page(pool_v, scale_v, pg, off, v)
+
+
 def attention_decode_paged(params: Params, x: torch.Tensor,
                            pool_k: torch.Tensor, pool_v: torch.Tensor,
                            block: torch.Tensor, pos: torch.Tensor, *,
                            num_heads: int, num_kv: int, head_dim: int,
                            rope_theta: float, window: Optional[int] = None,
-                           write_block: Optional[torch.Tensor] = None
+                           write_block: Optional[torch.Tensor] = None,
+                           scale_k: Optional[torch.Tensor] = None,
+                           scale_v: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """One-token decode against a paged KV pool (one layer's slice of it).
 
@@ -218,7 +235,10 @@ def attention_decode_paged(params: Params, x: torch.Tensor,
     ``write_block[b, pos_b // page]`` at offset ``pos_b % page``
     (``write_block`` defaults to ``block``; with prefix sharing it masks
     shared, read-only pages to the null page).  Reads walk each slot's pages
-    through ``block`` under the positional mask.  Returns out (B, 1, D)."""
+    through ``block`` under the positional mask.  ``scale_k/v`` (P, K)
+    float32 mark the pools int8: the append quantises through the page's
+    running-max scale (updated in place) and the read dequantises inside
+    the gather.  Returns out (B, 1, D)."""
     b = x.shape[0]
     page = pool_k.shape[1]
     n_pages = block.shape[1]
@@ -233,12 +253,10 @@ def attention_decode_paged(params: Params, x: torch.Tensor,
     logical = torch.clamp(pos // page, max=n_pages - 1).long()
     pg = wb[rows, logical].long()
     off = (pos % page).long()
-    # several idle slots may write the null page at once: benign, no mask
-    # ever exposes page 0
-    pool_k[pg, off] = k[:, 0].to(pool_k.dtype)
-    pool_v[pg, off] = v[:, 0].to(pool_v.dtype)
+    _append(pool_k, pool_v, scale_k, scale_v, pg, off, k[:, 0], v[:, 0])
     valid = _positional_valid(pos, n_pages * page, window)
-    out = ops.decode_attention_paged(q, pool_k, pool_v, block, valid)
+    out = ops.decode_attention_paged(q, pool_k, pool_v, block, valid,
+                                     scale_k, scale_v)
     return out.reshape(b, 1, num_heads * head_dim) @ params["wo"]
 
 
@@ -247,13 +265,18 @@ def attention_chunk_paged(params: Params, x: torch.Tensor,
                           block: torch.Tensor, pos: torch.Tensor, *,
                           num_heads: int, num_kv: int, head_dim: int,
                           rope_theta: float, window: Optional[int] = None,
-                          write_block: Optional[torch.Tensor] = None
+                          write_block: Optional[torch.Tensor] = None,
+                          scale_k: Optional[torch.Tensor] = None,
+                          scale_v: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """C tokens per slot at per-slot start positions: token i of slot b sits
     at ``pos[b] + i``.  All C tokens' K/V are written IN PLACE first (through
     ``write_block``; positions past the slot's page row go to the null
     page), then every query reads the slot's pages under the mask
     ``s <= pos[b] + i``, which carries the intra-chunk causal structure.
+    With ``scale_k/v`` (int8 pools) the whole chunk is committed at each
+    page's final running-max scale, one rounding, where C decode steps may
+    requantise: chunk and steps then agree to a tolerance, not bitwise.
     x: (B, C, D); returns out (B, C, D)."""
     b, c, _ = x.shape
     page = pool_k.shape[1]
@@ -271,10 +294,10 @@ def attention_chunk_paged(params: Params, x: torch.Tensor,
                      wb[rows, torch.clamp(logical, max=n_pages - 1).long()],
                      0).long()
     off = (positions % page).long()
-    pool_k[pg, off] = k.to(pool_k.dtype)
-    pool_v[pg, off] = v.to(pool_v.dtype)
+    _append(pool_k, pool_v, scale_k, scale_v, pg, off, k, v)
     valid = _positional_valid(positions, n_pages * page, window)
-    out = ops.decode_attention_chunk_paged(q, pool_k, pool_v, block, valid)
+    out = ops.decode_attention_chunk_paged(q, pool_k, pool_v, block, valid,
+                                           scale_k, scale_v)
     return out.reshape(b, c, num_heads * head_dim) @ params["wo"]
 
 
@@ -302,21 +325,118 @@ def suffix_write_rows(block_rows: torch.Tensor, start: torch.Tensor,
 
 
 def substitute_prefix_kv(pool: torch.Tensor, inpass: torch.Tensor,
-                         block_rows: torch.Tensor,
-                         start: torch.Tensor) -> torch.Tensor:
+                         block_rows: torch.Tensor, start: torch.Tensor,
+                         scale: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Splice cached prefix K (or V) under the in-pass suffix values.
 
     pool: (P, page, K, Dh); inpass: (A, S, K, Dh); block_rows: (A, n_pages);
     start: (A,).  Positions < start read the slot's aliased pages (the values
     the row's own full prefill would have produced); positions >= start keep
-    the in-pass values.  Must run before this layer's page writes."""
+    the in-pass values.  ``scale`` (P, K) marks the pool int8: cached pages
+    dequantise through their scales (``inpass`` is then fake-quantised on
+    the same grid, :func:`quant_dequant_pages`).  Must run before this
+    layer's page writes."""
     a, s = inpass.shape[:2]
     page = pool.shape[1]
-    cached = pool[block_rows[:, : s // page].long()]
+    rows = block_rows[:, : s // page].long()
+    cached = pool[rows]
+    if scale is not None:
+        cached = cached.float() * scale[rows][:, :, None, :, None]
     cached = cached.reshape(a, s, *inpass.shape[2:])
     pos = torch.arange(s, device=inpass.device)[None, :, None, None]
     return torch.where(pos < start[:, None, None, None],
                        cached.to(inpass.dtype), inpass)
+
+
+# ---------------------------------------------------------------------------
+# int8 page quantisation (per-page, per-head symmetric scales)
+# ---------------------------------------------------------------------------
+#
+# An int8 pool (P, page, K, Dh) carries a (P, K) float32 scale tensor: one
+# symmetric scale per physical page and kv head, dequantised value = int8 *
+# scale.  The reference's write contract, kept here with in-place updates:
+#   * prefill overwrites whole pages, so its scale rows are SET
+#     (:func:`quant_scatter_prefill_pages`): a recycled page's stale scale
+#     never survives;
+#   * decode and chunk appends grow a page token by token, so its scale is
+#     a monotone running max (:func:`quant_append_page`); growing it
+#     requantises the page's content to the new grid (ratio <= 1, one more
+#     rounding), and a token at page offset 0 first resets the recycled
+#     page's scale.
+# Scale rows are indexed by physical page like the pages, so copy-on-write
+# moves them with their pages (``model_zoo.cow_pages``).  Rounding is
+# ``torch.round`` (half to even, as ``jnp.round``) and every division is in
+# float32, as in the reference.
+
+_QMAX = 127.0
+
+
+def _safe_scale(s: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(s, min=1e-30)
+
+
+def quant_append_page(pool: torch.Tensor, scale: torch.Tensor,
+                      pg: torch.Tensor, off: torch.Tensor,
+                      val: torch.Tensor) -> None:
+    """Append tokens' K (or V) into an int8 pool at (pg, off), IN PLACE,
+    under a monotone per-page, per-head running-max scale.
+
+    pool: (P, page, K, Dh) int8; scale: (P, K) float32; pg/off: (...,) long
+    (token -> physical page, offset in it); val: (..., K, Dh).  One chunk
+    may write a page several times: the running max reduces over every
+    duplicate, and each duplicate then repacks the page's old content to
+    identical bytes, so the duplicates' writes agree.  Each read below
+    happens before the write that follows it, as in the reference's
+    functional version."""
+    kh = scale.shape[1]
+    pg, off = pg.reshape(-1), off.reshape(-1)
+    v32 = val.float().reshape(-1, kh, val.shape[-1])
+    absmax = v32.abs().amax(dim=-1)                           # (n, K)
+    # offset 0 is the first write into a freshly allocated page: reset the
+    # recycled page's stale scale (off != 0 tokens re-zero the null page,
+    # which nothing dequantises)
+    scale[torch.where(off == 0, pg, 0)] = 0.0
+    old = scale[pg]                                           # (n, K)
+    scale.scatter_reduce_(0, pg[:, None].expand(-1, kh), absmax / _QMAX,
+                          reduce="amax", include_self=True)
+    new = scale[pg]
+    ratio = torch.clamp(_safe_scale(old) / _safe_scale(new), 0.0, 1.0)
+    repack = torch.round(pool[pg].float() * ratio[:, None, :, None])
+    pool[pg] = repack.to(pool.dtype)
+    q = torch.clamp(torch.round(v32 / _safe_scale(new)[..., None]),
+                    -_QMAX, _QMAX)
+    pool[pg, off] = q.to(pool.dtype)
+
+
+def quant_dequant_pages(kv: torch.Tensor, page: int) -> torch.Tensor:
+    """Fake-quantise full-sequence K/V through the int8 per-page, per-head
+    grid: exactly the values a later paged read dequantises to
+    (:func:`quant_scatter_prefill_pages` recomputes the same scales from
+    the same raw values).  kv: (A, S, K, Dh), S % page == 0."""
+    a, s = kv.shape[:2]
+    paged = kv.float().reshape(a, s // page, page, *kv.shape[2:])
+    sc = paged.abs().amax(dim=(2, 4), keepdim=True) / _QMAX
+    q = torch.clamp(torch.round(paged / _safe_scale(sc)), -_QMAX, _QMAX)
+    return (q * sc).reshape(kv.shape).to(kv.dtype)
+
+
+def quant_scatter_prefill_pages(pool: torch.Tensor, scale: torch.Tensor,
+                                seq_kv: torch.Tensor,
+                                block_rows: torch.Tensor) -> None:
+    """:func:`scatter_prefill_pages` into an int8 pool, IN PLACE: whole
+    pages quantised with freshly computed per-page, per-head scales, which
+    are SET (prefill owns the page).  ``seq_kv`` holds the raw values; rows
+    redirected to the null page drop their page and scale there."""
+    page = pool.shape[1]
+    a, s = seq_kv.shape[:2]
+    paged = seq_kv.float().reshape(a, s // page, page, *seq_kv.shape[2:])
+    rows = block_rows[:, : s // page].long()
+    sc = paged.abs().amax(dim=(2, 4)) / _QMAX                 # (A, npg, K)
+    q = torch.clamp(torch.round(paged / _safe_scale(sc)[:, :, None, :, None]),
+                    -_QMAX, _QMAX)
+    pool[rows] = q.to(pool.dtype)
+    scale[rows] = sc
 
 
 def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,8 @@ raise ``NotImplementedError`` naming their ROADMAP items.
   prefill(params, cfg, tokens, cache)          -> (logits (B, V), cache)
   decode_step(params, cfg, token, cache)       -> (logits (B, V), cache)
 
-The paged API of continuous serving (bf16 pages):
+The paged API of continuous serving (bf16, float32 or int8 pages; an int8
+pool carries ``ks``/``vs`` scale rows, one per physical page and kv head):
 
   init_paged_cache(cfg, slots, pages, page_size, dtype, device) -> pools
   prefill_paged(params, cfg, tokens, lengths, slots, block_rows, cache,
@@ -143,10 +144,12 @@ def forward_chunk_paged(params: Params, cfg: ModelConfig,
 
 def gather_chunk_slots(cfg: ModelConfig, cache, slots: torch.Tensor,
                        fresh=None):
-    """The chunk lane's W-row view of the cache: the page pools pass (the
-    lane's block rows route them); recurrent rows are gathered (a copy;
-    sentinel slots gather the padding row).  Rows where ``fresh`` (W,) bool
-    is True start a prompt: their state is zero, as a prefill's."""
+    """The chunk lane's W-row view of the cache: the page pools and their
+    scale rows pass (the lane's block rows route them; the scales are not
+    staged for a rollback, as in the reference); recurrent rows are
+    gathered (a copy; sentinel slots gather the padding row).  Rows where
+    ``fresh`` (W,) bool is True start a prompt: their state is zero, as a
+    prefill's."""
     if not _recurrent(cfg):
         return cache
     axis, idx = _SLOT_AXIS[cfg.family], slots.long()
@@ -163,10 +166,10 @@ def gather_chunk_slots(cfg: ModelConfig, cache, slots: torch.Tensor,
 
 def scatter_chunk_slots(cfg: ModelConfig, cache, mini, stage_sel,
                         slots: torch.Tensor):
-    """Merge the chunk lane back, in place: the pages were written in place;
-    recurrent rows take the selected boundary snapshot (``stage_sel``,
-    exactly ``chunk_keep`` inputs absorbed) at ``slots`` (sentinels land in
-    the padding row)."""
+    """Merge the chunk lane back, in place: the pages and scale rows were
+    written in place; recurrent rows take the selected boundary snapshot
+    (``stage_sel``, exactly ``chunk_keep`` inputs absorbed) at ``slots``
+    (sentinels land in the padding row)."""
     if not _recurrent(cfg):
         return cache
     return mamba2.copy_rows(cache, slots, stage_sel, None,
@@ -233,9 +236,10 @@ def snapshot_restore(cfg: ModelConfig, cache, prefix, rows: torch.Tensor,
 def cow_pages(cfg: ModelConfig, cache, src: np.ndarray, dst: np.ndarray):
     """Run the tick's copy-on-write page duplications in place: in every
     layer (group, for the hybrid), pages ``dst`` become copies of pages
-    ``src`` (host int arrays, padded with (0, 0) pairs).  K and V pools go
-    through one ``ops.copy_pages`` call.  The SSM family has no pages."""
+    ``src`` (host int arrays, padded with (0, 0) pairs).  K and V pools, and
+    an int8 pool's scale rows, which move with their pages, go through one
+    ``ops.copy_pages`` call.  The SSM family has no pages."""
     if _module(cfg) is mamba2:
         return cache
-    ops.copy_pages((cache["kp"], cache["vp"]), src, dst)
+    ops.copy_pages(transformer.page_tensors(cache), src, dst)
     return cache

@@ -13,8 +13,9 @@ device value is ever read back to pick the write row.
 
 The paged pool holds ``kp``/``vp`` of shape (L, P, page, K, Dh): one
 physical allocation per tier shared by every decode slot through an int32
-block table (see ``layers.attention_decode_paged``).  It is updated in
-place, where the reference donates it.
+block table (see ``layers.attention_decode_paged``).  An int8 pool also
+holds ``ks``/``vs``, (L, P, K) float32 scales, one per physical page and kv
+head.  It is updated in place, where the reference donates it.
 """
 from __future__ import annotations
 
@@ -127,18 +128,27 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 def _prefill_layer(lp: Params, cfg: ModelConfig, h: torch.Tensor,
                    win: int, kv_dtype, pos: torch.Tensor,
-                   splice=None) -> Tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor]:
+                   splice=None, page: int = 0) -> Tuple[torch.Tensor,
+                                                        torch.Tensor,
+                                                        torch.Tensor]:
     """One layer of the batched prefill shared by :func:`prefill` and
     :func:`prefill_paged` (the reference's ``_prefill_body``).  K/V are
     rounded to the cache dtype before the in-pass attention, so logits and
     cache match the token-by-token decode path; sequences longer than 512
     that divide into 512-query chunks take the chunked attention.
 
-    ``splice`` = (pool_k, pool_v, block_rows, start) of this layer (prefix
-    sharing): positions below ``start`` take the cached prefix K/V from the
-    aliased pages, read before this layer's page writes.
-    Returns (h, k, v) with k/v (B, S, K, Dh) in the cache dtype."""
+    ``kv_dtype`` int8 (a page pool of ``page`` positions): the in-pass
+    attention sees K/V fake-quantised on the per-page int8 grid
+    (``layers.quant_dequant_pages``, exactly what later paged reads
+    dequantise to), and the raw values are returned for the caller's
+    ``quant_scatter_prefill_pages``, which recomputes the same scales.
+
+    ``splice`` = (pool_k, pool_v, scale_k, scale_v, block_rows, start) of
+    this layer (prefix sharing; scales None but for int8): positions below
+    ``start`` take the cached prefix K/V from the aliased pages, read
+    before this layer's page writes.
+    Returns (h, k, v) with k/v (B, S, K, Dh) in the cache dtype, raw for
+    int8."""
     b, s, _ = h.shape
     hd = cfg.resolved_head_dim
     q, k, v = L._qkv(lp["attn"], L.rmsnorm(lp["ln1"], h, cfg.norm_eps),
@@ -146,11 +156,15 @@ def _prefill_layer(lp: Params, cfg: ModelConfig, h: torch.Tensor,
     if cfg.rope_theta > 0:
         q = L.apply_rope(q, pos, cfg.rope_theta)
         k = L.apply_rope(k, pos, cfg.rope_theta)
-    k, v = k.to(kv_dtype), v.to(kv_dtype)
+    if kv_dtype == torch.int8:
+        k_raw, v_raw = k, v
+        k, v = L.quant_dequant_pages(k, page), L.quant_dequant_pages(v, page)
+    else:
+        k, v = k.to(kv_dtype), v.to(kv_dtype)
     if splice is not None:
-        pk, pv, block_rows, start = splice
-        k = L.substitute_prefix_kv(pk, k, block_rows, start)
-        v = L.substitute_prefix_kv(pv, v, block_rows, start)
+        pk, pv, sk, sv, block_rows, start = splice
+        k = L.substitute_prefix_kv(pk, k, block_rows, start, sk)
+        v = L.substitute_prefix_kv(pv, v, block_rows, start, sv)
     if s > 512 and s % 512 == 0:
         a = L.chunked_attention(q, k, v, q_chunk=512, causal=True, window=win)
     else:
@@ -158,6 +172,8 @@ def _prefill_layer(lp: Params, cfg: ModelConfig, h: torch.Tensor,
                                                   device=h.device))
     h = h + a.reshape(b, s, cfg.num_heads * hd) @ lp["attn"]["wo"]
     h = h + L.swiglu(lp["mlp"], L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+    if kv_dtype == torch.int8:
+        return h, k_raw, v_raw
     return h, k, v
 
 
@@ -210,20 +226,48 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
 # paged KV pool (continuous batching)
 # ---------------------------------------------------------------------------
 
+def paged_kv(lead: int, num_pages: int, page_size: int, kv_heads: int,
+             head_dim: int, dtype, device) -> Params:
+    """Zeroed (lead, P, page, K, Dh) ``kp``/``vp`` pools of ``dtype``
+    (bfloat16, float32 or int8) and, for int8, the (lead, P, K) float32
+    ``ks``/``vs`` scale rows (dequantised value = int8 * scale)."""
+    if dtype not in (torch.bfloat16, torch.float32, torch.int8):
+        raise ValueError(f"paged pool dtype {dtype}: need bfloat16, float32 "
+                         "or int8")
+    shape = (lead, num_pages, page_size, kv_heads, head_dim)
+    cache = {"kp": torch.zeros(shape, dtype=dtype, device=device),
+             "vp": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        sshape = (lead, num_pages, kv_heads)
+        cache["ks"] = torch.zeros(sshape, dtype=torch.float32, device=device)
+        cache["vs"] = torch.zeros(sshape, dtype=torch.float32, device=device)
+    return cache
+
+
+def page_tensors(cache: Params) -> Tuple[torch.Tensor, ...]:
+    """The tensors indexed by physical page (axis 1): the ``kp``/``vp``
+    pools and, for int8, their ``ks``/``vs`` scale rows after them.  A page
+    that moves (copy-on-write) moves its row of each."""
+    return tuple(cache[k] for k in ("kp", "vp", "ks", "vs") if k in cache)
+
+
+def scales(cache: Params, i: int) -> Dict[str, Any]:
+    """Layer (or group) ``i``'s scale rows as ``scale_k``/``scale_v``
+    keywords: None for a float32 or bf16 pool."""
+    if "ks" not in cache:
+        return {"scale_k": None, "scale_v": None}
+    return {"scale_k": cache["ks"][i], "scale_v": cache["vs"][i]}
+
+
 def init_paged_cache(cfg: ModelConfig, num_slots: int, num_pages: int,
                      page_size: int, dtype=torch.bfloat16,
                      device="cuda") -> Params:
-    """Zeroed (L, P, page, K, Dh) K and V pools.  Attention state lives in
-    pages only, so ``num_slots`` does not size anything."""
+    """Zeroed (L, P, page, K, Dh) K and V pools (and int8 pools' scale
+    rows).  Attention state lives in pages only, so ``num_slots`` does not
+    size anything."""
     del num_slots
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(
-            f"paged pool dtype {dtype}: only bf16 (and f32) pages are ported; "
-            "int8 pages are ROADMAP Queue A item 6")
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {"kp": torch.zeros(shape, dtype=dtype, device=device),
-            "vp": torch.zeros(shape, dtype=dtype, device=device)}
+    return paged_kv(cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+                    cfg.resolved_head_dim, dtype, device)
 
 
 def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -239,8 +283,9 @@ def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     admissions.  ``start`` (prefix sharing): per-row first uncached
     position; cached positions' K/V are spliced from the aliased pages and
     their page writes go to the null page.  Layer math is :func:`prefill`'s;
-    the pages are written IN PLACE, layer by layer, each after its layer's
-    splice read.  Returns (logits (A, V) float32, cache)."""
+    the pages (and an int8 pool's scale rows) are written IN PLACE, layer by
+    layer, each after its layer's splice read.  Returns (logits (A, V)
+    float32, cache)."""
     del slots                           # dense state is fully page-resident
     h = params["embed"][tokens]
     b, s, _ = h.shape
@@ -251,16 +296,31 @@ def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
              else L.suffix_write_rows(block_rows, start, npg, page))
     for i, win in enumerate(layer_windows(cfg, s)):
         pk, pv = cache["kp"][i], cache["vp"][i]
-        splice = None if start is None else (pk, pv, block_rows, start)
+        sc = scales(cache, i)
+        splice = None if start is None else (
+            pk, pv, sc["scale_k"], sc["scale_v"], block_rows, start)
         h, k, v = _prefill_layer(layer_params(params["layers"], i), cfg, h,
-                                 win, pk.dtype, pos, splice)
-        L.scatter_prefill_pages(pk, k, wrows)
-        L.scatter_prefill_pages(pv, v, wrows)
+                                 win, pk.dtype, pos, splice, page)
+        store_prefill_pages(pk, pv, sc, k, v, wrows)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     last = (lengths.long() - 1)[:, None, None].expand(-1, 1, h.shape[-1])
     h = torch.gather(h, 1, last)
     logits = (h[:, 0, :] @ params["lm_head"]).float()
     return logits, cache
+
+
+def store_prefill_pages(pk: torch.Tensor, pv: torch.Tensor,
+                        sc: Dict[str, Any], k: torch.Tensor, v: torch.Tensor,
+                        wrows: torch.Tensor) -> None:
+    """One layer's (group's) prefill K/V into its pages, IN PLACE: rounded
+    to the pool dtype, or quantised with fresh scales (``sc`` from
+    :func:`scales`) from the raw values."""
+    if sc["scale_k"] is None:
+        L.scatter_prefill_pages(pk, k, wrows)
+        L.scatter_prefill_pages(pv, v, wrows)
+        return
+    L.quant_scatter_prefill_pages(pk, sc["scale_k"], k, wrows)
+    L.quant_scatter_prefill_pages(pv, sc["scale_v"], v, wrows)
 
 
 def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
@@ -279,7 +339,7 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
             cache["kp"][i], cache["vp"][i], block, pos,
             num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-            window=win, write_block=write_block)
+            window=win, write_block=write_block, **scales(cache, i))
         h = h + L.swiglu(lp["mlp"], L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return (h[:, 0, :] @ params["lm_head"]).float(), cache
@@ -303,7 +363,7 @@ def forward_chunk_paged(params: Params, cfg: ModelConfig,
             cache["kp"][i], cache["vp"][i], block, pos,
             num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-            window=win, write_block=write_block)
+            window=win, write_block=write_block, **scales(cache, i))
         h = h + L.swiglu(lp["mlp"], L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return (h @ params["lm_head"]).float(), cache, {}

@@ -257,11 +257,14 @@ class HIEngine:
         ``stats['stream_compiles']`` counts scheduler builds (ROADMAP: CUDA
         graph captures later).
 
+        ``kv_dtype='int8'`` stores both tiers' pages as int8 with per-page,
+        per-head float32 scales (about half the bf16 pool's bytes for the
+        dense family; the recurrent state does not shrink).
+
         Not ported yet, and raising ``NotImplementedError``: temperature > 0
-        (Queue A item 4), ``kv_dtype='int8'`` (item 6), an active ``faults``
-        schedule, ``retry``, ``telemetry``, ``audit``, ``watchdog`` and
-        ``flight_recorder`` (item 7), ``speculative`` (item 9) and ``mesh``
-        (item 14).
+        (Queue A item 4), an active ``faults`` schedule, ``retry``,
+        ``telemetry``, ``audit``, ``watchdog`` and ``flight_recorder`` (item
+        7), ``speculative`` (item 9) and ``mesh`` (item 14).
 
         Returns per-request result records keyed by request_id."""
         from repro_torch.serving.batcher import AdmissionQueue

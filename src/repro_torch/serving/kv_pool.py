@@ -1,7 +1,8 @@
 """Paged KV pool: one device allocation per tier and a host-side
 reference-counted page allocator with a content-addressed prefix index and
-copy-on-write.  The port's copy of the reference's ``serving/kv_pool.py``
-(bf16 pages; the int8 pools are ROADMAP Queue A item 6).
+copy-on-write.  The port's copy of the reference's ``serving/kv_pool.py``,
+for bf16, float32 and int8 pages (an int8 pool carries one float32 scale
+row per physical page, which moves with its page).
 
 The pool replaces the drain path's per-(batch, bucket) contiguous caches with
 one physical allocation per tier, ``model_zoo.init_paged_cache``: K/V is cut
@@ -37,6 +38,10 @@ Block-table width.  The reference bounds a slot's block-table row at
 row into SMEM.  The port's CUDA kernels read the row from global memory
 page by page, so the row width needs no bound of its own; the only limit is
 that positions and page ids stay int32, which the pool's sizes keep.
+
+``kv_bits`` reports 8 for int8 pools and 16 for bf16, as the reference
+does; a float32 pool, which the reference never builds for serving,
+reports 32.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ import torch
 
 from repro_torch.configs.base import DENSE, MOE, VLM, ModelConfig
 from repro_torch.models import model_zoo
+from repro_torch.models.transformer import page_tensors
 
 
 @dataclass
@@ -123,7 +129,8 @@ class KVPool:
         self.buffers = model_zoo.init_paged_cache(
             cfg, num_slots, num_pages, page_size, dtype, device)
         self.kv_dtype = str(dtype).replace("torch.", "")
-        # byte accounting over the pool allocation, fixed at construction
+        # byte accounting over the pool allocation (pages, int8 scale rows,
+        # recurrent state rows), fixed at construction
         self.kv_bytes_total = int(sum(b.numel() * b.element_size()
                                       for b in self.buffers.values()))
         self.bytes_per_slot = self.kv_bytes_total // num_slots
@@ -162,7 +169,7 @@ class KVPool:
             # Chrome-trace exporter tracks them as counter series)
             "kv_bytes_total": self.kv_bytes_total,
             "bytes_per_slot": self.bytes_per_slot,
-            "kv_bits": 16 if self.kv_dtype == "bfloat16" else 32,
+            "kv_bits": {"int8": 8, "bfloat16": 16}.get(self.kv_dtype, 32),
         }
 
     @property
@@ -514,7 +521,26 @@ class KVPool:
     def check_invariants(self) -> None:
         """Debug/test hook: refcount conservation — every page's refcount
         equals its slot references + index retentions, free pages carry no
-        references, and live + free pages partition the pool."""
+        references, and live + free pages partition the pool.  An int8 pool
+        also checks its scale rows: float32, one row per physical page and
+        kv head beside each int8 page pool, so every move of a page moves
+        its scale row."""
+        pages = page_tensors(self.buffers)
+        if len(pages) == 4:               # int8: the pools, then their scales
+            for pool, scale in zip(pages[:2], pages[2:]):
+                assert pool.dtype == torch.int8, \
+                    f"quantized pool must be int8, got {pool.dtype}"
+                assert scale.dtype == torch.float32, \
+                    f"scale rows must be float32, got {scale.dtype}"
+                # pools (..., P, page, K, Dh), scales (..., P, K)
+                assert scale.shape[-2] == self.num_pages, \
+                    f"{scale.shape[-2]} scale rows for {self.num_pages} pages"
+                assert scale.shape[:-2] == pool.shape[:-4] and \
+                    scale.shape[-1] == pool.shape[-2], \
+                    f"scale shape {tuple(scale.shape)} does not match pool " \
+                    f"shape {tuple(pool.shape)}"
+        else:
+            assert len(pages) in (0, 2), "one scale tensor without the other"
         refs = np.zeros((self.num_pages,), np.int32)
         slot_refs = np.zeros((self.num_pages,), np.int32)
         for pages in self._slot_pages.values():

@@ -49,8 +49,12 @@ The L-tier queue enforces the time-constrained offloading drop rule (Fresa
 reference's host-side transport model (``faults.EscalationLink`` and
 ``CircuitBreaker``) even under ``NO_FAULTS``, so escalation timing and the
 record fields (``status``, ``queue_wait_ticks`` ...) are the reference's.
-Fault schedules, telemetry collectors, the speculative lane, the mesh path
-and int8 pools are not ported yet (ROADMAP Queue A items 7, 9, 14 and 6).
+Fault schedules, telemetry collectors, the speculative lane and the mesh
+path are not ported yet (ROADMAP Queue A items 7, 9 and 14).
+``kv_dtype="int8"`` stores both tiers' pages as int8 with one float32 scale
+per physical page and kv head; the paged kernels dequantise in the gather
+and the COW copies move the scale rows with their pages, in the same
+launches as the pages.
 
 ``counters.compiles`` counts scheduler builds (the reference counts its one
 AOT compile); the engine reports it as ``stream_compiles``.
@@ -271,7 +275,8 @@ class _TierRuntime:
                  page_size: int, admit_width: int, device,
                  prefix_entries: int = 0, max_prompt_len: int = 0,
                  num_pages: Optional[int] = None, chunk_size: int = 0,
-                 chunk_width: int = 2, name: str = "S"):
+                 chunk_width: int = 2, name: str = "S",
+                 dtype=torch.bfloat16):
         if num_pages is None:
             # sharing headroom: beyond every slot's full context, enough
             # pages to RETAIN prefix_entries full prompts without evicting
@@ -279,7 +284,7 @@ class _TierRuntime:
             num_pages = num_slots * (max_context // page_size) + 1
             num_pages += prefix_entries * (-(-max_prompt_len // page_size))
         self.pool = KVPool(cfg, num_slots, max_context, page_size,
-                           num_pages=num_pages, dtype=torch.bfloat16,
+                           num_pages=num_pages, dtype=dtype,
                            prefix_entries=prefix_entries, device=device)
         self.sharing = prefix_entries > 0
         self.name = name
@@ -508,10 +513,6 @@ class ContinuousScheduler:
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be 'bf16' or 'int8', "
                              f"got {kv_dtype!r}")
-        if kv_dtype == "int8":
-            raise NotImplementedError(
-                "kv_dtype='int8' is not ported: ROADMAP Queue A item 6 "
-                "(int8 paged pools)")
         if speculative:
             raise NotImplementedError(
                 "speculative=True is not ported: ROADMAP Queue A item 9 "
@@ -522,6 +523,9 @@ class ContinuousScheduler:
         if chunk_prefill and chunk_size < 1:
             raise ValueError(f"chunk_size {chunk_size} must be >= 1")
         self.kv_dtype = kv_dtype
+        # int8: int8 pages + per-page, per-head float32 scales, dequantised
+        # inside the paged kernels; bf16 keeps every bitwise invariant
+        pool_dtype = torch.int8 if kv_dtype == "int8" else torch.bfloat16
         self.s = s_tier
         self.l = l_tier
         self.hi = hi
@@ -545,13 +549,15 @@ class ContinuousScheduler:
                                 prefix_entries=s_entries,
                                 max_prompt_len=max_prompt_len,
                                 num_pages=num_pages, chunk_size=self.chunk,
-                                chunk_width=chunk_width, name="S")
+                                chunk_width=chunk_width, name="S",
+                                dtype=pool_dtype)
         self.lrt = _TierRuntime(l_tier.cfg, l_slots, max_context, page,
                                 min(admit_width, l_slots), self.device,
                                 prefix_entries=l_entries,
                                 max_prompt_len=max_prompt_len,
                                 num_pages=num_pages, chunk_size=self.chunk,
-                                chunk_width=chunk_width, name="L")
+                                chunk_width=chunk_width, name="L",
+                                dtype=pool_dtype)
         # with chunking on and sharing off, every admit-lane prompt is <=
         # chunk_size: the batched admission pass shrinks from
         # (A, max_prompt_len) to (A, ~chunk_size)

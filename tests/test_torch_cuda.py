@@ -21,6 +21,9 @@ pytestmark = pytest.mark.cuda
 # kernel and plain version both compute in float32; only sum order differs
 CONF_ATOL, CONF_RTOL = 1e-5, 1e-4
 ATT_ATOL = 1e-4
+# the int8 bodies' counters, which a bf16 run leaves at 0
+NO_INT8 = {"decode_attention_paged[int8]": 0,
+           "decode_attention_chunk_paged[int8]": 0, "copy_pages[int8]": 0}
 
 
 @pytest.fixture
@@ -181,7 +184,7 @@ def test_engine_on_card_matches_cpu_teacher_forced(gen):
                       # the paged kernels belong to serve_stream
                       "decode_attention_paged": 0,
                       "decode_attention_chunk_paged": 0, "copy_pages": 0,
-                      "ssd_chunk": 0}
+                      "ssd_chunk": 0, **NO_INT8}
     # teacher-forced S-tier logits along the CPU's tokens
     logs = {}
     for name, tier, dev in (("cpu", cpu[0], "cpu"), ("cuda", gpu[0], "cuda")):
@@ -328,6 +331,103 @@ def test_paged_wrappers_refuse_what_the_kernel_does_not_take(gen):
         da.decode_attention_chunk_paged_cuda(q, pk, pv, block[:1], valid)
 
 
+def _int8_inputs(gen, b, h, k, d, page, npg, c, window=None):
+    """``_paged_inputs``' layout with int8 pools and (P, K) scales.  Returns
+    (q, pools, scales, block, valid) with garbage where no query of a slot
+    may look (arbitrary bytes in unseen rows; NaN / inf scales on page 0,
+    on pages no slot holds and on pages a slot holds but does not see), and
+    the same inputs with every scale finite."""
+    q, pk, _, block, valid, _, _ = _paged_inputs(gen, b, h, k, d, page, npg,
+                                                 c, torch.float32, window)
+    p = pk.shape[0]
+
+    def levels():
+        return torch.randint(-128, 128, pk.shape, generator=gen,
+                             device="cuda").to(torch.int8)
+
+    pools = (levels(), levels())
+    clean = tuple(torch.rand((p, k), generator=gen, device="cuda") * 0.05
+                  for _ in range(2))
+    seen = valid.any(dim=1).reshape(b, npg, page).any(dim=2)  # page seen
+    hidden = torch.ones(p, dtype=torch.bool, device="cuda")
+    hidden[block[seen].long()] = False
+    dirty = tuple(t.clone() for t in clean)
+    dirty[0][hidden], dirty[1][hidden] = float("nan"), float("inf")
+    return q, pools, dirty, clean, block, valid
+
+
+@pytest.mark.parametrize("d,b,h,k,page,npg", [(128, 4, 12, 2, 16, 34),
+                                              (128, 8, 3, 1, 16, 34),
+                                              (80, 4, 32, 32, 16, 18),
+                                              (64, 3, 8, 1, 8, 5),
+                                              (32, 2, 4, 2, 4, 9),
+                                              (256, 2, 8, 2, 16, 6)])
+@pytest.mark.parametrize("window", [None, 40])
+def test_paged_int8_decode_kernel_matches_plain(gen, d, b, h, k, page, npg,
+                                                window):
+    """The int8 body (``_paged_kernel_quant``): dequantise each staged row
+    by its page's scale, then the float32 online softmax; garbage rows and
+    scales no query may see never reach a result."""
+    q, (pk, pv), dirty, clean, block, valid = _int8_inputs(
+        gen, b, h, k, d, page, npg, 1, window)
+    before = (da.decode_attention_paged_cuda.launches,
+              da.decode_attention_paged_cuda.launches_int8)
+    out = ops.decode_attention_paged(q, pk, pv, block, valid[:, 0], *dirty)
+    torch.cuda.synchronize()
+    assert (da.decode_attention_paged_cuda.launches,
+            da.decode_attention_paged_cuda.launches_int8) == \
+        (before[0], before[1] + 1)
+    assert torch.isfinite(out).all()
+    ref = da.decode_attention_paged_plain(q, pk, pv, block, valid[:, 0],
+                                          *clean)
+    torch.testing.assert_close(out, ref, atol=ATT_ATOL, rtol=0)
+    assert (out[-1] == 0).all()
+
+
+@pytest.mark.parametrize("c,h,k,d", [(256, 12, 2, 128), (64, 3, 1, 128),
+                                     (7, 32, 32, 80), (4, 8, 2, 64)])
+def test_paged_int8_chunk_kernel_matches_plain(gen, c, h, k, d):
+    """The int8 chunk body (``_chunk_paged_kernel_quant``)."""
+    q, (pk, pv), dirty, clean, block, valid = _int8_inputs(
+        gen, 2, h, k, d, 16, 34, c)
+    before = da.decode_attention_chunk_paged_cuda.launches_int8
+    out = ops.decode_attention_chunk_paged(q, pk, pv, block, valid, *dirty)
+    torch.cuda.synchronize()
+    assert da.decode_attention_chunk_paged_cuda.launches_int8 == before + 1
+    assert torch.isfinite(out).all()
+    ref = da.decode_attention_chunk_paged_plain(q, pk, pv, block, valid,
+                                                *clean)
+    torch.testing.assert_close(out, ref, atol=ATT_ATOL, rtol=0)
+
+
+def test_paged_launch_refuses_unknown_dtype_codes(gen):
+    """The C entry point refuses a dtype code it does not know, and int8
+    without scales or bf16 with them, with cudaErrorInvalidValue (1), and
+    launches nothing."""
+    from repro_torch.kernels import build
+    q, (pk, pv), _, clean, block, valid = _int8_inputs(gen, 2, 4, 2, 64, 8,
+                                                       4, 1)
+    out = torch.zeros((2, 1, 4, 64), device="cuda")
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    vb = valid.contiguous()
+
+    def launch(code, sk, sv):
+        return lib.paged_attention_launch(
+            q.data_ptr(), pk.data_ptr(), pv.data_ptr(), sk, sv,
+            block.data_ptr(), vb.data_ptr(), out.data_ptr(), code, 2, 1, 2, 2,
+            64, 8, 4, 0.125, stream)
+
+    s = (clean[0].data_ptr(), clean[1].data_ptr())
+    assert launch(3, None, None) == 1
+    assert launch(-1, *s) == 1
+    assert launch(2, None, None) == 1
+    assert launch(2, s[0], None) == 1
+    assert launch(1, *s) == 1
+    torch.cuda.synchronize()
+    assert (out == 0).all()
+
+
 def _bits(t):
     return t.view(torch.int16) if t.element_size() == 2 else \
         t.view(torch.int32)
@@ -365,6 +465,37 @@ def test_copy_pages_kernel_copies_only_its_pairs(gen, dtype, layers, pages,
     assert torch.equal(_bits(pk[:, dst]), _bits(pk[:, src]))
     with pytest.raises(ValueError, match="also a source"):
         ops.copy_pages((pk, pv), src[:2], np.array([dst[0], src[0]]))
+
+
+@pytest.mark.parametrize("kh", [1, 2, 4, 32])
+def test_copy_pages_kernel_moves_int8_pages_with_their_scale_rows(gen, kh):
+    """K and V int8 pools and their (L, P, K) float32 scale rows (4, 8, 16
+    and 128 bytes a row) in one launch, bit-equal to the plain version."""
+    from repro_torch.kernels import copy_pages as cp
+    layers, pages, pairs = 4, 97, 5
+    shape = (layers, pages, 16, kh, 80)
+    pools = [torch.randint(-128, 128, shape, generator=gen,
+                           device="cuda").to(torch.int8) for _ in range(2)]
+    scales = [torch.full((layers, pages, kh), float("nan"), device="cuda")
+              for _ in range(2)]
+    perm = torch.randperm(pages - 1, generator=gen,
+                          device="cuda").cpu().numpy() + 1
+    src, dst = perm[:pairs].astype(np.int32), perm[pairs:2 * pairs] \
+        .astype(np.int32)
+    for t in scales:
+        t[:, src] = torch.rand((layers, pairs, kh), generator=gen,
+                               device="cuda")
+    tensors = pools + scales
+    want = [t.clone() for t in tensors]
+    cp.copy_pages_plain(want, src, dst)
+    before = (cp.copy_pages_cuda.launches, cp.copy_pages_cuda.launches_int8)
+    ops.copy_pages(tensors, src, dst)
+    torch.cuda.synchronize()
+    assert (cp.copy_pages_cuda.launches, cp.copy_pages_cuda.launches_int8) \
+        == (before[0], before[1] + 1)
+    for got, ref in zip(tensors, want):
+        assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+    assert torch.equal(scales[0][:, dst], scales[0][:, src])
 
 
 def _reduced_tiers(name="qwen2-1.5b"):
@@ -448,7 +579,7 @@ def test_stream_on_card_matches_cpu(gen, monkeypatch):
         "decode_attention_chunk_paged": (ls * s.lane_ticks["chunk"]
                                          + ll * l.lane_ticks["chunk"]),
         "copy_pages": s.lane_ticks["cow"] + l.lane_ticks["cow"],
-        "ssd_chunk": 0}
+        "ssd_chunk": 0, **NO_INT8}
     assert counts["copy_pages"] > 0 and counts["decode_attention_chunk_paged"]
     assert s.pool.held_slots == l.pool.held_slots == []
     for r in reqs:
@@ -505,6 +636,36 @@ def test_stream_tick_synchronises_only_in_host_fetch(gen, monkeypatch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert len(out) == len(reqs)
+
+
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "zamba2-2.7b"])
+def test_int8_paged_trace_on_card_matches_cpu(gen, name):
+    """``parity.paged_trace`` over reduced ``name``'s int8 pool (prefill,
+    a COW of a part-filled page, decode steps, a chunk that writes one page
+    several times and crosses into the next) on the card against the CPU,
+    same params, under ``parity.traces_close``: logits within the family's
+    ``TRACE_LOGIT_TOL``, levels within 1, scale rows within rtol 5e-3; the
+    int8 bodies and the scale-row copy launched."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import model_zoo
+    from repro_torch.parity import TRACE_LOGIT_TOL, paged_trace, traces_close
+    cfg = ARCHS[name].reduced()
+    params = model_zoo.init_params(torch.Generator().manual_seed(2), cfg)
+    cpu = paged_trace(params, cfg, torch.int8)
+    ops.reset_launch_counts()
+    card = paged_trace(_cuda(params), cfg, torch.int8, "cuda")
+    counts = ops.launch_counts()
+    traces_close(card, cpu, TRACE_LOGIT_TOL[name])
+    assert counts["decode_attention_paged[int8]"] > 0
+    assert counts["copy_pages[int8]"] == 1
+    assert (counts["decode_attention_chunk_paged[int8]"] > 0) \
+        == (name == "qwen2-1.5b")
+    assert counts["decode_attention_paged"] == counts["copy_pages"] == 0
+
+
+def _cuda(tree):
+    return {k: _cuda(v) if isinstance(v, dict) else v.cuda()
+            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------

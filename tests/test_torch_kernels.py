@@ -133,12 +133,22 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     ops.decode_attention_chunk_paged(torch.randn(1, 3, 2, 16), pool, pool,
                                      block, torch.ones(1, 3, 8, dtype=bool))
     ops.copy_pages((pool[None].clone(),), [1], [3])
+    # int8 pools with their (P, K) scales
+    q8 = torch.randint(-127, 128, (5, 4, 1, 16), dtype=torch.int8)
+    sc = torch.rand(5, 1)
+    ops.decode_attention_paged(torch.randn(1, 1, 2, 16), q8, q8, block,
+                               torch.ones(1, 8, dtype=bool), sc, sc)
+    ops.decode_attention_chunk_paged(torch.randn(1, 3, 2, 16), q8, q8, block,
+                                     torch.ones(1, 3, 8, dtype=bool), sc, sc)
+    ops.copy_pages((q8[None].clone(), sc[None].clone()), [1], [3])
     ops.ssd_chunk(torch.randn(1, 1, 8, 2, 8), torch.rand(1, 1, 8, 2),
                   -torch.rand(2), torch.randn(1, 1, 8, 8),
                   torch.randn(1, 1, 8, 8))
     assert ops.launch_counts() == {
         "hi_gate": 0, "decode_attention": 0, "decode_attention_paged": 0,
-        "decode_attention_chunk_paged": 0, "copy_pages": 0, "ssd_chunk": 0}
+        "decode_attention_chunk_paged": 0, "copy_pages": 0, "ssd_chunk": 0,
+        "decode_attention_paged[int8]": 0,
+        "decode_attention_chunk_paged[int8]": 0, "copy_pages[int8]": 0}
 
 
 def test_kernel_wrappers_refuse_non_cuda_tensors():

@@ -18,6 +18,8 @@ neighbouring bf16 step, as the contiguous-cache tests of
 ``test_torch_model.py`` found; bf16 pools are compared within
 ``POOL_TOL`` = 2e-2, two bf16 steps at the pools' magnitude.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,7 @@ from repro.kernels import ops as jops
 from repro.models import model_zoo as jzoo
 from repro.serving.batcher import prompt_hashes as jax_prompt_hashes
 from repro_torch.bridge import params_from_numpy
+from repro_torch.configs.base import MOE
 from repro_torch.configs.registry import ARCHS
 from repro_torch.kernels import copy_pages as cp
 from repro_torch.kernels import decode_attention as da
@@ -389,10 +392,13 @@ def test_prefix_cache_has_a_drop_row():
 
 
 def test_paged_api_refuses_unported_families():
-    cfg = ARCHS["qwen2-1.5b"].reduced()
-    with pytest.raises(NotImplementedError, match="item 6"):
+    cfg = dataclasses.replace(ARCHS["qwen2-1.5b"].reduced(), family=MOE)
+    with pytest.raises(NotImplementedError, match="item 11"):
         tzoo.init_paged_cache(cfg, 2, 8, PAGE, dtype=torch.int8,
                               device="cpu")
+    with pytest.raises(ValueError, match="int8"):
+        tzoo.init_paged_cache(ARCHS["qwen2-1.5b"].reduced(), 2, 8, PAGE,
+                              dtype=torch.float16, device="cpu")
 
 
 # ---------------------------------------------------------------------------

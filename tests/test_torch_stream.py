@@ -528,7 +528,7 @@ def test_no_stale_reads_after_slot_reuse():
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(speculative=True), "item 9"),
-    (dict(kv_dtype="int8"), "item 6"),
+    (dict(audit=object()), "item 7"),
     (dict(mesh=object()), "item 14"),
     (dict(faults=FaultSchedule(loss_prob=0.5)), "item 7"),
     (dict(telemetry=object()), "item 7"),
