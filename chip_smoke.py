@@ -11,8 +11,11 @@ Phases (any failure exits non-zero before the last line):
    (seconds, and ``ptxas -v`` register / shared-memory / spill lines).
 3. kernels — each kernel against its plain PyTorch version at the shapes the
    main path gives it, with the tolerance stated, and timed with CUDA events
-   and ``torch.profiler`` beside its bound, its plain version and, where one
-   exists, one PyTorch call that computes the same function.  ssd_chunk at
+   and ``torch.profiler`` (device time per call: the drain kernel's split and
+   merge launches summed) beside its bound, its plain version and, where one
+   exists, one PyTorch call that computes the same function.  The chunk
+   kernel's bound is that of its path, three bf16 tensor-core passes per
+   float32 product, with the float32-FMA bound beside it.  ssd_chunk at
    mamba2-370m's L and S admission shapes and zamba2-2.7b's L shape, with
    its padded-tail exactness; the paged decode kernel also at zamba2's head
    dim 80 with NaN and inf planted where no query may look.  The int8
@@ -42,7 +45,8 @@ Phases (any failure exits non-zero before the last line):
    (prefill, COW, decode, a chunk) on the card against the CPU: logits
    within a limit below the int8-vs-bf16 gap, levels within 1, scales.
 6. trace   — one more drain serve, and one ``serve_stream`` tick window,
-   under ``torch.profiler``: the device's time by kernel kind and its busy
+   under ``torch.profiler``: the device's time by kernel kind (the chunk
+   kernel apart from the paged decode kernel) and its busy
    share of the wall time (``--trace DIR`` keeps the gzipped Chrome traces
    in DIR).  Then the stream phase again with ``kv_dtype="int8"``: the int8
    kernels' launches against the lane flags, pool bytes at most 0.55x the
@@ -89,10 +93,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and float32
-# outside the tensor cores (the kernels' arithmetic is float32 FMA).
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, float32
+# outside the tensor cores (most kernels' arithmetic is float32 FMA) and
+# dense bf16 on the tensor cores (the chunk kernel's path).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
+# the chunk kernel runs each float32 product as three bf16 tensor-core
+# passes (q and p as hi + mid + lo; csrc/chunk_paged_attention.cu)
+CHUNK_TC_PASSES = 3
 L2_BYTES = 50 * 2 ** 20
 
 # main-path settings (full-width serve phase)
@@ -185,12 +194,16 @@ def timed(fn, args_list, iters, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, args_list, pattern, iters=50):
-    """Mean device time per launch, in ms, of the kernels whose name matches
-    ``pattern``, over ``iters`` calls under ``torch.profiler`` (CUPTI's
-    kernel durations from the Chrome trace: what the card spent, without
-    the host's submission time that back-to-back CUDA-event timing also
-    sees when the host is the slower side)."""
+def device_ms(fn, args_list, pattern, launches=1, iters=50):
+    """Device time per call, in ms: the summed durations of the kernels
+    whose name matches ``pattern`` over ``iters`` calls under
+    ``torch.profiler``, divided by ``iters`` (CUPTI's kernel durations from
+    the Chrome trace: what the card spent, without the host's submission
+    time that back-to-back CUDA-event timing also sees when the host is the
+    slower side).  ``launches`` is the kernel launches one call makes (the
+    drain kernel's two: its splits and their merge); any other number of
+    matched records raises, so a record CUPTI dropped cannot shorten the
+    time."""
     import re
     import tempfile
     import torch
@@ -209,9 +222,10 @@ def device_ms(fn, args_list, pattern, iters=50):
         events = json.loads(path.read_text())["traceEvents"]
     durs = [float(e["dur"]) for e in events
             if e.get("cat") == "kernel" and re.search(pattern, e["name"])]
-    if not durs:       # CUPTI may drop a record; average what it kept
-        raise AssertionError(f"profiler saw no launch of {pattern!r}")
-    return sum(durs) / len(durs) / 1e3
+    if len(durs) != iters * launches:
+        raise AssertionError(f"profiler saw {len(durs)} launches of "
+                             f"{pattern!r}, not {iters} calls x {launches}")
+    return sum(durs) / iters / 1e3
 
 
 def copies(make, nbytes):
@@ -219,8 +233,8 @@ def copies(make, nbytes):
     return [make() for _ in range(max(2, math.ceil(2 * L2_BYTES / nbytes)))]
 
 
-def bound(nbytes, flops):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -322,7 +336,8 @@ def check_decode_attention(gen):
                       2 * b * s * k * d * isz)
         ms = timed(da.decode_attention_cuda, sets, 200)
         dev_ms = device_ms(da.decode_attention_cuda, sets,
-                           r"decode_attention_kernel")
+                           r"decode_attention_(split|combine)_kernel",
+                           launches=2)
         plain_ms = timed(da.decode_attention_plain, sets, 50)
         # the library yardstick: one SDPA call on bf16 (B, H, 1, D) queries
         # over (B, K, S, D) K/V with the same mask; layouts made beforehand
@@ -437,6 +452,11 @@ def check_paged(gen, name, c, cases, quant=False):
               else da.decode_attention_chunk_paged_cuda)
     plain = (da.decode_attention_paged_plain if c == 1
              else da.decode_attention_chunk_paged_plain)
+    # C = 1 is the decode kernel, C > 1 the chunk kernel (tensor cores)
+    pattern = (r"::paged_attention_kernel" if c == 1
+               else r"chunk_paged_attention_kernel")
+    source = ("src/repro_torch/csrc/decode_attention_paged.cu" if c == 1
+              else "src/repro_torch/csrc/chunk_paged_attention.cu")
     kind = "int8" if quant else "bf16"
 
     def mask(valid):
@@ -486,13 +506,25 @@ def check_paged(gen, name, c, cases, quant=False):
                       2 * pk.numel() * item)
         msets = [args(x) for x in sets]
         ms = timed(kernel, msets, 200)
-        dev_ms = device_ms(kernel, msets, r"paged_attention_kernel")
+        dev_ms = device_ms(kernel, msets, pattern)
         plain_ms = timed(plain, msets, 20)
         raw = [(x[0], x[1], x[2], x[3], x[4], *x[5]) for x in sets]
         lib_sets = [_paged_library(*x) for x in raw]
         lib_ms = timed(_sdpa, lib_sets, 200)
         gather_ms = timed(_gather_sdpa, raw, 50)
-        bound_ms, by = bound(nbytes, 4 * h * d * n_pairs)
+        flops = 4 * h * d * n_pairs
+        f32_ms, f32_by = bound(nbytes, flops)
+        if c == 1:
+            bound_ms, by = f32_ms, f32_by
+            bounds = f"bound {bound_ms * 1e3:.2f} us ({by})"
+        else:
+            # the path the kernel takes: every float32 product as
+            # CHUNK_TC_PASSES bf16 tensor-core passes
+            bound_ms, by = bound(nbytes, CHUNK_TC_PASSES * flops,
+                                 BF16_TC_FLOP_PER_S)
+            bounds = (f"bound {bound_ms * 1e3:.2f} us ({by}, "
+                      f"{CHUNK_TC_PASSES} bf16 tensor-core passes; float32 "
+                      f"FMA bound {f32_ms * 1e3:.2f} us)")
         pool = f"({pages},16,{k},{d}) {kind}"
         log(f"  {name} {label}: B={b} C={c} H={h} K={k} D={d} pool {pool}"
             f"{' + (P,K) f32 scales' if quant else ''}, {n_pairs} (query, "
@@ -501,12 +533,10 @@ def check_paged(gen, name, c, cases, quant=False):
             f"(device {dev_ms * 1e3:.1f} us)  "
             f"plain {plain_ms * 1e3:.1f} us  sdpa on gathered "
             f"{'dequantised ' if quant else ''}K/V {lib_ms * 1e3:.1f} us  "
-            f"gather+sdpa {gather_ms * 1e3:.1f} us  "
-            f"bound {bound_ms * 1e3:.2f} us ({by})")
+            f"gather+sdpa {gather_ms * 1e3:.1f} us  {bounds}")
         if main is None:
             main = {"name": name + ("[int8]" if quant else ""),
-                    "route": "cuda",
-                    "source": "src/repro_torch/csrc/decode_attention_paged.cu",
+                    "route": "cuda", "source": source,
                     "replaces": (("src/repro/kernels/decode_attention.py:192"
                                   if quant else
                                   "src/repro/kernels/decode_attention.py:376")
@@ -1518,8 +1548,10 @@ def _check_stream_outputs(out, reqs, cfg, theta, statuses):
 
 KERNEL_KINDS = (  # (kind, regex over the kernel's name), first match wins
     ("ssd_chunk", r"ssd_chunk_kernel"),
-    ("decode_attention", r"decode_attention_kernel"),
-    ("paged_attention (decode + chunk)", r"paged_attention_kernel"),
+    # the drain kernel: its splits and their merge
+    ("decode_attention", r"decode_attention_(split|combine)_kernel"),
+    ("chunk_paged_attention", r"chunk_paged_attention_kernel"),
+    ("paged_attention (decode)", r"::paged_attention_kernel"),
     ("copy_pages", r"copy_pages_kernel"),
     ("hi_gate", r"hi_gate"),
     ("matmul (cuBLAS)", r"gemm|gemv|xmma|cutlass|nvjet|cublas|splitK"),

@@ -1,51 +1,48 @@
-// paged attention — flash-decode GQA over a paged KV pool, for Hopper
-// (sm_90a).  One query token per slot (decode) or C query tokens per slot
-// (chunked prefill) in one pass over the slot's pages.
+// paged decode attention — flash-decode GQA of one query token per slot over
+// a paged KV pool, for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/decode_attention.py,
 //   decode_attention_paged_pallas (bodies _paged_kernel and, for int8
-//   pools, _paged_kernel_quant) and decode_attention_chunk_paged_pallas
-//   (_chunk_paged_kernel and _chunk_paged_kernel_quant), which share the
-//   online-softmax step _flash_update / _chunk_flash_update.
+//   pools, _paged_kernel_quant), which share the online-softmax step
+//   _flash_update.  The chunk case (C > 1 query tokens per slot,
+//   decode_attention_chunk_paged_pallas) is chunk_paged_attention_kernel
+//   in chunk_paged_attention.cu, with its own C entry point.
 // The pool is (P, page, K, D); an int32 block table (B, n_pages) maps each
-// slot's logical pages to physical ones; a (B, C, n_pages * page) byte mask
-// says which key positions each query may see (position, sliding window and,
-// for C > 1, the intra-chunk causal structure).  Like the TPU kernels it
-// keeps q in float32, upcasts K/V to float32, starts the running max at
-// -1e30, gives masked keys probability 0 and finishes with
-// acc / max(l, 1e-30), so a query that sees no key returns 0.
+// slot's logical pages to physical ones; a (B, n_pages * page) byte mask
+// says which key positions the query may see (position and sliding
+// window).  Like the TPU kernels it keeps q in float32, upcasts K/V to
+// float32, starts the running max at -1e30, gives masked keys probability 0
+// and finishes with acc / max(l, 1e-30), so a query that sees no key
+// returns 0.
 // An int8 pool comes with (P, K) float32 scales, one per physical page and
 // kv head: a staged key row is dequantised in registers, float(int8) *
 // scale[block[b, j], kv], before the same float32 online-softmax step (the
 // TPU bodies' `k.astype(f32) * sk`).  The scale is read once per staged
-// row, and only for rows some query of the block sees: a stale or
-// unallocated page's scale may hold anything.
+// row, and only for rows the query sees: a stale or unallocated page's
+// scale may hold anything.
 //
 // What bounds it on the H100: HBM bytes.  Each slot's visible K/V rows are
-// read once per block that needs them, 2 * K * D * 2 bytes per position in
-// bf16 (half that, plus 8 bytes of scales per page and kv head, in int8),
-// against 4 * G * C * D float32 operations per position and kv head: at
-// decode (C = 1, G <= 6) well under the ALU line; the chunk lane's
-// C * G = 384 query rows per kv head make it about 100 operations per byte.
+// read once, 2 * K * D * 2 bytes per position in bf16 (half that, plus 8
+// bytes of scales per page and kv head, in int8), against 4 * G * D float32
+// operations per position and kv head: at G <= 6 well under the ALU line.
 //
 // What the design does about that:
-//   * one block per (kv head, slot, tile of 8 query rows); a query row is a
-//     (chunk token, group head) pair, so the decode's G heads share every
-//     K/V byte a block reads, and the chunk lane's 384 rows spread over 48
-//     blocks per (slot, kv head) instead of one block holding them all;
+//   * one block per (kv head, slot, 8 query heads of its group): the
+//     group's heads share every K/V byte the block reads;
 //   * the block table is read from global memory by the block itself (the
 //     TPU scalar-prefetches it), once per key row of a tile;
 //   * key tiles of up to 64 positions are staged in shared memory with
 //     16-byte loads; the mask is staged per tile, and tiles, and rows inside
-//     a tile, that no query row of the block may see are never loaded:
-//     page 0, unallocated pages and stale page tails may hold anything;
+//     a tile, that the query may not see are never loaded: page 0,
+//     unallocated pages and stale page tails may hold anything;
 //   * each warp owns key rows of the tile and keeps an online-softmax state
-//     for all 8 query rows in registers (lanes split D); the 8 dot products
-//     of a key row reduce in interleaved shuffles; a key a query row may not
+//     for the query rows in registers (lanes split D); the dot products of
+//     a key row reduce in interleaved shuffles; a key a query row may not
 //     see is skipped for that row (a select, never a multiply by 0); the
 //     warps' states merge once, in a fixed order, at the end.
-// A simple kernel first: wgmma/TMA and splitting the keys across blocks are
-// left for a later change.
+// With B * K blocks the grid fills few of the 132 SMs: splitting the keys
+// across blocks, as decode_attention.cu does for the drain path, is the
+// next change here.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -296,9 +293,10 @@ int dispatch_d(int d, const Args& a, cudaStream_t st) {
 // float32, 1 = bfloat16, 2 = int8); scale_k/v: (P, K) float32 for int8
 // pools, null otherwise; block: (B, n_pages) int32; valid: (B, C,
 // n_pages * page) bytes; out: (B, C, H, D) float32.  All contiguous;
-// H = K * group; D in {32, 64, 80, 128, 256}.  The decode kernel is C = 1.
-// An unknown dtype code, or scales that do not match the dtype, is
-// cudaErrorInvalidValue and launches nothing.  Returns cudaGetLastError()
+// H = K * group; D in {32, 64, 80, 128, 256}.  The decode kernel is C = 1
+// (C > 1 is chunk_paged_attention_launch, chunk_paged_attention.cu).
+// Another C, an unknown dtype code, or scales that do not match the dtype,
+// is cudaErrorInvalidValue and launches nothing.  Returns cudaGetLastError()
 // after the launch.
 extern "C" int paged_attention_launch(const void* q, const void* pool_k,
                                       const void* pool_v, const void* scale_k,
@@ -307,7 +305,7 @@ extern "C" int paged_attention_launch(const void* q, const void* pool_k,
                                       int b, int c, int kv, int group, int d,
                                       int page, int n_pages, float scale,
                                       void* stream) {
-  if (b < 1 || c < 1 || kv < 1 || group < 1 || page < 1 || n_pages < 1)
+  if (b < 1 || c != 1 || kv < 1 || group < 1 || page < 1 || n_pages < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool has_scales = scale_k != nullptr && scale_v != nullptr;
   const bool no_scales = scale_k == nullptr && scale_v == nullptr;

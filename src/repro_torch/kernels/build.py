@@ -29,7 +29,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 SOURCES = ("hi_gate.cu", "decode_attention.cu", "decode_attention_paged.cu",
-           "copy_pages.cu", "ssd_scan.cu")
+           "chunk_paged_attention.cu", "copy_pages.cu", "ssd_scan.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -42,9 +42,11 @@ _i64 = ctypes.c_longlong
 # that no pointer is cut to 32 bits.
 SIGNATURES = {
     "hi_gate_launch": (_vp, _i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp),
-    "decode_attention_launch": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
-                                _i, ctypes.c_float, _vp),
+    "decode_attention_launch": (_vp,) * 6 + (_i,) * 7 + (ctypes.c_float,
+                                                         _vp),
     "paged_attention_launch": (_vp,) * 8 + (_i,) * 8 + (ctypes.c_float, _vp),
+    "chunk_paged_attention_launch": (_vp,) * 8 + (_i,) * 8 + (ctypes.c_float,
+                                                             _vp),
     "copy_pages_launch": (_vp, _vp, _vp, _i, _i, _vp, _vp, _i, _vp),
     "ssd_chunk_launch": (_vp,) * 9 + (_i,) * 6 + (_vp,),
 }

@@ -13,8 +13,17 @@ second half of this module).  ``copy_pages_pallas`` is ported in
   (the reference's jnp path ``layers._sdpa`` would instead cast q to the
   cache dtype), masked scores are -1e30 with their probability zeroed, and
   the result is ``acc / max(l, 1e-30)``.
-* :func:`decode_attention_cuda` — launches ``csrc/decode_attention.cu``.
-  ``decode_attention_cuda.launches`` counts its launches.
+* :func:`decode_attention_cuda` — launches ``csrc/decode_attention.cu``:
+  the cache positions split across blocks (:func:`drain_split_len` picks
+  the split from the shapes alone), each split's partial (m, l, acc) in a
+  float32 workspace the wrapper allocates with ``torch.empty``, then a
+  small kernel that merges the splits in a fixed order.
+  ``decode_attention_cuda.launches`` counts its calls, one per call.
+* :func:`decode_attention_chunk_paged_cuda` — the chunk kernel,
+  ``csrc/chunk_paged_attention.cu``, on the tensor cores, through its own
+  C entry point for C > 1; the first launch of each instantiation raises
+  the kernel's dynamic shared-memory limit with ``cudaFuncSetAttribute``,
+  and every call returns that call's error as it does the launch's.
 """
 from __future__ import annotations
 
@@ -35,6 +44,23 @@ def _check_heads(h: int, kh: int) -> int:
     if h % kh:
         raise ValueError(f"query heads H={h} not divisible by kv heads K={kh}")
     return h // kh
+
+
+# the drain kernel's position splits: 32-position units, merged until the
+# grid holds about two blocks per SM of an H100 (132 SMs), at most 256
+SPLIT_UNIT = 32
+SPLIT_TARGET_BLOCKS = 264
+MAX_SPLITS = 256
+
+
+def drain_split_len(b: int, kh: int, s: int) -> int:
+    """Positions per split of the drain kernel, from the shapes alone (the
+    mask's content would need a copy to the host): B*K blocks per split,
+    about ``SPLIT_TARGET_BLOCKS`` in all, each split a whole number of
+    ``SPLIT_UNIT``s.  At the L tier (B 4, K 2, S 1,024): 32, 256 blocks."""
+    units = -(-s // SPLIT_UNIT)
+    n = max(1, min(units, -(-SPLIT_TARGET_BLOCKS // (b * kh)), MAX_SPLITS))
+    return SPLIT_UNIT * -(-units // n)
 
 
 def decode_attention_plain(q: torch.Tensor, cache_k: torch.Tensor,
@@ -98,12 +124,17 @@ def decode_attention_cuda(q: torch.Tensor, cache_k: torch.Tensor,
                          "on a 16-byte boundary")
     q32 = q.float().contiguous()
     out = torch.empty((b, 1, h, d), dtype=torch.float32, device=dev)
+    split = drain_split_len(b, kh, s)
+    # each split's (acc (G, D), m (G), l (G)) per (batch row, kv head)
+    ws = torch.empty((b * kh * -(-s // split) * g * (d + 2),),
+                     dtype=torch.float32, device=dev)
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.decode_attention_launch(
         q32.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-        valid.data_ptr(), out.data_ptr(), _DTYPES[cache_k.dtype], b, s, kh, g,
-        d, 1.0 / math.sqrt(d), stream)
+        valid.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        _DTYPES[cache_k.dtype], b, s, kh, g, d, split, 1.0 / math.sqrt(d),
+        stream)
     build.check(err, "decode_attention")
     decode_attention_cuda.launches += 1
     return out.to(q.dtype)
@@ -119,9 +150,11 @@ decode_attention_cuda.launches = 0
 # Replace the reference's ``decode_attention_paged_pallas`` (bodies
 # ``_paged_kernel`` and, for int8 pools, ``_paged_kernel_quant``) and
 # ``decode_attention_chunk_paged_pallas`` (``_chunk_paged_kernel`` and
-# ``_chunk_paged_kernel_quant``).  Both launch ``csrc/
-# decode_attention_paged.cu``; the decode kernel is its chunk of one query
-# token.  An int8 pool comes with ``scale_k``/``scale_v`` (P, K) float32,
+# ``_chunk_paged_kernel_quant``).  One query token per slot launches the
+# decode kernel of ``csrc/decode_attention_paged.cu``; C > 1 launches the
+# tensor-core kernel of ``csrc/chunk_paged_attention.cu``, each through its
+# own C entry point.  An int8 pool comes with
+# ``scale_k``/``scale_v`` (P, K) float32,
 # one scale per physical page and kv head: a key row dequantises to
 # ``float(int8) * scale[page, head]`` before the float32 online softmax.
 # A key position that no query of the slot may see (page 0, pages not
@@ -269,7 +302,9 @@ def _paged_cuda(name: str, q: torch.Tensor, pool_k: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     # null scale pointers for float32 / bf16 pools
     sk, sv = (t.data_ptr() for t in scales) if scales else (None, None)
-    err = lib.paged_attention_launch(
+    launch = (lib.chunk_paged_attention_launch if c > 1
+              else lib.paged_attention_launch)
+    err = launch(
         q32.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), sk, sv,
         blk.data_ptr(), valid.data_ptr(), out.data_ptr(),
         _PAGED_DTYPES[pool_k.dtype], b, c, kh, g, d, page, npg,

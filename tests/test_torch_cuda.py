@@ -90,6 +90,37 @@ def test_decode_attention_kernel_matches_plain(gen, d, b, h, k, s, dtype):
         torch.testing.assert_close(out_k, out_p, atol=ATT_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,k,s,d", [(4, 12, 2, 1000, 128),
+                                       (8, 3, 1, 1024, 128),
+                                       (1, 8, 1, 4099, 64),
+                                       (2, 4, 2, 333, 80)])
+def test_decode_attention_splits_merge_in_a_fixed_order(gen, dtype, b, h, k,
+                                                        s, d):
+    """The drain kernel splits the positions across blocks and merges the
+    splits in order: S not a multiple of the split, a mask true only in the
+    last split, one true only in the first, and two calls of one input give
+    the same bits; one call is one counted launch."""
+    split = da.drain_split_len(b, k, s)
+    assert -(-s // split) > 1                      # several splits
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda")
+    ck = torch.randn((b, s, k, d), generator=gen, device="cuda").to(dtype)
+    cv = torch.randn((b, s, k, d), generator=gen, device="cuda").to(dtype)
+    kpos = torch.arange(s, device="cuda")
+    last = (s - 1) // split * split
+    for valid in (kpos >= last, kpos >= s - 3, kpos < 5,
+                  (kpos % 7 == 0) & (kpos > split)):
+        before = da.decode_attention_cuda.launches
+        out = ops.decode_attention(q, ck, cv, valid)
+        again = ops.decode_attention(q, ck, cv, valid)
+        torch.cuda.synchronize()
+        assert da.decode_attention_cuda.launches == before + 2
+        assert torch.equal(out, again)
+        torch.testing.assert_close(
+            out, da.decode_attention_plain(q, ck, cv, valid),
+            atol=ATT_ATOL, rtol=0)
+
+
 def test_decode_attention_bf16_query_keeps_its_dtype(gen):
     q = torch.randn((2, 1, 4, 64), generator=gen, device="cuda")
     kv = torch.randn((2, 64, 2, 64), generator=gen, device="cuda")
@@ -297,19 +328,31 @@ def test_paged_decode_kernel_matches_plain(gen, d, b, h, k, page, npg, dtype,
     assert (out[-1] == 0).all()                    # sees no key: returns 0
 
 
-@pytest.mark.parametrize("c,h,k", [(64, 12, 2), (64, 3, 1), (4, 8, 2),
-                                   (7, 6, 1), (1, 4, 4)])
-@pytest.mark.parametrize("d", [64, 128])
+# (C, H, K): C in 1, 7, 17, 64, 256 (not all multiples of the chunk
+# kernel's 32-row tile), group sizes 1, 3, 4, 6 and 8
+CHUNK_SHAPES = [(64, 12, 2), (64, 3, 1), (4, 8, 2), (7, 6, 1), (1, 4, 4),
+                (17, 8, 1), (256, 12, 2), (17, 3, 3)]
+
+
+@pytest.mark.parametrize("c,h,k", CHUNK_SHAPES)
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [None, 24])
 def test_paged_chunk_kernel_matches_plain(gen, c, h, k, d, dtype, window):
+    """The chunk kernel (C > 1 on the tensor cores, C = 1 the decode
+    kernel) with NaN / inf planted in page 0 and every row no query of a
+    slot sees; the last slot sees no key and one query token of slot 0
+    none either: both return exactly 0.  The 24-position window gives the
+    rows of one 32-row block different visible keys."""
     q, pk, pv, block, valid, ck, cv = _paged_inputs(
-        gen, 3, h, k, d, 16, 12, c, dtype, window)
+        gen, 3, h, k, d, 16, max(12, c // 16 + 4), c, dtype, window)
+    valid[0, c // 2] = False
     before = da.decode_attention_chunk_paged_cuda.launches
     out = ops.decode_attention_chunk_paged(q, pk, pv, block, valid)
     torch.cuda.synchronize()
     assert da.decode_attention_chunk_paged_cuda.launches == before + 1
     assert torch.isfinite(out).all()
+    assert (out[-1] == 0).all() and (out[0, c // 2] == 0).all()
     ref = da.decode_attention_chunk_paged_plain(q, ck, cv, block, valid)
     torch.testing.assert_close(out, ref, atol=ATT_ATOL, rtol=0)
     # the plain version skips the same garbage
@@ -384,26 +427,65 @@ def test_paged_int8_decode_kernel_matches_plain(gen, d, b, h, k, page, npg,
     assert (out[-1] == 0).all()
 
 
-@pytest.mark.parametrize("c,h,k,d", [(256, 12, 2, 128), (64, 3, 1, 128),
-                                     (7, 32, 32, 80), (4, 8, 2, 64)])
-def test_paged_int8_chunk_kernel_matches_plain(gen, c, h, k, d):
-    """The int8 chunk body (``_chunk_paged_kernel_quant``)."""
+@pytest.mark.parametrize("c,h,k", [(256, 12, 2), (64, 3, 1), (7, 32, 32),
+                                   (4, 8, 2), (1, 6, 1), (17, 8, 1)])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("window", [None, 40])
+def test_paged_int8_chunk_kernel_matches_plain(gen, c, h, k, d, window):
+    """The int8 chunk body (``_chunk_paged_kernel_quant``): arbitrary bytes
+    in rows no query of a slot sees and NaN / inf scales on every page no
+    query reaches never reach a result; the slot that sees no key returns
+    exactly 0."""
     q, (pk, pv), dirty, clean, block, valid = _int8_inputs(
-        gen, 2, h, k, d, 16, 34, c)
+        gen, 2, h, k, d, 16, 34, c, window)
     before = da.decode_attention_chunk_paged_cuda.launches_int8
     out = ops.decode_attention_chunk_paged(q, pk, pv, block, valid, *dirty)
     torch.cuda.synchronize()
     assert da.decode_attention_chunk_paged_cuda.launches_int8 == before + 1
     assert torch.isfinite(out).all()
+    assert (out[-1] == 0).all()
     ref = da.decode_attention_chunk_paged_plain(q, pk, pv, block, valid,
                                                 *clean)
     torch.testing.assert_close(out, ref, atol=ATT_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("page", [4, 8])
+@pytest.mark.parametrize("c,h,k,d", [(17, 8, 1, 64), (64, 12, 2, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("window", [None, 24])
+def test_paged_chunk_kernel_at_small_pages(gen, page, c, h, k, d, dtype,
+                                           window):
+    """Pages of 4 and 8 keys: one 64-key tile of the chunk kernel spans
+    several pages, each found through the block table, with the garbage of
+    ``_paged_inputs`` / ``_int8_inputs`` planted where no query looks."""
+    npg = c // page + 6
+    if dtype == "int8":
+        q, (pk, pv), scales, clean, block, valid = _int8_inputs(
+            gen, 3, h, k, d, page, npg, c, window)
+        ck, cv = pk, pv
+    else:
+        q, pk, pv, block, valid, ck, cv = _paged_inputs(
+            gen, 3, h, k, d, page, npg, c, getattr(torch, dtype), window)
+        scales = clean = ()
+    valid[0, c // 2] = False
+    counter = "launches_int8" if dtype == "int8" else "launches"
+    before = getattr(da.decode_attention_chunk_paged_cuda, counter)
+    out = ops.decode_attention_chunk_paged(q, pk, pv, block, valid, *scales)
+    torch.cuda.synchronize()
+    assert getattr(da.decode_attention_chunk_paged_cuda, counter) == \
+        before + 1
+    assert torch.isfinite(out).all()
+    assert (out[-1] == 0).all() and (out[0, c // 2] == 0).all()
+    ref = da.decode_attention_chunk_paged_plain(q, ck, cv, block, valid,
+                                                *clean)
+    torch.testing.assert_close(out, ref, atol=ATT_ATOL, rtol=0)
+
+
 def test_paged_launch_refuses_unknown_dtype_codes(gen):
-    """The C entry point refuses a dtype code it does not know, and int8
+    """Both C entry points, the decode kernel's (C = 1) and the chunk
+    kernel's (C > 1), refuse a dtype code they do not know, and int8
     without scales or bf16 with them, with cudaErrorInvalidValue (1), and
-    launches nothing."""
+    launch nothing; each refuses the other's C."""
     from repro_torch.kernels import build
     q, (pk, pv), _, clean, block, valid = _int8_inputs(gen, 2, 4, 2, 64, 8,
                                                        4, 1)
@@ -412,18 +494,23 @@ def test_paged_launch_refuses_unknown_dtype_codes(gen):
     stream = torch.cuda.current_stream().cuda_stream
     vb = valid.contiguous()
 
-    def launch(code, sk, sv):
-        return lib.paged_attention_launch(
+    def launch(code, sk, sv, c=1, entry=lib.paged_attention_launch):
+        return entry(
             q.data_ptr(), pk.data_ptr(), pv.data_ptr(), sk, sv,
-            block.data_ptr(), vb.data_ptr(), out.data_ptr(), code, 2, 1, 2, 2,
+            block.data_ptr(), vb.data_ptr(), out.data_ptr(), code, 2, c, 2, 2,
             64, 8, 4, 0.125, stream)
 
     s = (clean[0].data_ptr(), clean[1].data_ptr())
-    assert launch(3, None, None) == 1
-    assert launch(-1, *s) == 1
-    assert launch(2, None, None) == 1
-    assert launch(2, s[0], None) == 1
-    assert launch(1, *s) == 1
+    chunk = {"c": 2, "entry": lib.chunk_paged_attention_launch}
+    for kw in ({}, chunk):
+        assert launch(3, None, None, **kw) == 1
+        assert launch(-1, *s, **kw) == 1
+        assert launch(2, None, None, **kw) == 1
+        assert launch(2, s[0], None, **kw) == 1
+        assert launch(1, *s, **kw) == 1
+    assert launch(1, None, None, c=2) == 1
+    assert launch(1, None, None, c=1,
+                  entry=lib.chunk_paged_attention_launch) == 1
     torch.cuda.synchronize()
     assert (out == 0).all()
 

@@ -172,7 +172,7 @@ def test_build_commands_target_sm90a_in_parallel(tmp_path):
     link into a single shared library; the build key follows the sources."""
     from repro_torch.kernels import build
     compiles, link = build.compile_commands("nvcc", tmp_path)
-    assert len(compiles) == len(build.SOURCES) == 5
+    assert len(compiles) == len(build.SOURCES) == 6
     for cmd in compiles:
         assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
         assert "-Xptxas" in cmd and "-v" in cmd and "-O3" in cmd
