@@ -5,7 +5,7 @@
 //   decode_attention_chunk_paged_pallas (bodies _chunk_paged_kernel and,
 //   for int8 pools, _chunk_paged_kernel_quant, sharing
 //   _chunk_flash_update).  The decode case (C = 1) stays with
-//   paged_attention_kernel in decode_attention_paged.cu: the wrapper
+//   paged_attention_split_kernel in decode_attention_paged.cu: the wrapper
 //   decode_attention_chunk_paged_cuda calls this file's entry point for
 //   C > 1 only.
 // The pool is (P, page, K, D); an int32 block table (B, n_pages) maps each

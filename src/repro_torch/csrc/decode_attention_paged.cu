@@ -1,5 +1,5 @@
 // paged decode attention — flash-decode GQA of one query token per slot over
-// a paged KV pool, for Hopper (sm_90a).
+// a paged KV pool, its keys split across SMs, for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/decode_attention.py,
 //   decode_attention_paged_pallas (bodies _paged_kernel and, for int8
@@ -13,36 +13,51 @@
 // window).  Like the TPU kernels it keeps q in float32, upcasts K/V to
 // float32, starts the running max at -1e30, gives masked keys probability 0
 // and finishes with acc / max(l, 1e-30), so a query that sees no key
-// returns 0.
-// An int8 pool comes with (P, K) float32 scales, one per physical page and
-// kv head: a staged key row is dequantised in registers, float(int8) *
-// scale[block[b, j], kv], before the same float32 online-softmax step (the
-// TPU bodies' `k.astype(f32) * sk`).  The scale is read once per staged
-// row, and only for rows the query sees: a stale or unallocated page's
-// scale may hold anything.
+// returns 0.  An int8 pool comes with (P, K) float32 scales, one per
+// physical page and kv head: a key's score is its dot with the int8 levels
+// times scale_k, and a value row's weight is folded with scale_v (the TPU
+// bodies' `k.astype(f32) * sk`, reassociated).
 //
-// What bounds it on the H100: HBM bytes.  Each slot's visible K/V rows are
-// read once, 2 * K * D * 2 bytes per position in bf16 (half that, plus 8
-// bytes of scales per page and kv head, in int8), against 4 * G * D float32
-// operations per position and kv head: at G <= 6 well under the ALU line.
+// What bounds it on the H100: HBM bytes, 2 * K * D * 2 bytes per visible
+// position in bf16 (half that, plus 8 bytes of scales per page and kv head,
+// in int8), against 4 * G * D float32 operations per position and kv head:
+// at G <= 8 far under the ALU line.  In practice a decode call moves well
+// under a megabyte, so what it costs is latency: launch, the dependent
+// global round trips of a block, and the blocks in flight.
 //
 // What the design does about that:
-//   * one block per (kv head, slot, 8 query heads of its group): the
-//     group's heads share every K/V byte the block reads;
-//   * the block table is read from global memory by the block itself (the
-//     TPU scalar-prefetches it), once per key row of a tile;
-//   * key tiles of up to 64 positions are staged in shared memory with
-//     16-byte loads; the mask is staged per tile, and tiles, and rows inside
-//     a tile, that the query may not see are never loaded: page 0,
-//     unallocated pages and stale page tails may hold anything;
-//   * each warp owns key rows of the tile and keeps an online-softmax state
-//     for the query rows in registers (lanes split D); the dot products of
-//     a key row reduce in interleaved shuffles; a key a query row may not
-//     see is skipped for that row (a select, never a multiply by 0); the
-//     warps' states merge once, in a fixed order, at the end.
-// With B * K blocks the grid fills few of the 132 SMs: splitting the keys
-// across blocks, as decode_attention.cu does for the drain path, is the
-// next change here.
+//   * the keys are split across blocks: the grid is (kv head, slot,
+//     split), each split a contiguous range of whole logical pages whose
+//     length the host picks from B * K, n_pages and page alone (never from
+//     the mask or the block table, which would need a copy to the host, so
+//     the call stays capturable in a CUDA graph): 17 splits of 2 pages give
+//     qwen2's L and S decode 136 blocks where one block per (kv head,
+//     slot) gave 8;
+//   * a block reads its split's block-table entries and mask bytes once, up
+//     front (the mask as one bit per position, by warp ballots), then the
+//     int8 scales of the pages some position of the split is seen in: one
+//     dependent round trip before its rows' copies start.  Rows, pages and
+//     scales no query sees are never loaded: page 0, unallocated pages and
+//     stale tails may hold NaN;
+//   * rows are staged with cp.async, 16 bytes a thread, in two stages: the
+//     next tile's copies are in flight while this tile is computed.  A row
+//     no query sees is zero-filled by the copy itself (src-size 0, no read):
+//     its weight is 0 by a select, and 0 * 0 stays 0;
+//   * a tile is one online-softmax step for the group's G <= 8 query heads,
+//     with the work flattened so that no lane computes a padding head: the
+//     (head, key) scores one per thread over the staged row (rows padded to
+//     an odd number of 16-byte units, so a quarter-warp's 16-byte reads of 8
+//     rows hit 8 bank groups), then one warp per head for the tile's max,
+//     weights and sum, then the (head, 4 columns) outputs one per thread
+//     over the tile's rows.  No shuffle sits in the per-key path;
+//   * the splits merge in a fixed order, so two calls give the same bits:
+//     each block writes its partial (acc, m, l) to a float32 workspace the
+//     wrapper allocates with torch.empty, and the last block of a (slot,
+//     kv head) to finish (an atomic count on a counter the wrapper keeps
+//     zeroed) merges all of them in split order, writes acc / max(l, 1e-30)
+//     and resets the counter.  One launch a call; a single split writes its
+//     result directly.  A split that sees nothing has m = -1e30, l = 0,
+//     acc = 0.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -52,226 +67,412 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 8;          // query rows per block
+constexpr int kMaxGroup = 8;        // query heads per kv head
+constexpr int kMaxSplits = 256;     // splits per (slot, kv head)
+constexpr int kMaxSplitPos = 1024;  // positions per split
+constexpr int kMaxSplitPages = 64;  // pages per split
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_float(int8_t x) {
-  return static_cast<float>(x);
-}
-
-// T = int8_t reads scale_k / scale_v; the other types get null pointers and
-// compile without the scale code.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const float* __restrict__ q,
-                       const T* __restrict__ pool_k,
-                       const T* __restrict__ pool_v,
-                       const float* __restrict__ scale_k,
-                       const float* __restrict__ scale_v,
-                       const int* __restrict__ block,
-                       const uint8_t* __restrict__ valid,
-                       float* __restrict__ out, int c_len, int kv_heads,
-                       int group, int page, int n_pages, float scale) {
-  // lane l owns elements [l * kEpl, l * kEpl + kEpl) below D; where D is
-  // not a multiple of 32 (80) the last lanes own fewer or none: they load
-  // nothing and add 0 to every dot product
-  constexpr int kEpl = (D + 31) / 32;            // elements per lane
-  constexpr int kTileCap = 16384 / (D * (int)sizeof(T));
-  constexpr int kTile = kTileCap < 64 ? kTileCap : 64;
-  constexpr int kVec = 16 / (int)sizeof(T);      // elements per 16-byte load
-  constexpr int kVecPerRow = D / kVec;
+struct Cfg {
+  static constexpr int kVec = 16 / (int)sizeof(T);   // elements per copy
+  static constexpr int kVecPerRow = D / kVec;
+  // keys per tile: about 8 KB per tile and operand, a multiple of 8
+  static constexpr int kTileRaw = 8192 / (D * (int)sizeof(T));
+  static constexpr int kTile = (kTileRaw < 64 ? kTileRaw : 64) / 8 * 8;
+  // staged row stride: an odd number of 16-byte units
+  static constexpr int kLd = (kVecPerRow | 1) * kVec;
+  static constexpr int kStage = kTile * kLd * (int)sizeof(T);  // bytes
+  static constexpr int kCols = D / 4;                // 4-column output units
+  static constexpr int kUnits = (kMaxGroup * kCols + kThreads - 1) / kThreads;
+  static_assert(D % kVec == 0 && D % 16 == 0, "unsupported head dim");
+  static_assert(kTile >= 8, "a tile holds at least 8 keys");
+  static_assert(2 * 2 * kStage >= kMaxSplits * kMaxGroup * 4,
+                "the merge's weights fit the stages");
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_size) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src), "r"(src_size) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ bool bit(const uint32_t* w, int s) {
+  return (w[s >> 5] >> (s & 31)) & 1u;
+}
+
+// whether any bit in [a, b) is set
+__device__ __forceinline__ bool any_bit(const uint32_t* w, int a, int b) {
+  for (int i = a; i < b;) {
+    const int sh = i & 31;
+    const int n = 32 - sh < b - i ? 32 - sh : b - i;
+    const uint32_t m = (n == 32 ? 0xffffffffu : (1u << n) - 1u) << sh;
+    if (w[i >> 5] & m) return true;
+    i += n;
+  }
+  return false;
+}
+
+// kVec staged elements (16 bytes) as floats
+__device__ __forceinline__ void unpack16(const float* p, float* f) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+}
+__device__ __forceinline__ void unpack16(const __nv_bfloat16* p, float* f) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void unpack16(const int8_t* p, float* f) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * i + j] = static_cast<float>(static_cast<int8_t>(w[i] >> (8 * j)));
+}
+
+// 4 staged elements as floats
+__device__ __forceinline__ void unpack4(const float* p, float* f) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+}
+__device__ __forceinline__ void unpack4(const __nv_bfloat16* p, float* f) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  f[0] = __uint_as_float(v.x << 16);
+  f[1] = __uint_as_float(v.x & 0xffff0000u);
+  f[2] = __uint_as_float(v.y << 16);
+  f[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+__device__ __forceinline__ void unpack4(const int8_t* p, float* f) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = static_cast<float>(static_cast<int8_t>(v >> (8 * j)));
+}
+
+// Grid (kv head, slot, split).  ws holds, per (slot, kv head, split),
+// acc (G, D) then m (G) then l (G), float32, in G * (D + 4) floats (16-byte
+// aligned partials), m in log2 units (the softmax runs on exp2); counters
+// one int per (slot, kv head), 0 between calls.
+// T = int8_t reads scale_k / scale_v; the other types get null pointers.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 2)
+paged_attention_split_kernel(const float* __restrict__ q,
+                             const T* __restrict__ pool_k,
+                             const T* __restrict__ pool_v,
+                             const float* __restrict__ scale_k,
+                             const float* __restrict__ scale_v,
+                             const int* __restrict__ block,
+                             const uint8_t* __restrict__ valid,
+                             float* __restrict__ ws, int* __restrict__ counters,
+                             float* __restrict__ out, int kv_heads, int group,
+                             int page, int n_pages, int split_pages,
+                             float scale) {
+  using C = Cfg<T, D>;
+  constexpr int kTile = C::kTile, kLd = C::kLd, kVec = C::kVec;
+  constexpr int kCols = C::kCols;
   constexpr bool kQuant = std::is_same<T, int8_t>::value;
-  static_assert(D % 16 == 0 && D % kVec == 0, "unsupported head dim");
 
-  __shared__ __align__(16) unsigned char k_raw[kTile * D * sizeof(T)];
-  __shared__ __align__(16) unsigned char v_raw[kTile * D * sizeof(T)];
-  T* k_tile = reinterpret_cast<T*>(k_raw);
-  T* v_tile = reinterpret_cast<T*>(v_raw);
-  __shared__ uint8_t m_tile[kRows][kTile];   // query row may see key row
-  __shared__ uint8_t live[kTile];            // some query row sees it
-  __shared__ int64_t row_off[kTile];         // the key row's element offset
-  __shared__ float row_sk[kQuant ? kTile : 1];  // its page's scales (int8)
-  __shared__ float row_sv[kQuant ? kTile : 1];
-  __shared__ float acc_sum[kRows * D];
-  __shared__ float m_part[kWarps][kRows];
-  __shared__ float l_part[kWarps][kRows];
+  // [stage][K | V][key][kLd]; after the loop the merge's weights
+  __shared__ __align__(16) unsigned char kv_raw[2 * 2 * C::kStage];
+  __shared__ __align__(16) float qs[kMaxGroup * D];
+  __shared__ float ps[kMaxGroup][kTile];       // scores, then weights
+  __shared__ uint32_t live_w[kMaxSplitPos / 32];
+  __shared__ int blk_s[kMaxSplitPages];
+  __shared__ float sk_s[kQuant ? kMaxSplitPages : 1];
+  __shared__ float sv_s[kQuant ? kMaxSplitPages : 1];
+  __shared__ float m_s[kMaxGroup], l_s[kMaxGroup], corr_s[kMaxGroup];
+  __shared__ int last_s;
 
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int r0 = blockIdx.z * kRows;
+  const int kh = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int n_split = gridDim.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int e0 = lane * kEpl;
-  const int n_q = c_len * group;             // query rows of (slot, kv head)
   const int heads = kv_heads * group;
   const int s_tot = n_pages * page;
-
-  // query row r -> (chunk token c = r / group, head kh * group + r % group)
-  float qr[kRows][kEpl];
-  float acc[kRows][kEpl];
-  float m[kRows], l[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = r0 + i;
-    m[i] = kNeg;
-    l[i] = 0.f;
-    const float* qp = q;
-    if (r < n_q)
-      qp += ((static_cast<int64_t>(b) * c_len + r / group) * heads +
-             kh * group + r % group) * D;
-#pragma unroll
-    for (int e = 0; e < kEpl; ++e) {
-      qr[i][e] = (r < n_q && e0 + e < D) ? qp[e0 + e] : 0.f;
-      acc[i][e] = 0.f;
-    }
-  }
-
-  const int* blk = block + static_cast<int64_t>(b) * n_pages;
-  const uint8_t* vb = valid + static_cast<int64_t>(b) * c_len * s_tot;
+  const int p0 = sp * split_pages;
+  const int np = split_pages < n_pages - p0 ? split_pages : n_pages - p0;
+  const int n_pos = np * page;                 // this split's positions
   const int64_t row_stride = static_cast<int64_t>(kv_heads) * D;
 
-  for (int s0 = 0; s0 < s_tot; s0 += kTile) {
-    for (int i = tid; i < kRows * kTile; i += kThreads) {
-      const int qi = i / kTile, r = i % kTile;
-      const int rq = r0 + qi, s = s0 + r;
-      m_tile[qi][r] = (rq < n_q && s < s_tot)
-                          ? vb[static_cast<int64_t>(rq / group) * s_tot + s]
-                          : 0;
-    }
-    __syncthreads();
-    int any = 0;
-    if (tid < kTile) {
-      uint8_t f = 0;
-#pragma unroll
-      for (int qi = 0; qi < kRows; ++qi) f |= m_tile[qi][tid];
-      live[tid] = f;
-      any = f;
-      if (f) {
-        const int s = s0 + tid;
-        const int64_t phys = blk[s / page];
-        row_off[tid] = (phys * page + s % page) * row_stride +
-                       static_cast<int64_t>(kh) * D;
-        if constexpr (kQuant) {
-          row_sk[tid] = scale_k[phys * kv_heads + kh];
-          row_sv[tid] = scale_v[phys * kv_heads + kh];
-        }
-      }
-    }
-    if (!__syncthreads_or(any)) continue;   // no query row sees this tile
-
-    for (int i = tid; i < kTile * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow, c = i % kVecPerRow;
-      if (!live[r]) continue;
-      const int64_t off = row_off[r] + c * kVec;
-      reinterpret_cast<int4*>(k_tile)[i] =
-          *reinterpret_cast<const int4*>(pool_k + off);
-      reinterpret_cast<int4*>(v_tile)[i] =
-          *reinterpret_cast<const int4*>(pool_v + off);
-    }
-    __syncthreads();
-
-    for (int r = warp; r < kTile; r += kWarps) {
-      if (!live[r]) continue;
-      float kf[kEpl], vf[kEpl];
-#pragma unroll
-      for (int e = 0; e < kEpl; ++e) {
-        const bool in = e0 + e < D;
-        kf[e] = in ? to_float(k_tile[r * D + e0 + e]) : 0.f;
-        vf[e] = in ? to_float(v_tile[r * D + e0 + e]) : 0.f;
-        if constexpr (kQuant) {
-          kf[e] *= row_sk[r];
-          vf[e] *= row_sv[r];
-        }
-      }
-      float dot[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        dot[i] = 0.f;
-#pragma unroll
-        for (int e = 0; e < kEpl; ++e) dot[i] = fmaf(qr[i][e], kf[e], dot[i]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-          dot[i] += __shfl_xor_sync(0xffffffffu, dot[i], off);
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        if (!m_tile[i][r]) continue;         // warp-uniform: skip, never * 0
-        const float score = dot[i] * scale;
-        const float m_new = fmaxf(m[i], score);
-        const float corr = expf(m[i] - m_new);
-        const float p = expf(score - m_new);
-        m[i] = m_new;
-        l[i] = l[i] * corr + p;
-#pragma unroll
-        for (int e = 0; e < kEpl; ++e) acc[i][e] = acc[i][e] * corr + p * vf[e];
-      }
-    }
-    __syncthreads();  // the tiles are overwritten next iteration
+  // ---- up front: q (scaled into log2 units), the mask as bits, the pages
+  const float* qb = q + (static_cast<int64_t>(b) * heads + kh * group) * D;
+  for (int i = tid; i < group * D; i += kThreads)
+    qs[i] = qb[i] * (scale * kLog2e);
+  const uint8_t* vb = valid + static_cast<int64_t>(b) * s_tot + p0 * page;
+  for (int i = tid; i < (n_pos + 31) / 32 * 32; i += kThreads) {  // whole warps
+    const bool v = i < n_pos && vb[i];
+    const uint32_t bits = __ballot_sync(0xffffffffu, v);
+    if (lane == 0) live_w[i / 32] = bits;
   }
-
-  // Merge the warps' online-softmax states, in a fixed order.
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      m_part[warp][i] = m[i];
-      l_part[warp][i] = l[i];
-    }
+  if (tid < np) blk_s[tid] = block[static_cast<int64_t>(b) * n_pages + p0 + tid];
+  if (tid < kMaxGroup) {
+    m_s[tid] = kNeg;
+    l_s[tid] = 0.f;
   }
-  for (int i = tid; i < kRows * D; i += kThreads) acc_sum[i] = 0.f;
   __syncthreads();
-  float m_all[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m_all[i] = kNeg;
-    for (int w = 0; w < kWarps; ++w) m_all[i] = fmaxf(m_all[i], m_part[w][i]);
+  if constexpr (kQuant) {
+    // a page's scales only where some position of it is seen; used after
+    // the first tile's barrier
+    if (tid < np) {
+      const bool seen = any_bit(live_w, tid * page, (tid + 1) * page);
+      const int64_t si = static_cast<int64_t>(blk_s[tid]) * kv_heads + kh;
+      sk_s[tid] = seen ? scale_k[si] : 0.f;
+      sv_s[tid] = seen ? scale_v[si] : 0.f;
+    }
   }
-  for (int w = 0; w < kWarps; ++w) {
-    if (warp == w) {
+
+  // copies of tile t's rows into stage st; rows no query sees (and rows
+  // past the split) are zero-filled without a read
+  auto stage = [&](int t, int st) {
+    T* kt = reinterpret_cast<T*>(kv_raw + (2 * st) * C::kStage);
+    T* vt = reinterpret_cast<T*>(kv_raw + (2 * st + 1) * C::kStage);
+    for (int i = tid; i < kTile * C::kVecPerRow; i += kThreads) {
+      const int r = i / C::kVecPerRow, c = i % C::kVecPerRow;
+      const int s = t * kTile + r;
+      const bool live = s < n_pos && bit(live_w, s);
+      int64_t off = 0;
+      if (live)
+        off = (static_cast<int64_t>(blk_s[s / page]) * page + s % page) *
+                  row_stride + static_cast<int64_t>(kh) * D + c * kVec;
+      cp_async16(kt + r * kLd + c * kVec, pool_k + off, live ? 16 : 0);
+      cp_async16(vt + r * kLd + c * kVec, pool_v + off, live ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  float acc[C::kUnits][4];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float f = expf(m[i] - m_all[i]);
+  for (int u = 0; u < C::kUnits; ++u)
+    acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
+
+  const int nt = (n_pos + kTile - 1) / kTile;
+  stage(0, 0);
+  for (int t = 0; t < nt; ++t) {
+    const int st = t & 1;
+    if (t + 1 < nt)
+      stage(t + 1, st ^ 1);
+    else
+      cp_async_commit();                   // keep one group per tile
+    cp_async_wait1();
+    __syncthreads();
+    const int t0 = t * kTile;
+    const int tn = kTile < n_pos - t0 ? kTile : n_pos - t0;
+    if (any_bit(live_w, t0, t0 + tn)) {    // uniform over the block
+      const T* kt = reinterpret_cast<const T*>(kv_raw + (2 * st) * C::kStage);
+      const T* vt =
+          reinterpret_cast<const T*>(kv_raw + (2 * st + 1) * C::kStage);
+      // scores: one (head, key) pair per thread; a key no query sees is
+      // -1e30 by a select
+      for (int i = tid; i < group * kTile; i += kThreads) {
+        const int g = i / kTile, r = i % kTile;
+        float sc = kNeg;
+        if (r < tn && bit(live_w, t0 + r)) {
+          const float* qg = qs + g * D;
+          const T* kr = kt + r * kLd;
+          float d0 = 0.f, d1 = 0.f;
 #pragma unroll
-        for (int e = 0; e < kEpl; ++e)
-          if (e0 + e < D) acc_sum[i * D + e0 + e] += acc[i][e] * f;
+          for (int c = 0; c < C::kVecPerRow; ++c) {
+            float kf[kVec];
+            unpack16(kr + c * kVec, kf);
+#pragma unroll
+            for (int e = 0; e < kVec; e += 4) {
+              const float4 qv =
+                  *reinterpret_cast<const float4*>(qg + c * kVec + e);
+              d0 = fmaf(qv.x, kf[e], d0);
+              d1 = fmaf(qv.y, kf[e + 1], d1);
+              d0 = fmaf(qv.z, kf[e + 2], d0);
+              d1 = fmaf(qv.w, kf[e + 3], d1);
+            }
+          }
+          sc = d0 + d1;
+          if constexpr (kQuant) sc *= sk_s[(t0 + r) / page];
+        }
+        ps[g][r] = sc;
+      }
+      __syncthreads();
+      // one warp per head: the tile's max, weights (scale_v folded in for
+      // int8) and their sum, in a fixed shuffle tree
+      if (warp < group) {
+        const int g = warp;
+        float mx = kNeg;
+        for (int r = lane; r < kTile; r += 32) mx = fmaxf(mx, ps[g][r]);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_old = m_s[g];
+        const float m_new = fmaxf(m_old, mx);
+        float psum = 0.f;
+        for (int r = lane; r < kTile; r += 32) {
+          const int s = t0 + r;
+          const bool live = r < tn && bit(live_w, s);
+          const float p = live ? exp2f(ps[g][r] - m_new) : 0.f;
+          psum += p;
+          float pv = p;
+          if constexpr (kQuant) pv = live ? p * sv_s[s / page] : 0.f;
+          ps[g][r] = pv;
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          psum += __shfl_xor_sync(0xffffffffu, psum, o);
+        if (lane == 0) {
+          const float corr = exp2f(m_old - m_new);
+          corr_s[g] = corr;
+          m_s[g] = m_new;
+          l_s[g] = l_s[g] * corr + psum;
+        }
+      }
+      __syncthreads();
+      // outputs: one (head, 4 columns) unit per thread over the tile's rows
+      // (zero rows weigh 0)
+#pragma unroll
+      for (int u = 0; u < C::kUnits; ++u) {
+        const int unit = tid + u * kThreads;
+        if (unit < group * kCols) {
+          const int g = unit / kCols, d0 = (unit % kCols) * 4;
+          const float corr = corr_s[g];
+          float a0 = acc[u][0] * corr, a1 = acc[u][1] * corr;
+          float a2 = acc[u][2] * corr, a3 = acc[u][3] * corr;
+#pragma unroll 8
+          for (int r = 0; r < kTile; ++r) {
+            const float p = ps[g][r];
+            float v[4];
+            unpack4(vt + r * kLd + d0, v);
+            a0 = fmaf(p, v[0], a0);
+            a1 = fmaf(p, v[1], a1);
+            a2 = fmaf(p, v[2], a2);
+            a3 = fmaf(p, v[3], a3);
+          }
+          acc[u][0] = a0;
+          acc[u][1] = a1;
+          acc[u][2] = a2;
+          acc[u][3] = a3;
+        }
       }
     }
-    __syncthreads();
+    __syncthreads();  // the stage is overwritten two tiles on
   }
-  for (int i = tid; i < kRows * D; i += kThreads) {
-    const int qi = i / D, e = i % D;
-    const int r = r0 + qi;
-    if (r >= n_q) continue;
-    float lt = 0.f, mx = kNeg;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_part[w][qi]);
-    for (int w = 0; w < kWarps; ++w)
-      lt += l_part[w][qi] * expf(m_part[w][qi] - mx);
-    out[((static_cast<int64_t>(b) * c_len + r / group) * heads + kh * group +
-         r % group) * D + e] = acc_sum[i] / fmaxf(lt, 1e-30f);
+
+  float* ob = out + (static_cast<int64_t>(b) * heads + kh * group) * D;
+  if (n_split == 1) {
+#pragma unroll
+    for (int u = 0; u < C::kUnits; ++u) {
+      const int unit = tid + u * kThreads;
+      if (unit < group * kCols) {
+        const int g = unit / kCols, d0 = (unit % kCols) * 4;
+        const float inv = 1.f / fmaxf(l_s[g], 1e-30f);
+        *reinterpret_cast<float4*>(ob + g * D + d0) =
+            make_float4(acc[u][0] * inv, acc[u][1] * inv, acc[u][2] * inv,
+                        acc[u][3] * inv);
+      }
+    }
+    return;
   }
+
+  // ---- this split's partial, then the last block of (slot, kv head) merges
+  const int stride = group * (D + 4);
+  float* wsb = ws + (static_cast<int64_t>(b) * kv_heads + kh) * n_split *
+                        stride;
+  float* wb = wsb + sp * stride;
+#pragma unroll
+  for (int u = 0; u < C::kUnits; ++u) {
+    const int unit = tid + u * kThreads;
+    if (unit < group * kCols) {
+      const int g = unit / kCols, d0 = (unit % kCols) * 4;
+      *reinterpret_cast<float4*>(wb + g * D + d0) =
+          make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
+    }
+  }
+  if (tid < group) {
+    wb[group * D + tid] = m_s[tid];
+    wb[group * D + group + tid] = l_s[tid];
+  }
+  __threadfence();
+  __syncthreads();
+  int* counter = counters + b * kv_heads + kh;
+  if (tid == 0) last_s = atomicAdd(counter, 1) == n_split - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+
+  // weights per (split, head): one warp per head, lanes over splits, the
+  // max and the sum of l in fixed shuffle trees
+  float* w = reinterpret_cast<float*>(kv_raw);   // [split][kMaxGroup]
+  if (warp < group) {
+    const int g = warp;
+    float mx = kNeg;
+    for (int s = lane; s < n_split; s += 32)
+      mx = fmaxf(mx, __ldcg(wsb + s * stride + group * D + g));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float lt = 0.f;
+    for (int s = lane; s < n_split; s += 32) {
+      const float f = exp2f(__ldcg(wsb + s * stride + group * D + g) - mx);
+      w[s * kMaxGroup + g] = f;
+      lt += f * __ldcg(wsb + s * stride + group * D + group + g);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      lt += __shfl_xor_sync(0xffffffffu, lt, o);
+    if (lane == 0) l_s[g] = fmaxf(lt, 1e-30f);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < C::kUnits; ++u) {
+    const int unit = tid + u * kThreads;
+    if (unit < group * kCols) {
+      const int g = unit / kCols, d0 = (unit % kCols) * 4;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll 4
+      for (int s = 0; s < n_split; ++s) {       // split order
+        const float f = w[s * kMaxGroup + g];
+        const float4 v =
+            __ldcg(reinterpret_cast<const float4*>(wsb + s * stride + g * D +
+                                                   d0));
+        a0 = fmaf(f, v.x, a0);
+        a1 = fmaf(f, v.y, a1);
+        a2 = fmaf(f, v.z, a2);
+        a3 = fmaf(f, v.w, a3);
+      }
+      const float inv = 1.f / l_s[g];
+      *reinterpret_cast<float4*>(ob + g * D + d0) =
+          make_float4(a0 * inv, a1 * inv, a2 * inv, a3 * inv);
+    }
+  }
+  if (tid == 0) *counter = 0;              // ready for the next call
 }
 
 struct Args {
   const void *q, *k, *v, *sk, *sv, *block, *valid;
-  void* out;
-  int b, c, kv, group, page, n_pages;
+  void *ws, *counters, *out;
+  int b, kv, group, page, n_pages, split_pages, n_split;
   float scale;
 };
 
 template <typename T, int D>
 int launch(const Args& a, cudaStream_t st) {
-  const int tiles = (a.c * a.group + kRows - 1) / kRows;
-  paged_attention_kernel<T, D><<<dim3(a.kv, a.b, tiles), kThreads, 0, st>>>(
-      static_cast<const float*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const float*>(a.sk),
-      static_cast<const float*>(a.sv), static_cast<const int*>(a.block),
-      static_cast<const uint8_t*>(a.valid), static_cast<float*>(a.out), a.c,
-      a.kv, a.group, a.page, a.n_pages, a.scale);
+  paged_attention_split_kernel<T, D>
+      <<<dim3(a.kv, a.b, a.n_split), kThreads, 0, st>>>(
+          static_cast<const float*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), static_cast<const float*>(a.sk),
+          static_cast<const float*>(a.sv), static_cast<const int*>(a.block),
+          static_cast<const uint8_t*>(a.valid), static_cast<float*>(a.ws),
+          static_cast<int*>(a.counters), static_cast<float*>(a.out), a.kv,
+          a.group, a.page, a.n_pages, a.split_pages, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -293,24 +494,37 @@ int dispatch_d(int d, const Args& a, cudaStream_t st) {
 // float32, 1 = bfloat16, 2 = int8); scale_k/v: (P, K) float32 for int8
 // pools, null otherwise; block: (B, n_pages) int32; valid: (B, C,
 // n_pages * page) bytes; out: (B, C, H, D) float32.  All contiguous;
-// H = K * group; D in {32, 64, 80, 128, 256}.  The decode kernel is C = 1
-// (C > 1 is chunk_paged_attention_launch, chunk_paged_attention.cu).
-// Another C, an unknown dtype code, or scales that do not match the dtype,
-// is cudaErrorInvalidValue and launches nothing.  Returns cudaGetLastError()
-// after the launch.
+// H = K * group, group <= 8; D in {32, 64, 80, 128, 256}.  The keys split
+// into ceil(n_pages / split_pages) ranges of split_pages pages (at most 64
+// pages and 1,024 positions each, at most 256 ranges); with more than one,
+// ws is a float32 workspace of B * K * n_split * group * (D + 4) and
+// counters B * K ints, all 0 (the kernel leaves them 0).  The decode kernel
+// is C = 1 (C > 1 is chunk_paged_attention_launch, chunk_paged_attention.cu).
+// Another C, a bad split, an unknown dtype code, or scales that do not
+// match the dtype, is cudaErrorInvalidValue and launches nothing.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int paged_attention_launch(const void* q, const void* pool_k,
                                       const void* pool_v, const void* scale_k,
                                       const void* scale_v, const void* block,
-                                      const void* valid, void* out, int dtype,
+                                      const void* valid, void* ws,
+                                      void* counters, void* out, int dtype,
                                       int b, int c, int kv, int group, int d,
-                                      int page, int n_pages, float scale,
-                                      void* stream) {
-  if (b < 1 || c != 1 || kv < 1 || group < 1 || page < 1 || n_pages < 1)
+                                      int page, int n_pages, int split_pages,
+                                      float scale, void* stream) {
+  if (b < 1 || c != 1 || kv < 1 || group < 1 || group > kMaxGroup ||
+      page < 1 || n_pages < 1 || split_pages < 1 ||
+      split_pages > kMaxSplitPages || split_pages * page > kMaxSplitPos ||
+      b > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_split = (n_pages + split_pages - 1) / split_pages;
+  if (n_split > kMaxSplits ||
+      (n_split > 1 && (ws == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool has_scales = scale_k != nullptr && scale_v != nullptr;
   const bool no_scales = scale_k == nullptr && scale_v == nullptr;
-  const Args a{q, pool_k, pool_v, scale_k, scale_v, block, valid, out,
-               b, c, kv, group, page, n_pages, scale};
+  const Args a{q, pool_k, pool_v, scale_k, scale_v, block, valid, ws,
+               counters, out, b, kv, group, page, n_pages, split_pages,
+               n_split, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

@@ -44,11 +44,12 @@ SIGNATURES = {
     "hi_gate_launch": (_vp, _i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp),
     "decode_attention_launch": (_vp,) * 6 + (_i,) * 7 + (ctypes.c_float,
                                                          _vp),
-    "paged_attention_launch": (_vp,) * 8 + (_i,) * 8 + (ctypes.c_float, _vp),
+    "paged_attention_launch": (_vp,) * 10 + (_i,) * 9 + (ctypes.c_float,
+                                                        _vp),
     "chunk_paged_attention_launch": (_vp,) * 8 + (_i,) * 8 + (ctypes.c_float,
                                                              _vp),
     "copy_pages_launch": (_vp, _vp, _vp, _i, _i, _vp, _vp, _i, _vp),
-    "ssd_chunk_launch": (_vp,) * 9 + (_i,) * 6 + (_vp,),
+    "ssd_chunk_launch": (_vp,) * 9 + (_i,) * 7 + (_vp,),
 }
 
 

@@ -19,6 +19,11 @@ second half of this module).  ``copy_pages_pallas`` is ported in
   float32 workspace the wrapper allocates with ``torch.empty``, then a
   small kernel that merges the splits in a fixed order.
   ``decode_attention_cuda.launches`` counts its calls, one per call.
+* :func:`decode_attention_paged_cuda` — the paged decode kernel,
+  ``csrc/decode_attention_paged.cu``: each slot's keys split into ranges
+  of whole logical pages (:func:`paged_split_pages`, from the shapes
+  alone), one block each, merged in split order by the last block of each
+  (slot, kv head) to finish; one launch a call.
 * :func:`decode_attention_chunk_paged_cuda` — the chunk kernel,
   ``csrc/chunk_paged_attention.cu``, on the tensor cores, through its own
   C entry point for C > 1; the first launch of each instantiation raises
@@ -61,6 +66,34 @@ def drain_split_len(b: int, kh: int, s: int) -> int:
     units = -(-s // SPLIT_UNIT)
     n = max(1, min(units, -(-SPLIT_TARGET_BLOCKS // (b * kh)), MAX_SPLITS))
     return SPLIT_UNIT * -(-units // n)
+
+
+# the paged decode kernel's key splits: whole logical pages, at least
+# SPLIT_UNIT positions each, merged until the grid holds about two blocks
+# per SM; a split holds at most PAGED_MAX_SPLIT_PAGES pages and
+# PAGED_MAX_SPLIT_POSITIONS positions (the kernel stages its block-table
+# entries, scales and mask bits up front), at most MAX_SPLITS of them
+PAGED_MAX_SPLIT_PAGES = 64
+PAGED_MAX_SPLIT_POSITIONS = 1024
+
+
+def paged_split_pages(b: int, kh: int, n_pages: int, page: int) -> int:
+    """Pages per key split of the paged decode kernel, from the shapes alone
+    (the mask and the block table would need a copy to the host): B*K
+    blocks per split, about ``SPLIT_TARGET_BLOCKS`` in all.  At qwen2's L
+    and S decode (B*K 8, 34 pages of 16): 2 pages, 17 splits, 136 blocks;
+    at zamba2's (B*K 128, 18 pages): 6 pages, 3 splits.  Raises where a
+    slot's pages do not fit ``MAX_SPLITS`` splits of the largest size."""
+    cap = min(PAGED_MAX_SPLIT_PAGES, PAGED_MAX_SPLIT_POSITIONS // page)
+    if cap < 1 or -(-n_pages // cap) > MAX_SPLITS:
+        raise ValueError(f"decode_attention_paged: {n_pages} pages of {page} "
+                         f"exceed the kernel's {MAX_SPLITS} splits of at most"
+                         f" {PAGED_MAX_SPLIT_PAGES} pages and "
+                         f"{PAGED_MAX_SPLIT_POSITIONS} positions")
+    want = max(1, min(n_pages, -(-SPLIT_TARGET_BLOCKS // (b * kh)),
+                      MAX_SPLITS))
+    per = max(-(-n_pages // want), -(-SPLIT_UNIT // page))
+    return min(per, cap)
 
 
 def decode_attention_plain(q: torch.Tensor, cache_k: torch.Tensor,
@@ -295,6 +328,9 @@ def _paged_cuda(name: str, q: torch.Tensor, pool_k: torch.Tensor,
     # K/V rows are staged with 16-byte loads
     if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
         raise ValueError(f"{name}: pools must start on a 16-byte boundary")
+    if c == 1 and g > MAX_GROUP:
+        raise ValueError(f"{name}: group {g} not supported by the decode "
+                         f"kernel (need <= {MAX_GROUP})")
     q32 = q.float().contiguous()
     blk = block.to(torch.int32).contiguous()
     out = torch.empty((b, c, h, d), dtype=torch.float32, device=dev)
@@ -302,15 +338,45 @@ def _paged_cuda(name: str, q: torch.Tensor, pool_k: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     # null scale pointers for float32 / bf16 pools
     sk, sv = (t.data_ptr() for t in scales) if scales else (None, None)
-    launch = (lib.chunk_paged_attention_launch if c > 1
-              else lib.paged_attention_launch)
-    err = launch(
-        q32.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), sk, sv,
-        blk.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        _PAGED_DTYPES[pool_k.dtype], b, c, kh, g, d, page, npg,
-        1.0 / math.sqrt(d), stream)
+    common = (q32.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), sk, sv,
+              blk.data_ptr(), valid.data_ptr())
+    if c > 1:
+        err = lib.chunk_paged_attention_launch(
+            *common, out.data_ptr(), _PAGED_DTYPES[pool_k.dtype], b, c, kh,
+            g, d, page, npg, 1.0 / math.sqrt(d), stream)
+    else:
+        split = paged_split_pages(b, kh, npg, page)
+        n_split = -(-npg // split)
+        ws_ptr = counters_ptr = None
+        if n_split > 1:
+            # each split's (acc (G, D), m (G), l (G)) in G * (D + 4) floats;
+            # held until the launch, so the counters cannot take its memory
+            ws = torch.empty((b * kh * n_split * g * (d + 4),),
+                             dtype=torch.float32, device=dev)
+            ws_ptr = ws.data_ptr()
+            counters_ptr = _merge_counters(dev, stream, b * kh).data_ptr()
+        err = lib.paged_attention_launch(
+            *common, ws_ptr, counters_ptr, out.data_ptr(),
+            _PAGED_DTYPES[pool_k.dtype], b, c, kh, g, d, page, npg, split,
+            1.0 / math.sqrt(d), stream)
     build.check(err, name)
     return out.to(q.dtype)
+
+
+# the paged decode kernel's merge counters, one int per (slot, kv head),
+# per device and stream: the last block of each (slot, kv head) resets its
+# own, so they stay 0 between calls and are allocated (zeroed) only when a
+# call needs more of them
+_COUNTERS: dict = {}
+
+
+def _merge_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    t = _COUNTERS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros((max(n, 256),), dtype=torch.int32, device=dev)
+        _COUNTERS[key] = t
+    return t
 
 
 def _count(fn, pool: torch.Tensor) -> None:

@@ -17,8 +17,11 @@ The inter-chunk recurrence that consumes S and g stays in plain torch
   arithmetic: the (Q, Q) decay keeps i >= j by ``where`` (a select, never a
   multiply by a mask), so the ``exp`` of a positive difference above the
   diagonal, which may overflow, is never used.
-* :func:`ssd_chunk_cuda` — launches ``csrc/ssd_scan.cu``.
-  ``ssd_chunk_cuda.launches`` counts its launches.
+* :func:`ssd_chunk_cuda` — launches ``csrc/ssd_scan.cu``, the three
+  products on the tensor cores in three TF32 passes each, one block per
+  (group of heads, chunk, batch row) with :func:`ssd_heads_per_block` heads
+  sharing the block's C.B^T.  ``ssd_chunk_cuda.launches`` counts its
+  launches.
 """
 from __future__ import annotations
 
@@ -28,11 +31,28 @@ import torch
 
 from repro_torch.kernels import build
 
-MAX_CHUNK = 128          # the kernel keeps a (Q, Q) tile in shared memory
+MAX_CHUNK = 128          # the kernel keeps C.B^T (Q, Q) in shared memory
 MAX_HEAD_DIM = 128
 MAX_STATE = 128
+# one block per SM of an H100 (132 SMs), at most MAX_HEADS_PER_BLOCK heads
+# a block (the kernel keeps their a_cs in shared memory)
+TARGET_BLOCKS = 132
+MAX_HEADS_PER_BLOCK = 8
 
-Out = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+def ssd_heads_per_block(b: int, nc: int, h: int) -> int:
+    """Heads per block of the kernel, from the shapes alone: the fewest
+    that keep the grid within ``TARGET_BLOCKS`` blocks, so that each block's
+    C.B^T (and its copy of B) serves as many heads as the card's width
+    allows, at most ``MAX_HEADS_PER_BLOCK``.  mamba2-370m's L admission
+    (b 4, nc 4, H 32): 4 (128 blocks); its S tier (8, 4, 8): 2 (128);
+    zamba2-2.7b's L (4, 2, 80): 5 (128)."""
+    rows = b * nc
+    top = min(h, MAX_HEADS_PER_BLOCK)
+    for hb in range(1, top + 1):
+        if rows * -(-h // hb) <= TARGET_BLOCKS:
+            return hb
+    return top
 
 
 def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -96,7 +116,8 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     err = lib.ssd_chunk_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), y.data_ptr(), S.data_ptr(), g.data_ptr(),
-        eacs.data_ptr(), b, nc, q, h, p, n, stream)
+        eacs.data_ptr(), b, nc, q, h, p, n, ssd_heads_per_block(b, nc, h),
+        stream)
     build.check(err, "ssd_chunk")
     ssd_chunk_cuda.launches += 1
     return y, S, g, eacs

@@ -495,10 +495,14 @@ def test_paged_launch_refuses_unknown_dtype_codes(gen):
     vb = valid.contiguous()
 
     def launch(code, sk, sv, c=1, entry=lib.paged_attention_launch):
-        return entry(
-            q.data_ptr(), pk.data_ptr(), pv.data_ptr(), sk, sv,
-            block.data_ptr(), vb.data_ptr(), out.data_ptr(), code, 2, c, 2, 2,
-            64, 8, 4, 0.125, stream)
+        head = (q.data_ptr(), pk.data_ptr(), pv.data_ptr(), sk, sv,
+                block.data_ptr(), vb.data_ptr())
+        if entry is lib.paged_attention_launch:
+            # one split of the 4 pages: no workspace, no counters
+            return entry(*head, None, None, out.data_ptr(), code, 2, c, 2, 2,
+                         64, 8, 4, 4, 0.125, stream)
+        return entry(*head, out.data_ptr(), code, 2, c, 2, 2, 64, 8, 4,
+                     0.125, stream)
 
     s = (clean[0].data_ptr(), clean[1].data_ptr())
     chunk = {"c": 2, "entry": lib.chunk_paged_attention_launch}
@@ -513,6 +517,114 @@ def test_paged_launch_refuses_unknown_dtype_codes(gen):
                   entry=lib.chunk_paged_attention_launch) == 1
     torch.cuda.synchronize()
     assert (out == 0).all()
+
+
+@pytest.mark.parametrize("page", [4, 8, 16])
+@pytest.mark.parametrize("d", [80, 128])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_paged_decode_split_kernel_matches_plain(gen, page, d, dtype):
+    """The split decode kernel at qwen2's L decode widths (B 4, H 12, K 2,
+    544 positions: 17 splits of whole pages at pages of 4, 8 and 16), with
+    NaN / inf in page 0 and every row no query sees (int8: -128 bytes there
+    and NaN / inf scales on every page no query reaches); the last slot
+    sees nothing and returns exactly 0."""
+    b, h, k, npg = 4, 12, 2, 544 // page
+    assert -(-npg // da.paged_split_pages(b, k, npg, page)) > 1
+    if dtype == "int8":
+        q, (pk, pv), scales, clean, block, valid = _int8_inputs(
+            gen, b, h, k, d, page, npg, 1)
+        ck, cv = pk, pv
+        counter = "launches_int8"
+    else:
+        q, pk, pv, block, valid, ck, cv = _paged_inputs(
+            gen, b, h, k, d, page, npg, 1, torch.bfloat16)
+        scales = clean = ()
+        counter = "launches"
+    before = getattr(da.decode_attention_paged_cuda, counter)
+    out = ops.decode_attention_paged(q, pk, pv, block, valid[:, 0], *scales)
+    torch.cuda.synchronize()
+    assert getattr(da.decode_attention_paged_cuda, counter) == before + 1
+    assert torch.isfinite(out).all()
+    ref = da.decode_attention_paged_plain(q, ck, cv, block, valid[:, 0],
+                                          *clean)
+    torch.testing.assert_close(out, ref, atol=ATT_ATOL, rtol=0)
+    assert (out[-1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_paged_decode_split_kernel_with_one_split_seen(gen, dtype):
+    """Slot 0 sees keys of one split only (a window inside its fifth split):
+    every other split of it writes m = -1e30, l = 0, acc = 0 and the merge
+    keeps the one it sees; slot 1 sees a prefix; slot 2 sees nothing and
+    returns exactly 0.  NaN / inf (int8: -128 bytes, and NaN / inf scales
+    on pages no query reaches) in page 0 and every row no query sees."""
+    b, h, k, d, page, npg = 3, 12, 2, 128, 16, 34
+    split = da.paged_split_pages(b, k, npg, page)
+    lo = 4 * split * page
+    s_tot = npg * page
+    valid = torch.zeros((b, s_tot), dtype=torch.bool, device="cuda")
+    valid[0, lo + 3:lo + split * page - 5] = True
+    valid[1, :lo // 2] = True
+    p = b * npg + 1
+    block = (torch.randperm(p - 1, generator=gen, device="cuda")[: b * npg]
+             + 1).to(torch.int32).reshape(b, npg)
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda")
+    kpos = torch.arange(s_tot, device="cuda")
+    rows = (block.long()[:, kpos // page] * page + kpos % page)[~valid]
+    if dtype == "int8":
+        clean = [torch.randint(-127, 128, (p, page, k, d), generator=gen,
+                               device="cuda").to(torch.int8)
+                 for _ in range(2)]
+        scales = [torch.rand((p, k), generator=gen, device="cuda") * 0.05
+                  for _ in range(2)]
+        dirty = [t.clone() for t in clean]
+        for t in dirty:
+            t.view(-1, k, d)[rows] = -128
+            t[0] = -128
+        reached = valid.reshape(b, npg, page).any(dim=2)
+        hidden = torch.ones(p, dtype=torch.bool, device="cuda")
+        hidden[block[reached].long()] = False
+        dirty_scales = [t.clone() for t in scales]
+        dirty_scales[0][hidden] = float("nan")
+        dirty_scales[1][hidden] = float("inf")
+    else:
+        clean = [torch.randn((p, page, k, d), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+                 for _ in range(2)]
+        dirty = [t.clone() for t in clean]
+        for t, x in zip(dirty, (float("nan"), float("inf"))):
+            t.view(-1, k, d)[rows] = x
+            t[0] = float("nan")
+        scales = dirty_scales = []
+    out = da.decode_attention_paged_cuda(q, *dirty, block, valid,
+                                         *dirty_scales)
+    ref = da.decode_attention_paged_plain(q, *clean, block, valid, *scales)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and (out[2] == 0).all()
+    torch.testing.assert_close(out, ref, atol=ATT_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("b,h,k,d,npg", [(4, 12, 2, 128, 34),
+                                         (4, 32, 32, 80, 18)])
+def test_paged_decode_split_kernel_gives_the_same_bits_twice(gen, dtype, b,
+                                                              h, k, d, npg):
+    """The splits merge in a fixed order, whichever block finishes last:
+    two calls on the same inputs give the same bits (qwen2's L shape, 17
+    splits; zamba2's, 3)."""
+    if dtype == "int8":
+        q, (pk, pv), scales, _, block, valid = _int8_inputs(
+            gen, b, h, k, d, 16, npg, 1)
+    else:
+        q, pk, pv, block, valid, _, _ = _paged_inputs(
+            gen, b, h, k, d, 16, npg, 1, torch.bfloat16)
+        scales = ()
+    one = da.decode_attention_paged_cuda(q, pk, pv, block, valid[:, 0],
+                                         *scales)
+    two = da.decode_attention_paged_cuda(q, pk, pv, block, valid[:, 0],
+                                         *scales)
+    torch.cuda.synchronize()
+    assert torch.equal(one.view(torch.int32), two.view(torch.int32))
 
 
 def _bits(t):
@@ -781,6 +893,10 @@ def _ssd_inputs(gen, b, nc, q, h, p, n, live=None):
     (4, 4, 128, 32, 64, 128),            # mamba2-370m L admission
     (8, 4, 128, 8, 64, 128),             # mamba2-370m S admission
     (2, 2, 128, 80, 64, 64),             # zamba2-2.7b L
+    (2, 2, 64, 4, 16, 32),               # Q 64, small P and N
+    (1, 2, 64, 3, 8, 8),
+    (2, 1, 8, 2, 8, 8),                  # Q and P below one 16-row tile
+    (1, 3, 24, 5, 24, 24),               # Q and P padded to 32
 ])
 def test_ssd_chunk_kernel_matches_plain(gen, b, nc, q, h, p, n):
     args = _ssd_inputs(gen, b, nc, q, h, p, n)
@@ -806,6 +922,17 @@ def test_ssd_chunk_kernel_padded_tail_is_exact(gen):
     assert torch.equal(S2, S) and torch.equal(g2, g)
     assert torch.equal(g, eacs[:, :, 76])
     assert bool(torch.isfinite(y).all())
+
+
+@pytest.mark.parametrize("b,nc,q,h,p,n", [(4, 4, 128, 32, 64, 128),
+                                          (4, 2, 128, 80, 64, 64)])
+def test_ssd_chunk_kernel_gives_the_same_bits_twice(gen, b, nc, q, h, p, n):
+    args = _ssd_inputs(gen, b, nc, q, h, p, n)
+    one = ssd_scan.ssd_chunk_cuda(*args)
+    two = ssd_scan.ssd_chunk_cuda(*args)
+    torch.cuda.synchronize()
+    for u, v in zip(one, two):
+        assert torch.equal(u.view(torch.int32), v.view(torch.int32))
 
 
 def test_ssd_through_ops_matches_plain_on_the_card(gen):

@@ -1,8 +1,8 @@
-"""The arithmetic of the two attention kernels' designs, on the CPU.
+"""The arithmetic of the kernels' designs, on the CPU.
 
 The CUDA kernels run only on the card (tests/test_torch_cuda.py holds them
-against their plain versions there).  These tests hold the two algorithms
-they implement, written out in torch, against the reference and the plain
+against their plain versions there).  These tests hold the algorithms they
+implement, written out in torch, against the reference and the plain
 versions here:
 
 * the drain kernel (``csrc/decode_attention.cu``) splits the cache
@@ -11,7 +11,15 @@ versions here:
 * the chunk kernel (``csrc/chunk_paged_attention.cu``) runs Q.K^T and P.V
   on bf16 tensor cores with float32 accumulators, splitting each float32
   operand into bf16 terms: hi = bf16(x), mid = bf16(x - hi) and
-  lo = bf16(x - hi - mid).
+  lo = bf16(x - hi - mid);
+* the paged decode kernel (``csrc/decode_attention_paged.cu``) splits each
+  slot's keys into ranges of whole logical pages, zero rows (and zero
+  scales) where no query looks, and merges the ranges in split order;
+* the SSD kernel (``csrc/ssd_scan.cu``) runs C.B^T, W (dt x) and
+  (w_end dt x)^T B on TF32 tensor cores, each float32 operand split into
+  hi (x with its low 13 mantissa bits cleared) and lo = x - hi (of which
+  the tensor core reads the top 19 bits), three passes (lo.hi, hi.lo,
+  hi.hi).
 """
 import math
 
@@ -20,8 +28,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels.decode_attention import decode_attention_pallas
+from repro.kernels.ssd_scan import ssd_chunk_pallas
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import ssd_scan
 
 NEG = -1e30
 # the kernels' tolerance against their plain versions on the card
@@ -306,3 +317,286 @@ def test_split_operands_give_zero_for_a_row_that_sees_nothing():
     assert (got[1] == 0).all() and (got[0, 2] == 0).all()
     want = da.decode_attention_chunk_paged_plain(q, pk, pv, block, valid)
     assert (got - want).abs().max().item() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# (c) the paged decode kernel: page-aligned splits, merged in order
+# ---------------------------------------------------------------------------
+
+def paged_split_merge(q, pool_k, pool_v, block, valid, split_pages,
+                      scale_k=None, scale_v=None):
+    """The paged decode kernel's algorithm: each range of ``split_pages``
+    logical pages gathers its rows through the block table, zero where no
+    query looks (the kernel's zero-filled copies) with scale 0 on pages no
+    query reaches, scores them (int8: the dot with the levels times
+    scale_k), and gives a partial (m, l, acc) with the weights folded with
+    scale_v; the partials merge in split order.  q (B, 1, H, D) float32;
+    valid (B, n_pages * page) bool."""
+    b, _, h, d = q.shape
+    page, kh = pool_k.shape[1], pool_k.shape[2]
+    npg = block.shape[1]
+    qg = q.reshape(b, kh, h // kh, d).float() / math.sqrt(d)
+    parts = []
+    for p0 in range(0, npg, split_pages):
+        pages = block[:, p0:p0 + split_pages].long()          # (B, np)
+        vm = valid[:, p0 * page:(p0 + pages.shape[1]) * page]  # (B, S)
+        rows = vm[..., None, None]
+        kk = torch.where(rows, pool_k[pages].float().reshape(b, -1, kh, d),
+                         0.0)
+        vv = torch.where(rows, pool_v[pages].float().reshape(b, -1, kh, d),
+                         0.0)
+        sc = torch.einsum("bkgd,bskd->bkgs", qg, kk)
+        sv = torch.ones_like(sc)
+        if scale_k is not None:
+            seen = vm.reshape(b, -1, page).any(dim=2)[..., None]  # (B, np, 1)
+
+            def per_key(scale):
+                s_ = torch.where(seen, scale[pages], 0.0)         # (B, np, K)
+                return s_.repeat_interleave(page, dim=1) \
+                    .permute(0, 2, 1)[:, :, None, :]               # (B,K,1,S)
+
+            sc = sc * per_key(scale_k)
+            sv = per_key(scale_v).expand_as(sc)
+        m_ = vm[:, None, None]
+        sc = torch.where(m_, sc, NEG)
+        m = sc.amax(dim=-1)
+        p = torch.where(m_, torch.exp(sc - m[..., None]), 0.0)
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("bkgs,bskd->bkgd", p * sv, vv)))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l_all = torch.zeros_like(m_all)
+    acc = torch.zeros_like(parts[0][2])
+    for m, l, a in parts:                          # split order
+        f = torch.exp(m - m_all)
+        l_all = l_all + f * l
+        acc = acc + f[..., None] * a
+    return (acc / torch.clamp(l_all, min=1e-30)[..., None]).reshape(b, 1, h,
+                                                                    d)
+
+
+def _paged_decode_case(seed, b, h, k, d, page, npg, quant, only_split=None):
+    """Shuffled pages; the last slot sees no key, slot 0 only the first of
+    its splits when ``only_split`` (pages per split) is given, the others a
+    prefix of random length.  Returns the clean numpy inputs and torch
+    copies with NaN / inf (int8: -128 bytes and NaN / inf scales) wherever
+    no query looks."""
+    rng = np.random.default_rng(seed)
+    p = b * npg + 1
+    block = rng.permutation(np.arange(1, p))[: b * npg].astype(np.int32) \
+        .reshape(b, npg)
+    s_tot = npg * page
+    pos = rng.integers(0, s_tot, b)
+    if only_split is not None:
+        pos[0] = min(only_split * page, s_tot) - 1
+    valid = np.arange(s_tot)[None, :] <= pos[:, None]
+    valid[-1] = False
+    q = rng.normal(size=(b, 1, h, d)).astype(np.float32)
+    if quant:
+        pools = [rng.integers(-128, 128, (p, page, k, d)).astype(np.int8)
+                 for _ in range(2)]
+        scales = [(rng.random((p, k)) * 0.05).astype(np.float32)
+                  for _ in range(2)]
+    else:
+        pools = [rng.normal(size=(p, page, k, d)).astype(np.float32)
+                 for _ in range(2)]
+        scales = []
+    dirty = [torch.from_numpy(t.copy()) for t in pools]
+    bi, s = np.nonzero(~valid)
+    for t, x in zip(dirty, (float("nan"), float("inf"))):
+        t[block[bi, s // page], s % page] = -128 if quant else x
+    dirty_scales = [torch.from_numpy(t.copy()) for t in scales]
+    if quant:
+        reached = valid.reshape(b, npg, page).any(axis=2)
+        hidden = np.ones(p, bool)
+        hidden[block[reached]] = False
+        dirty_scales[0][hidden] = float("nan")
+        dirty_scales[1][hidden] = float("inf")
+    return q, pools, scales, block, valid, dirty, dirty_scales
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("page,npg,split,only", [
+    (16, 6, None, None),   # the host's own split
+    (8, 9, 2, 2),          # slot 0 sees only its first split
+    (4, 12, 3, None),
+])
+def test_paged_split_merge_matches_the_reference(quant, page, npg, split,
+                                                 only):
+    """Page-aligned splits merged in split order against the reference's
+    ``decode_attention_paged`` (Pallas, interpret mode) on the clean
+    inputs, within the kernel's 1e-4; the garbage where no query looks
+    never reaches the model's result, and the slot that sees nothing
+    returns exactly 0."""
+    b, h, k, d = 3, 6, 2, 32
+    split = split or da.paged_split_pages(b, k, npg, page)
+    q, pools, scales, block, valid, dirty, dirty_scales = _paged_decode_case(
+        7, b, h, k, d, page, npg, quant, only and split)
+    ref = np.asarray(jops.decode_attention_paged(
+        jnp.asarray(q), *map(jnp.asarray, pools), jnp.asarray(block),
+        jnp.asarray(valid), *map(jnp.asarray, scales)))
+    got = paged_split_merge(torch.from_numpy(q), *dirty,
+                            torch.from_numpy(block), torch.from_numpy(valid),
+                            split, *dirty_scales)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=ATT_ATOL)
+    assert (got[-1] == 0).all()                    # sees no key: exactly 0
+
+
+def test_paged_split_pages_come_from_shapes_and_fill_the_card():
+    """Whole pages of at least 32 positions per split, about two blocks per
+    SM: qwen2's L and S decode (B*K 8, 34 pages of 16) 17 splits of 2
+    pages, 136 blocks; zamba2's (B*K 128, 18 pages) 3 splits; never more
+    than 256 splits, nor a split past the kernel's staging limits."""
+    assert da.paged_split_pages(4, 2, 34, 16) == 2
+    assert da.paged_split_pages(8, 1, 34, 16) == 2
+    assert da.paged_split_pages(4, 32, 18, 16) == 6
+    for b, k, npg, page in [(4, 2, 34, 16), (4, 2, 136, 4), (2, 2, 9, 4),
+                            (1, 1, 5000, 16), (64, 8, 256, 16), (3, 1, 1, 8),
+                            (1, 1, 4096, 4)]:
+        split = da.paged_split_pages(b, k, npg, page)
+        n = -(-npg // split)
+        assert 1 <= n <= da.MAX_SPLITS
+        assert split <= da.PAGED_MAX_SPLIT_PAGES
+        assert split * page <= da.PAGED_MAX_SPLIT_POSITIONS
+        assert split * page >= min(da.SPLIT_UNIT, npg * page) or n == 1
+        cap = min(da.PAGED_MAX_SPLIT_PAGES,
+                  da.PAGED_MAX_SPLIT_POSITIONS // page)
+        assert b * k * n < b * k + da.SPLIT_TARGET_BLOCKS or split == cap
+    with pytest.raises(ValueError, match="splits"):
+        da.paged_split_pages(1, 1, 64 * 256 + 1, 16)
+
+
+# ---------------------------------------------------------------------------
+# (d) the SSD kernel: three TF32 passes per float32 product
+# ---------------------------------------------------------------------------
+
+SSD_ATOL, SSD_RTOL = 1e-4, 1e-4
+
+
+def _tf32(x):
+    """float32 truncated to TF32's 10 mantissa bits: the kernel's hi, and
+    what the tensor core reads of any float32 operand."""
+    bits = x.contiguous().view(torch.int32)
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def mm_tf32(a, b, passes=3):
+    """a @ b as the kernel's MMAs: TF32 operands, float32 accumulation; with
+    3 passes each operand is hi = tf32(x) and lo = x - hi (read as
+    tf32(lo)), summed as lo.hi + hi.lo + hi.hi."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def ssd_tensor_core(x, dt, A, B, C, passes=3):
+    """The SSD kernel's arithmetic in torch float32: a_cs a sequential sum,
+    C.B^T on the tensor cores, W = C.B^T exp(a_cs[i] - a_cs[j]) for j <= i
+    only (the exp's argument selected, then its result), y_diag = W (dt x)
+    and S = (w_end dt x)^T B on the tensor cores."""
+    q = x.shape[2]
+    a_cs = torch.cumsum(dt * A, dim=2)                          # (b,nc,Q,H)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool))[None, None, None]
+    ah = a_cs.permute(0, 1, 3, 2)                               # (b,nc,H,Q)
+    diff = torch.where(tri, ah[..., :, None] - ah[..., None, :], 0.0)
+    cb = mm_tf32(C, B.transpose(-1, -2), passes)[:, :, None]     # (b,nc,1,Q,Q)
+    w = torch.where(tri, cb * torch.exp(diff), 0.0)
+    dx = (dt[..., None] * x).permute(0, 1, 3, 2, 4)             # (b,nc,H,Q,P)
+    y = mm_tf32(w, dx, passes).permute(0, 1, 3, 2, 4)
+    wdt = torch.exp(ah[..., -1:] - ah) * dt.permute(0, 1, 3, 2)  # (b,nc,H,Q)
+    xs = wdt[..., None] * x.permute(0, 1, 3, 2, 4)
+    S = mm_tf32(xs.transpose(-1, -2), B[:, :, None], passes)
+    return y, S, torch.exp(a_cs[:, :, -1]), torch.exp(a_cs)
+
+
+def _ssd64(x, dt, A, B, C):
+    """The four outputs in float64 (the reference's einsums)."""
+    x, dt, A, B, C = (t.double() for t in (x, dt, A, B, C))
+    q = x.shape[2]
+    a_cs = torch.cumsum(dt * A, dim=2)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool))[None, None, :, :,
+                                                           None]
+    diff = a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :]
+    decay = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
+    cb = torch.einsum("bcin,bcjn->bcij", C, B)
+    dx = x * dt[..., None]
+    y = torch.einsum("bcij,bcijh,bcjhp->bcihp", cb, decay, dx)
+    to_end = torch.exp(a_cs[:, :, -1:, :] - a_cs)
+    S = torch.einsum("bcjh,bcjhp,bcjn->bchpn", to_end, dx, B)
+    return y, S, torch.exp(a_cs[:, :, -1]), torch.exp(a_cs)
+
+
+def _worst(got, want):
+    """max |got - want| / (atol + rtol |want|) over the four outputs."""
+    return max(((g.double() - w.double()).abs()
+                / (SSD_ATOL + SSD_RTOL * w.double().abs())).max().item()
+               for g, w in zip(got, want))
+
+
+def test_ssd_tensor_core_split_meets_the_tolerance():
+    """Three TF32 passes at the real Q 128, P 64, N 128 (b and nc cut to 1
+    and 2, four heads), against float64 and against ``ssd_chunk_pallas``
+    in interpret mode, all four outputs within 1e-4 + 1e-4 |ref|; one TF32
+    pass misses it.  The worst error, as a share of the tolerance, is
+    printed."""
+    rng = np.random.default_rng(11)
+    b, nc, q, h, p, n = 1, 2, 128, 4, 64, 128
+    x = rng.normal(size=(b, nc, q, h, p)).astype(np.float32)
+    dt = (rng.random((b, nc, q, h)) * 0.5).astype(np.float32)
+    A = (-rng.random(h) - 0.2).astype(np.float32)
+    B = rng.normal(size=(b, nc, q, n)).astype(np.float32)
+    C = rng.normal(size=(b, nc, q, n)).astype(np.float32)
+    args = tuple(map(torch.from_numpy, (x, dt, A, B, C)))
+    got = ssd_tensor_core(*args)
+    want64 = _ssd64(*args)
+    pallas = tuple(torch.from_numpy(np.array(t)) for t in ssd_chunk_pallas(
+        *map(jnp.asarray, (x, dt, A, B, C)), interpret=True))
+    vs64, vs_pallas = _worst(got, want64), _worst(got, pallas)
+    one_pass = _worst(ssd_tensor_core(*args, passes=1), want64)
+    print(f"3xTF32 worst error / tolerance: {vs64:.2e} against float64, "
+          f"{vs_pallas:.2e} against ssd_chunk_pallas; one TF32 pass "
+          f"{one_pass:.2e}")
+    assert all(torch.isfinite(t).all() for t in got)
+    assert vs64 <= 1.0 and vs_pallas <= 1.0
+    assert one_pass > 1.0
+    # the plain version, the card's yardstick, agrees with the model too
+    assert _worst(got, ssd_scan.ssd_chunk_ref(*args)) <= 1.0
+
+
+def test_ssd_tensor_core_padded_tail_is_exact():
+    """dt = 0 past a row's length: under the three-pass model, as in the
+    kernel, S and g do not move whatever x holds there (a zero operand adds
+    exact zeros), and g is exp(a_cs) at the length bit for bit."""
+    rng = np.random.default_rng(12)
+    b, nc, q, h, p, n, live = 1, 1, 64, 2, 16, 32, 40
+    x = torch.from_numpy(rng.normal(size=(b, nc, q, h, p)).astype(np.float32))
+    dt = torch.from_numpy((rng.random((b, nc, q, h)) * 0.5).astype(np.float32))
+    dt[:, :, live:] = 0.0
+    A = torch.from_numpy((-rng.random(h) - 0.2).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(b, nc, q, n)).astype(np.float32))
+    C = torch.from_numpy(rng.normal(size=(b, nc, q, n)).astype(np.float32))
+    _, S, g, eacs = ssd_tensor_core(x, dt, A, B, C)
+    x2 = x.clone()
+    x2[:, :, live:] = 1e4
+    _, S2, g2, _ = ssd_tensor_core(x2, dt, A, B, C)
+    assert torch.equal(S2, S) and torch.equal(g2, g)
+    assert torch.equal(g, eacs[:, :, live - 1])
+
+
+def test_ssd_heads_per_block_come_from_shapes():
+    """One block per SM: mamba2-370m's L admission 4 heads a block (128
+    blocks), its S tier 2 (128), zamba2-2.7b's L 5 (128); never more blocks
+    than the target unless a block holds the most heads it may."""
+    assert ssd_scan.ssd_heads_per_block(4, 4, 32) == 4
+    assert ssd_scan.ssd_heads_per_block(8, 4, 8) == 2
+    assert ssd_scan.ssd_heads_per_block(4, 2, 80) == 5
+    top = ssd_scan.MAX_HEADS_PER_BLOCK
+    for b, nc, h in [(1, 1, 3), (2, 3, 24), (100, 10, 4), (1, 1, 1),
+                     (64, 4, 64)]:
+        hb = ssd_scan.ssd_heads_per_block(b, nc, h)
+        blocks = b * nc * -(-h // hb)
+        assert 1 <= hb <= min(h, top)
+        assert blocks <= ssd_scan.TARGET_BLOCKS or hb == min(h, top)
+        assert hb == 1 or b * nc * -(-h // (hb - 1)) > ssd_scan.TARGET_BLOCKS
