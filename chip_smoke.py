@@ -15,9 +15,14 @@ Phases (any failure exits non-zero before the last line):
    merge launches summed; a profiled window that lost a record is profiled
    again) beside its bound, its plain version and, where one exists, one
    PyTorch call that computes the same function.  The paged decode kernel
-   (its keys split across blocks, one launch a call) and ssd_chunk are also
+   (its keys split across blocks, one launch a call), ssd_chunk and hi_gate
+   (each row split across blocks, merged in the same launch) are also
    timed by CUDA events around one replay of a CUDA graph of 100 calls,
-   with no host submission in the window.  The chunk kernel's bound is that of its path, three bf16
+   with no host submission in the window.  hi_gate is timed at every shape
+   the path gives it (``GATE_SHAPES``), with ``torch.softmax(x, -1).max(-1)``
+   beside it (two calls: no single call computes the gate), and checked
+   with a max duplicated across splits and one in the last split;
+   copy_pages also reports the wrapper's host time per call.  The chunk kernel's bound is that of its path, three bf16
    tensor-core passes per float32 product, and ssd_chunk's three TF32
    passes, each with the float32-FMA bound beside it.  ssd_chunk at
    mamba2-370m's L and S admission shapes and zamba2-2.7b's L shape, with
@@ -272,6 +277,22 @@ def graph_ms(fn, args_list, calls=100):
     return start.elapsed_time(end) / calls
 
 
+def host_ms(fn, args_list, iters=200):
+    """The host's time per call, in ms: ``time.perf_counter`` around
+    ``iters`` calls with no synchronisation inside the window (what the
+    wrapper costs the thread that submits, not the card's time)."""
+    import torch
+    for i in range(5):
+        fn(*args_list[i % len(args_list)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*args_list[i % len(args_list)])
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e3
+
+
 def copies(make, nbytes):
     """Enough independent input sets to exceed the L2 cache twice over."""
     return [make() for _ in range(max(2, math.ceil(2 * L2_BYTES / nbytes)))]
@@ -286,16 +307,37 @@ def bound(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# hi_gate's timed shapes: (label, N, C); the first is the main row
+GATE_SHAPES = (("S tier qwen2-1.5b", 8, 151_936),
+               ("L tier qwen2-1.5b", 4, 151_936),
+               ("chunk lane qwen2-1.5b", 2, 151_936),
+               ("S tier mamba2-370m", 8, 50_280),
+               ("S tier zamba2-2.7b", 8, 32_000))
+
+
+def gate_times(gate, gen, n, c):
+    """``gate`` on fresh (n, c) float32 logits: CUDA events over 200 calls,
+    the profiler's device time and a CUDA-graph replay, in ms; and the
+    input sets, for more timings on the same inputs."""
+    import torch
+    sets = copies(lambda: (torch.randn((n, c), generator=gen,
+                                       device="cuda"),), n * c * 4)
+    return sets, {"ms": timed(gate, sets, 200),
+                  "device_ms": device_ms(gate, sets, r"hi_gate"),
+                  "graph_ms": graph_ms(gate, sets)}
+
+
 def check_hi_gate(gen):
     import torch
     from repro_torch.kernels import hi_gate as hg
-    c = 151_936                       # qwen2 vocabulary, float32 logits
     worst, rows = 0.0, []
-    for n in (8, 4):
+    for _, n, c in GATE_SHAPES:
         for metric in ("max_prob", "margin", "entropy"):
             for dtype in (torch.float32, torch.bfloat16):
                 x = (torch.randn((n, c), generator=gen, device="cuda") * 3)
-                x[0, 7] = x[0, 4000] = x[0].max() + 2.0   # duplicated max
+                # a max duplicated across splits, and one in the last split
+                x[0, 7] = x[0, c // 2] = x[0].max() + 2.0
+                x[n - 1, c - 1] = x[n - 1].max() + 1.0
                 x = x.to(dtype)
                 conf_p, pred_p, _ = hg.hi_gate_plain(x, 0.0, metric)
                 # a row exactly at theta
@@ -306,39 +348,50 @@ def check_hi_gate(gen):
                 if not bool((err <= CONF_ATOL + CONF_RTOL * conf_p.abs()).all()):
                     raise AssertionError(f"hi_gate {metric} n={n} {dtype}: "
                                          f"max err {err.max().item():.3e}")
-                if not torch.equal(pred_k, pred_p) or int(pred_k[0]) != 7:
+                if (not torch.equal(pred_k, pred_p) or int(pred_k[0]) != 7
+                        or int(pred_k[n - 1]) != c - 1):
                     raise AssertionError(f"hi_gate {metric}: argmax differs")
                 if metric == "margin" and float(conf_k[0]) != 0.0:
                     raise AssertionError("hi_gate margin: duplicated max != 0")
                 if not torch.equal(off_k, (conf_k < theta).to(torch.int32)):
                     raise AssertionError("hi_gate: offload != conf < theta")
                 worst = max(worst, err.max().item())
-                rows.append((n, metric, str(dtype)[6:], err.max().item()))
+                rows.append((n, c, metric, str(dtype)[6:], err.max().item()))
     for r in rows:
-        log(f"  hi_gate n={r[0]} C={c} {r[1]:8s} {r[2]:8s} max_abs_err "
-            f"{r[3]:.2e} (tol {CONF_ATOL:g} + {CONF_RTOL:g}*|conf|)")
+        log(f"  hi_gate n={r[0]} C={r[1]} {r[2]:8s} {r[3]:8s} max_abs_err "
+            f"{r[4]:.2e} (tol {CONF_ATOL:g} + {CONF_RTOL:g}*|conf|)")
 
-    # timing at the main path's S-tier shape: (8, 151936) f32, max_prob
-    n = 8
-    nbytes = n * c * 4
-    sets = copies(lambda: (torch.randn((n, c), generator=gen, device="cuda"),),
-                  nbytes)
+    # timing at each path shape, float32 logits, max_prob
     theta = torch.tensor(THETA, device="cuda")
-    ms = timed(lambda x: hg.hi_gate_cuda(x, theta, "max_prob"), sets, 200)
-    dev_ms = device_ms(lambda x: hg.hi_gate_cuda(x, theta, "max_prob"), sets,
-                       r"hi_gate")
-    plain_ms = timed(lambda x: hg.hi_gate_plain(x, theta, "max_prob"), sets, 50)
-    bound_ms, by = bound(nbytes + n * 12 + 4, 6 * n * c)
-    log(f"  hi_gate (8, {c}) f32: {ms * 1e3:.1f} us (device {dev_ms * 1e3:.1f}"
-        f" us)  plain {plain_ms * 1e3:.1f}"
-        f" us  bound {bound_ms * 1e3:.2f} us ({by})  library: no single call")
-    return {"name": "hi_gate", "route": "cuda",
-            "source": "src/repro_torch/csrc/hi_gate.cu",
-            "replaces": "src/repro/kernels/hi_gate.py:69",
-            "shape": f"logits ({n}, {c}) float32, max_prob",
-            "max_abs_err": worst, "ms": ms, "device_ms": dev_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": None}
+
+    def gate(x):
+        return hg.hi_gate_cuda(x, theta, "max_prob")
+
+    main = None
+    for label, n, c in GATE_SHAPES:
+        nbytes = n * c * 4
+        sets, t = gate_times(gate, gen, n, c)
+        ms, dev_ms, g_ms = t["ms"], t["device_ms"], t["graph_ms"]
+        plain_ms = timed(lambda x: hg.hi_gate_plain(x, theta, "max_prob"),
+                         sets, 50)
+        # the nearest PyTorch calls: two of them (no single call computes
+        # the gate), so no library yardstick
+        two_ms = timed(lambda x: torch.softmax(x, -1).max(-1), sets, 200)
+        bound_ms, by = bound(nbytes + n * 12 + 4, 6 * n * c)
+        log(f"  hi_gate {label} ({n}, {c}) f32, {hg.gate_splits(n, c)} "
+            f"splits: {ms * 1e3:.1f} us (device {dev_ms * 1e3:.2f} us; graph"
+            f" {g_ms * 1e3:.2f} us)  plain {plain_ms * 1e3:.1f} us  bound "
+            f"{bound_ms * 1e3:.2f} us ({by})  softmax().max(), two calls, no"
+            f" single-call equivalent: {two_ms * 1e3:.1f} us")
+        if main is None:
+            main = {"name": "hi_gate", "route": "cuda",
+                    "source": "src/repro_torch/csrc/hi_gate.cu",
+                    "replaces": "src/repro/kernels/hi_gate.py:69",
+                    "shape": f"logits ({n}, {c}) float32, max_prob",
+                    "max_abs_err": worst, "ms": ms, "device_ms": dev_ms,
+                    "graph_ms": g_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+    return main
 
 
 def _attn_case(gen, b, h, k, d, s, valid, dtype):
@@ -712,6 +765,7 @@ def check_copy_pages(gen, quant=False):
         sets = copies(make, sum(t.numel() * t.element_size()
                                 for t in tensors))
         ms = timed(cp.copy_pages_cuda, sets, 200)
+        wrapper_ms = host_ms(cp.copy_pages_cuda, sets)
         dev_ms = device_ms(cp.copy_pages_cuda, sets, r"copy_pages_kernel")
         plain_ms = timed(cp.copy_pages_plain, sets, 50)
         lib_sets = [(p, torch.as_tensor(d_, device="cuda").long(),
@@ -728,7 +782,8 @@ def check_copy_pages(gen, quant=False):
                 f"rows ({layers},{pages},{k})" if quant else
                 f"2 pools ({layers},{pages},16,{k},{d}) bf16")
         log(f"  copy_pages {label}: {what}, {pairs} pairs, one launch  exact"
-            f"  {ms * 1e3:.1f} us (device {dev_ms * 1e3:.1f} us)  plain "
+            f"  {ms * 1e3:.1f} us (device {dev_ms * 1e3:.2f} us; host "
+            f"{wrapper_ms * 1e3:.1f} us a call)  plain "
             f"{plain_ms * 1e3:.1f} us  index_copy_ (one per tensor, sources "
             f"gathered beforehand) {lib_ms * 1e3:.1f} us  bound "
             f"{bound_ms * 1e3:.2f} us ({by})")
@@ -739,7 +794,7 @@ def check_copy_pages(gen, quant=False):
                     "replaces": "src/repro/kernels/decode_attention.py:206",
                     "shape": f"{label}: {what}, {pairs} pairs",
                     "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
-                    "plain_ms": plain_ms,
+                    "host_ms": wrapper_ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": by,
                     "library_ms": lib_ms}
     return main

@@ -15,12 +15,19 @@
 //
 // What the design does about that: one block per (pair, layer, tensor),
 // each moving one page with 16-byte loads and stores, neighbouring threads
-// on neighbouring addresses.  A tensor whose page or layer stride, or base,
+// on neighbouring addresses, up to kUnroll loads in flight per thread
+// before their stores (a zamba2 int8 page is 40 KiB: ten 16-byte words a
+// thread).  A tensor whose page or layer stride, or base,
 // is not a multiple of 16 bytes (a scale row is K * 4 bytes: 8 for
 // qwen2-1.5b, 4 for gemma3-1b) moves in 4-byte words, or bytes when not a
 // multiple of 4 either; that choice is uniform over a block.  The wrapper
 // checks on the host that destinations are distinct and disjoint from
 // sources, so the blocks' order does not matter.
+//
+// The host side costs more than the copy (a tick copies a few pages in
+// about 2 us on the card): the wrapper keeps each tuple of pools' block of
+// base addresses and strides on the host and passes it, and the pairs
+// packed in one int32 buffer, by one pointer each.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -29,6 +36,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxPairs = 256;
 constexpr int kMaxTensors = 4;
+constexpr int kUnroll = 4;
 
 struct PagePairs {
   int src[kMaxPairs];
@@ -44,10 +52,18 @@ struct Tensors {
 template <typename W>
 __device__ __forceinline__ void copy_words(const unsigned char* src,
                                            unsigned char* dst, int64_t bytes) {
-  const W* s = reinterpret_cast<const W*>(src);
-  W* d = reinterpret_cast<W*>(dst);
+  const W* __restrict__ s = reinterpret_cast<const W*>(src);
+  W* __restrict__ d = reinterpret_cast<W*>(dst);
   const int64_t n = bytes / static_cast<int64_t>(sizeof(W));
-  for (int64_t i = threadIdx.x; i < n; i += kThreads) d[i] = s[i];
+  int64_t i = threadIdx.x;
+  for (; i + (kUnroll - 1) * kThreads < n; i += kUnroll * kThreads) {
+    W w[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) w[u] = s[i + u * kThreads];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) d[i + u * kThreads] = w[u];
+  }
+  for (; i < n; i += kThreads) d[i] = s[i];
 }
 
 // __grid_constant__: the block indexes the parameter structs with its own
@@ -73,35 +89,37 @@ copy_pages_kernel(const __grid_constant__ Tensors t,
 
 }  // namespace
 
-// bases: host array of n_tensors (1..4) device pointers to (L, P, ...)
-// tensors with the same L and P; layer_bytes / page_bytes: host arrays of
-// each tensor's strides in bytes; src/dst: host int32 arrays of n <= 256
-// page ids, destinations distinct and disjoint from sources.  Returns
-// cudaGetLastError() after the launch.
-extern "C" int copy_pages_launch(const void* const* bases,
-                                 const long long* layer_bytes,
-                                 const long long* page_bytes, int n_tensors,
-                                 int layers, const int* src, const int* dst,
-                                 int n, void* stream) {
+// tensors: a host block of 3 * n_tensors int64 values: the n_tensors (1..4)
+// device base addresses of (L, P, ...) tensors with the same L and P, then
+// each tensor's layer stride in bytes, then its page stride in bytes.
+// pairs: a host int32 buffer of n <= 256 source page ids, then n
+// destination page ids, destinations distinct and disjoint from sources.
+// Returns cudaGetLastError() after the launch.
+extern "C" int copy_pages_launch(const void* tensors, int n_tensors,
+                                 int layers, const void* pairs, int n,
+                                 void* stream) {
   if (n < 0 || n > kMaxPairs || n_tensors < 1 || n_tensors > kMaxTensors ||
       layers < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t* block = static_cast<const int64_t*>(tensors);
   Tensors t = {};
   for (int i = 0; i < n_tensors; ++i) {
-    if (bases[i] == nullptr || page_bytes[i] < 1 ||
-        layer_bytes[i] < page_bytes[i])
+    const int64_t base = block[i], lb = block[n_tensors + i],
+                  pb = block[2 * n_tensors + i];
+    if (base == 0 || pb < 1 || lb < pb)
       return static_cast<int>(cudaErrorInvalidValue);
-    t.base[i] = static_cast<unsigned char*>(const_cast<void*>(bases[i]));
-    t.layer_bytes[i] = layer_bytes[i];
-    t.page_bytes[i] = page_bytes[i];
+    t.base[i] = reinterpret_cast<unsigned char*>(base);
+    t.layer_bytes[i] = lb;
+    t.page_bytes[i] = pb;
   }
   if (n == 0) return 0;
-  PagePairs pairs;
+  const int* ids = static_cast<const int*>(pairs);
+  PagePairs pp;
   for (int i = 0; i < n; ++i) {
-    pairs.src[i] = src[i];
-    pairs.dst[i] = dst[i];
+    pp.src[i] = ids[i];
+    pp.dst[i] = ids[n + i];
   }
   copy_pages_kernel<<<dim3(n, layers, n_tensors), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(t, pairs);
+                      static_cast<cudaStream_t>(stream)>>>(t, pp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,14 +41,14 @@ _i64 = ctypes.c_longlong
 # argtypes per C entry point: c_void_p for every pointer and the stream, so
 # that no pointer is cut to 32 bits.
 SIGNATURES = {
-    "hi_gate_launch": (_vp, _i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp),
+    "hi_gate_launch": (_vp, _i, _i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp),
     "decode_attention_launch": (_vp,) * 6 + (_i,) * 7 + (ctypes.c_float,
                                                          _vp),
     "paged_attention_launch": (_vp,) * 10 + (_i,) * 9 + (ctypes.c_float,
                                                         _vp),
     "chunk_paged_attention_launch": (_vp,) * 8 + (_i,) * 8 + (ctypes.c_float,
                                                              _vp),
-    "copy_pages_launch": (_vp, _vp, _vp, _i, _i, _vp, _vp, _i, _vp),
+    "copy_pages_launch": (_vp, _i, _i, _vp, _i, _vp),
     "ssd_chunk_launch": (_vp,) * 9 + (_i,) * 7 + (_vp,),
 }
 
@@ -157,6 +157,13 @@ def library() -> ctypes.CDLL:
 def build_info() -> BuildInfo:
     library()
     return _loaded[1]
+
+
+def current_stream(index: int) -> int:
+    """The raw handle of PyTorch's current stream on CUDA device ``index``,
+    without building a ``torch.cuda.Stream`` object."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(err: int, name: str) -> None:

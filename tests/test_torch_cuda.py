@@ -71,6 +71,103 @@ def test_hi_gate_reads_theta_through_its_pointer(gen):
     assert off.tolist() == [0, 0, 1]
 
 
+def _gate_rows(gen, n, c, dtype):
+    """Row 0's max duplicated in split 0 and in the middle split, row 1's in
+    the last column (the last split), the rest random."""
+    x = torch.randn((n, c), generator=gen, device="cuda") * 3
+    x[0, 3] = x[0, c // 2] = x[0].max() + 2.0
+    if n > 1:
+        x[1, c - 1] = x[1].max() + 1.0
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("metric", ["max_prob", "margin", "entropy"])
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("c", [32_000, 50_280, 151_936])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hi_gate_split_kernel_at_the_path_shapes(gen, metric, n, c, dtype):
+    """The path's shapes, each row split over ``gate_splits`` blocks and
+    merged in one launch: a max duplicated across splits gives the lower
+    index (and margin 0), a max in the last split is found; a row exactly
+    at theta stays."""
+    assert hg.gate_splits(n, c) > 1
+    x = _gate_rows(gen, n, c, dtype)
+    conf_p, pred_p, _ = hg.hi_gate_plain(x, 0.0, metric)
+    theta = conf_p[-1].clone()
+    before = hg.hi_gate_cuda.launches
+    conf_k, pred_k, off_k = ops.hi_gate(x, theta, metric)
+    torch.cuda.synchronize()
+    assert hg.hi_gate_cuda.launches == before + 1
+    torch.testing.assert_close(conf_k, conf_p, atol=CONF_ATOL, rtol=CONF_RTOL)
+    assert torch.equal(pred_k, pred_p)
+    assert torch.equal(off_k, (conf_k < theta).to(torch.int32))
+    assert int(pred_k[0]) == 3
+    if n > 1:
+        assert int(pred_k[1]) == c - 1
+    if metric == "margin":
+        assert float(conf_k[0]) == 0.0
+
+
+@pytest.mark.parametrize("n,c", [(8, 151_936), (2, 32_000), (5, 4099)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hi_gate_gives_the_same_bits_twice(gen, n, c, dtype):
+    """The last block of a row merges the splits in a fixed order, so the
+    bits do not depend on which block finished last."""
+    x = _gate_rows(gen, n, c, dtype)
+    theta = torch.tensor(0.3, device="cuda")
+    for metric in ("max_prob", "margin", "entropy"):
+        one = ops.hi_gate(x, theta, metric)
+        two = ops.hi_gate(x, theta, metric)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0].view(torch.int32), two[0].view(torch.int32))
+        assert torch.equal(one[1], two[1]) and torch.equal(one[2], two[2])
+
+
+def test_hi_gate_merge_counters_return_to_zero(gen):
+    """The row counters are 0 after every call: one at N = 2, then one at
+    N = 8 (which reuses the first rows' counters), then N = 2 again."""
+    theta = torch.tensor(0.3, device="cuda")
+    key = (torch.cuda.current_device(),
+           torch.cuda.current_stream().cuda_stream)
+    for n in (2, 8, 2):
+        x = _gate_rows(gen, n, 151_936, torch.float32)
+        conf, pred, _ = ops.hi_gate(x, theta)
+        torch.cuda.synchronize()
+        counters = hg._SCRATCH[key][0]
+        assert int(counters.abs().sum()) == 0
+        ref = hg.hi_gate_plain(x, theta)
+        torch.testing.assert_close(conf, ref[0], atol=CONF_ATOL,
+                                   rtol=CONF_RTOL)
+        assert torch.equal(pred, ref[1])
+
+
+def test_hi_gate_graph_replay_equals_the_eager_call(gen):
+    """Captured in a CUDA graph (warmed up on the capture stream, so the
+    call allocates no scratch while captured), a replay gives the eager
+    call's bits, and moves with theta."""
+    x = _gate_rows(gen, 8, 151_936, torch.float32)
+    theta = torch.tensor(0.3, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = ops.hi_gate(x, theta, "entropy")
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    eager = tuple(t.clone() for t in eager)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = ops.hi_gate(x, theta, "entropy")
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0].view(torch.int32), eager[0].view(torch.int32))
+    assert torch.equal(out[1], eager[1]) and torch.equal(out[2], eager[2])
+    theta.fill_(2.0)                               # every row escalates
+    graph.replay()
+    torch.cuda.synchronize()
+    assert out[2].tolist() == [1] * 8
+    assert torch.equal(out[0].view(torch.int32), eager[0].view(torch.int32))
+
+
 @pytest.mark.parametrize("d", da.HEAD_DIMS)
 @pytest.mark.parametrize("b,h,k,s", [(1, 4, 1, 128), (2, 8, 2, 256),
                                      (2, 6, 6, 192), (3, 12, 2, 1000),
@@ -695,6 +792,37 @@ def test_copy_pages_kernel_moves_int8_pages_with_their_scale_rows(gen, kh):
     for got, ref in zip(tensors, want):
         assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
     assert torch.equal(scales[0][:, dst], scales[0][:, src])
+
+
+def test_copy_pages_after_a_pool_is_reallocated(gen):
+    """The wrapper keeps each tuple of pools' launch block: a pool
+    reallocated at the same shape (while the old one lives, so at another
+    address) misses that cache, and its copy lands in the new pool, bytes
+    equal to the plain version's, the old pool untouched."""
+    from repro_torch.kernels import copy_pages as cp
+    shape = (4, 50, 16, 2, 128)
+
+    def pools():
+        return [torch.randn(shape, generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2)]
+
+    src, dst = np.array([3, 0, 5], np.int32), np.array([7, 0, 9], np.int32)
+    old = pools()
+    want = [t.clone() for t in old]
+    cp.copy_pages_plain(want, src, dst)
+    ops.copy_pages(old, src, dst)
+    new = [old[0].clone(), pools()[1]]
+    new[0][:, 7] = 0
+    snapshot = [t.clone() for t in old]
+    want_new = [t.clone() for t in new]
+    cp.copy_pages_plain(want_new, src, dst)
+    ops.copy_pages(new, src, dst)
+    torch.cuda.synchronize()
+    assert new[0].data_ptr() != old[0].data_ptr()
+    for got, ref in zip(old + new, want + want_new):
+        assert torch.equal(_bits(got), _bits(ref))
+    for got, ref in zip(old, snapshot):
+        assert torch.equal(_bits(got), _bits(ref))
 
 
 def _reduced_tiers(name="qwen2-1.5b"):

@@ -19,7 +19,13 @@ versions here:
   (w_end dt x)^T B on TF32 tensor cores, each float32 operand split into
   hi (x with its low 13 mantissa bits cleared) and lo = x - hi (of which
   the tensor core reads the top 19 bits), three passes (lo.hi, hi.lo,
-  hi.hi).
+  hi.hi);
+* the gate (``csrc/hi_gate.cu``) splits each row of logits into
+  ``gate_splits`` column ranges, one block each, and merges the ranges'
+  (m, z, s1, t2, arg) states in split order;
+* copy_pages' wrapper (``kernels/copy_pages.py``) prepares its launch on
+  the host once per tuple of pools (``_launch_args``), which must equal
+  what the wrapper computed per call before, refusals included.
 """
 import math
 
@@ -30,8 +36,11 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels.decode_attention import decode_attention_pallas
+from repro.kernels.hi_gate import hi_gate_pallas
 from repro.kernels.ssd_scan import ssd_chunk_pallas
+from repro_torch.kernels import copy_pages as cp
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import hi_gate as hg
 from repro_torch.kernels import ssd_scan
 
 NEG = -1e30
@@ -600,3 +609,321 @@ def test_ssd_heads_per_block_come_from_shapes():
         assert 1 <= hb <= min(h, top)
         assert blocks <= ssd_scan.TARGET_BLOCKS or hb == min(h, top)
         assert hb == 1 or b * nc * -(-h // (hb - 1)) > ssd_scan.TARGET_BLOCKS
+
+
+# ---------------------------------------------------------------------------
+# (e) the gate: rows split across blocks, partial states merged in order
+# ---------------------------------------------------------------------------
+
+CONF_ATOL, CONF_RTOL = 1e-5, 1e-4
+F32 = torch.float32
+
+
+def _gate_state(x):
+    """(m, z, s1, t2, arg) of one split's float32 values ``x`` (C,) at
+    columns starting 0: the max first, then one exp per element against
+    it, as each of the kernel's threads does over its registers."""
+    m = x.max()
+    arg = int(torch.argmax(x))                    # first index of the max
+    rest = torch.cat([x[:arg], x[arg + 1:]])
+    t2 = rest.max() if len(rest) else torch.tensor(float("-inf"))
+    d = x - m
+    e = torch.exp(d)
+    return m, e.sum(), (e * d).sum(), t2, arg
+
+
+def _gate_warp_merge(states):
+    """csrc/hi_gate.cu warp_merge(): the lanes' max M first; then each
+    lane's (z, s1) rescaled to M and summed, the lowest arg among lanes at
+    M, and t2 = M when two lanes hold M, else the largest of the M lane's
+    t2 and the other lanes' maxima."""
+    live = [st for st in states if st is not None]
+    M = max(st[0] for st in live)
+    z = s1 = torch.tensor(0.0)
+    arg, t2, tops = None, torch.tensor(float("-inf")), 0
+    for m, zz, ss, tt, aa in live:
+        d = m - M
+        e = torch.exp(d)
+        z, s1 = z + e * zz, s1 + e * (d * zz + ss)
+        if m == M:
+            tops += 1
+            arg = aa if arg is None else min(arg, aa)
+            t2 = torch.maximum(t2, tt)
+        else:
+            t2 = torch.maximum(t2, m)
+    return M, z, s1, (M if tops > 1 else t2), arg
+
+
+def gate_split_merge(logits, theta, metric, splits=None):
+    """The kernel's algorithm in float32: row r's 16-byte-aligned body (the
+    rows lie back to back from an aligned base) in ``splits`` ranges of
+    whole 16-byte vectors, split 0 also taking the unaligned head and the
+    last split the tail; per-split states; the row's last block merges them,
+    split i in lane i of a warp, two-step (so at most 32 splits); then
+    conf, pred and ``conf < theta``."""
+    x = logits.float()
+    n, c = x.shape
+    size = logits.element_size()
+    vec = 16 // size
+    splits = splits or hg.gate_splits(n, c)
+    conf, pred = torch.empty(n, dtype=F32), torch.empty(n, dtype=torch.int32)
+    for r in range(n):
+        mis = (r * c * size) % 16 // size
+        a0 = min(c, vec - mis if mis else 0)
+        nv = (c - a0) // vec
+        a1 = a0 + nv * vec
+        per = -(-nv // splits)
+        assert splits <= 32
+        lanes = [None] * 32
+        for sp in range(splits):
+            lo = a0 + min(nv, sp * per) * vec
+            hi = a0 + min(nv, sp * per + per) * vec
+            lo = 0 if sp == 0 else lo
+            hi = c if sp == splits - 1 else hi
+            if hi > lo:
+                m, z, s1, t2, arg = _gate_state(x[r, lo:hi])
+                lanes[sp] = (m, z, s1, t2, lo + arg)
+        m, z, s1, t2, arg = _gate_warp_merge(lanes)
+        if metric == "max_prob":
+            conf[r] = 1.0 / z
+        elif metric == "margin":
+            conf[r] = (1.0 - torch.exp(t2 - m)) / z
+        else:
+            conf[r] = 1.0 - (torch.log(z) - s1 / z) / math.log(float(c))
+        pred[r] = arg
+    return conf, pred, (conf < theta).to(torch.int32)
+
+
+def _gate_logits(seed, n, c, dtype):
+    """Rows that reach the kernel's edges: row 0's max duplicated in split 0
+    and in the middle split, row 1's max in the last column (the last
+    split, in the tail when C is not a multiple of the vector), row 2
+    uniform (its conf is exact in every metric: 1/C, 0, 0), the rest
+    random."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(n, c)) * 3).astype(np.float32)
+    x[0, 5] = x[0, c // 2] = x[0].max() + 2.0
+    x[1, c - 1] = x[1].max() + 1.0
+    x[2] = 0.0
+    return torch.from_numpy(x).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["max_prob", "margin", "entropy"])
+@pytest.mark.parametrize("n,c", [(4, 8195), (3, 4099), (5, 12_000)])
+def test_gate_split_merge_matches_the_reference(dtype, metric, n, c):
+    """Per-split states merged in split order (the splits ``gate_splits``
+    picks, one, seven and 32) against the reference's ``hi_gate_pallas``
+    (interpret mode) and ``hi_gate_plain``: conf within 1e-5 +
+    1e-4 |conf|, pred and offload equal; the duplicated max across splits
+    gives the lower index (and margin 0), the max in the last split is
+    found; C is no multiple of 4 or 8.  A row exactly at theta stays."""
+    x = _gate_logits(n * c, n, c, dtype)
+    assert hg.gate_splits(n, c) > 1
+    jx = jnp.asarray(x.float().numpy())
+    if dtype == torch.bfloat16:
+        jx = jx.astype(jnp.bfloat16)
+    theta = 0.3
+    conf_j, pred_j, off_j = (torch.from_numpy(np.array(t)) for t in
+                             hi_gate_pallas(jx, theta, metric, interpret=True))
+    conf_p, pred_p, off_p = hg.hi_gate_plain(x, theta, metric)
+    for splits in (None, 1, 7, 32):
+        conf, pred, off = gate_split_merge(x, theta, metric, splits)
+        for ref_conf, ref_pred, ref_off in ((conf_j, pred_j, off_j),
+                                            (conf_p, pred_p, off_p)):
+            torch.testing.assert_close(conf, ref_conf.float(), atol=CONF_ATOL,
+                                       rtol=CONF_RTOL)
+            assert torch.equal(pred, ref_pred.to(torch.int32))
+            assert torch.equal(off, ref_off.to(torch.int32))
+        assert int(pred[0]) == 5 and int(pred[1]) == c - 1
+        if metric == "margin":
+            assert float(conf[0]) == 0.0
+        # the uniform row's conf is exact, and a row at theta stays
+        assert float(conf[2]) == {"max_prob": np.float32(1.0) / np.float32(c),
+                                  "margin": 0.0, "entropy": 0.0}[metric]
+        _, _, at = gate_split_merge(x, conf[2], metric, splits)
+        assert int(at[2]) == 0
+
+
+def test_gate_splits_come_from_shapes_and_fill_the_card():
+    """At least ``MIN_SPLIT_COLS`` columns a split and at most
+    ``MAX_SPLITS`` (one a lane of the merging warp), about two blocks per
+    SM in all unless C runs out of columns or the splits reach that cap
+    first, one split for small C; the path's shapes: the S tier
+    (8, 151,936) 32 splits (256 blocks), the L tier and the chunk lane 32,
+    mamba2 (8, 50,280) 24, zamba2 (8, 32,000) 15.  Every split row's
+    workspace fits the first one the wrapper allocates."""
+    assert hg.gate_splits(8, 151_936) == 32
+    assert hg.gate_splits(4, 151_936) == 32
+    assert hg.gate_splits(2, 151_936) == 32
+    assert hg.gate_splits(8, 50_280) == 24
+    assert hg.gate_splits(8, 32_000) == 15
+    target, least = hg.TARGET_BLOCKS, hg.MIN_SPLIT_COLS
+    for n in (1, 2, 4, 8):
+        for c in (2, 7, 4099, 32_000, 50_280, 151_936, 262_144):
+            k = hg.gate_splits(n, c)
+            assert 1 <= k <= hg.MAX_SPLITS == 32
+            assert k == 1 or c // k >= least
+            assert n * k < target + n                 # about two per SM
+            assert (n * k >= target or k == max(1, c // least)
+                    or k == hg.MAX_SPLITS)
+            if c < 2 * least:
+                assert k == 1
+            if k > 1:                   # fits the wrapper's one workspace
+                assert n < target and n * k < 2 * target
+    assert hg.gate_splits(300, 151_936) == 1
+    for n in range(1, 300):
+        k = hg.gate_splits(n, 10 ** 6)
+        assert k == 1 or (n < target and n * k < 2 * target)
+
+
+def test_gate_scratch_refuses_rows_that_overrun_it():
+    """The kernel writes the workspace and the counters unchecked, so the
+    wrapper checks their size: every split row of ``gate_splits`` fits, and
+    more rows or splits than they hold are refused."""
+    dev, stream = torch.device("cpu"), -1
+    try:
+        for n in range(1, 300):
+            k = hg.gate_splits(n, 10 ** 6)
+            if k > 1:
+                hg._scratch(dev, stream, n, k)
+        target = hg.TARGET_BLOCKS
+        with pytest.raises(ValueError, match="overrun the merge workspace"):
+            hg._scratch(dev, stream, target + 1, 2)
+        with pytest.raises(ValueError, match="overrun the merge workspace"):
+            hg._scratch(dev, stream, 8, 2 * target // 8 + 1)
+    finally:
+        hg._SCRATCH.pop((dev.index, stream), None)
+
+
+# ---------------------------------------------------------------------------
+# (f) copy_pages' host preparation, made once per tuple of pools
+# ---------------------------------------------------------------------------
+
+def _old_real_pairs(src, dst):
+    """The wrapper's pair checks as they were (numpy, per call)."""
+    src = np.asarray(src, np.int32).reshape(-1)
+    dst = np.asarray(dst, np.int32).reshape(-1)
+    if src.shape != dst.shape:
+        raise ValueError(f"copy_pages: src {src.shape} and dst {dst.shape} "
+                         "differ in length")
+    keep = ~((src == 0) & (dst == 0))
+    src, dst = src[keep], dst[keep]
+    if (dst == 0).any():
+        raise ValueError("copy_pages: a real pair writes the null page 0")
+    if len(set(dst.tolist())) != len(dst):
+        raise ValueError(f"copy_pages: destination pages repeat: {dst}")
+    if set(dst.tolist()) & set(src.tolist()):
+        raise ValueError("copy_pages: a destination page is also a source; "
+                         "an in-place copy would depend on its order")
+    return src, dst
+
+
+def _old_launch_args(pools, src, dst):
+    """The block the wrapper built per call before: base addresses, layer
+    and page bytes from tensor views, the pairs, the pools' checks."""
+    if not 1 <= len(pools) <= 4:
+        raise ValueError(f"copy_pages: 1..4 pools, got {len(pools)}")
+    p0 = pools[0]
+    if p0.ndim < 2:
+        raise ValueError(f"copy_pages: pool {tuple(p0.shape)} must be "
+                         "(L, P, ...)")
+    for p in pools[1:]:
+        if p.ndim < 2 or p.shape[:2] != p0.shape[:2] or p.device != p0.device:
+            raise ValueError("copy_pages: pools must share (L, P) and device")
+    if not all(p.is_contiguous() for p in pools):
+        raise ValueError("copy_pages: pools must be contiguous")
+    if len({p.data_ptr() for p in pools}) != len(pools):
+        raise ValueError("copy_pages: a pool is passed twice")
+    s, d = _old_real_pairs(src, dst)
+    n_pages = p0.shape[1]
+    if len(d) and (s.min() < 0 or max(s.max(), d.max()) >= n_pages):
+        raise ValueError(f"copy_pages: page ids outside 0..{n_pages - 1}")
+    return ([p.data_ptr() for p in pools],
+            [p[0].numel() * p.element_size() for p in pools],
+            [p[0, 0].numel() * p.element_size() for p in pools], s, d)
+
+
+def _pools(kind, layers=3, pages=40):
+    if kind == "bf16":
+        return tuple(torch.zeros((layers, pages, 16, 2, 128),
+                                 dtype=torch.bfloat16) for _ in range(2))
+    return (tuple(torch.zeros((layers, pages, 16, 2, 128), dtype=torch.int8)
+                  for _ in range(2))
+            + tuple(torch.zeros((layers, pages, 2)) for _ in range(2)))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("src,dst", [
+    ([3, 0, 7, 0], [5, 0, 9, 0]),                 # padded, as a tick's
+    ([1], [2]),
+    ([0, 0], [0, 0]),                             # all padding
+    (list(range(1, 301)), list(range(301, 601))),  # two launches
+])
+def test_copy_pages_launch_args_equal_the_old_wrapper(kind, src, dst):
+    """``_launch_args`` gives the bases, strides and pairs that the wrapper
+    computed per call before (bf16 pools; int8 pools with their scale
+    rows), pairs packed as sources then destinations in buffers of at most
+    256 pairs; a second call hits the cache, a pool reallocated at the same
+    shape misses it."""
+    pools = _pools(kind, pages=700)
+    bases, layer_bytes, page_bytes, s, d = _old_launch_args(pools, src, dst)
+    args, batches = cp._launch_args(pools, np.array(src, np.int32),
+                                    np.array(dst, np.int32))
+    n = len(pools)
+    assert list(args.block) == bases + layer_bytes + page_bytes
+    assert (args.n_tensors, args.layers, args.n_pages) == (n, 3, 700)
+    assert args.int8 == (kind == "int8") and args.device == -1
+    assert [len(b) // 2 for b in batches] == \
+        [min(cp.MAX_PAIRS, len(d) - at) for at in range(0, len(d),
+                                                          cp.MAX_PAIRS)]
+    got = [np.array(b, np.int32).reshape(2, -1) for b in batches]
+    if got:
+        np.testing.assert_array_equal(np.concatenate([g[0] for g in got]), s)
+        np.testing.assert_array_equal(np.concatenate([g[1] for g in got]), d)
+    assert cp._launch_args(pools, src, dst)[0] is args           # cached
+    moved = (pools[0].clone(),) + pools[1:]
+    again, _ = cp._launch_args(moved, src, dst)
+    assert again is not args and again.bases[0] == moved[0].data_ptr()
+
+
+def _refusals():
+    bf = _pools("bf16", pages=10)
+    q8 = _pools("int8", pages=10)
+    return [
+        (bf, [3, 0], [5]),                        # lengths differ
+        (bf, [3], [0]),                           # the null page
+        (bf, [3, 4], [5, 5]),                     # repeated destinations
+        (bf, [3, 2], [2, 5]),                     # a destination is a source
+        (bf, [3], [10]),                          # out of range
+        (bf, [-1], [4]),
+        ((), [1], [2]),                           # no pool
+        (q8 + bf[:1], [1], [2]),                  # five tensors
+        ((torch.zeros(4),), [1], [2]),            # not (L, P, ...)
+        ((bf[0], torch.zeros((3, 11, 2))), [1], [2]),   # mixed P
+        ((bf[0], torch.zeros((4, 10, 2))), [1], [2]),   # mixed L
+        ((bf[0].transpose(2, 3),), [1], [2]),     # not contiguous
+        ((bf[0], bf[0]), [1], [2]),               # the same pool twice
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_refusals())))
+def test_copy_pages_launch_args_refuse_as_before(case):
+    """Every refusal of the old per-call checks (``real_pairs``, the pools'
+    checks, the page range) still raises, with the same message."""
+    pools, src, dst = _refusals()[case]
+    with pytest.raises(ValueError) as old:
+        _old_launch_args(pools, src, dst)
+    with pytest.raises(ValueError) as new:
+        cp._launch_args(pools, src, dst)
+    assert str(new.value) == str(old.value)
+
+
+def test_copy_pages_refuses_a_negative_destination():
+    """A negative destination page passed the old per-call range check
+    (it tested the sources' minimum only) and reached the kernel, which
+    would write before the pool's first page; it is refused on the host."""
+    pools = _pools("bf16", pages=10)
+    _old_launch_args(pools, [3], [-1])             # the old check let it by
+    with pytest.raises(ValueError, match="page ids outside 0..9"):
+        cp._launch_args(pools, [3], [-1])
