@@ -32,7 +32,11 @@ Phases (any failure exits non-zero before the last line):
    zamba2's at 80) and of the chunk kernel (C = 256), each with NaN / inf
    scales and arbitrary bytes planted where no query may look (the output
    must not move), and copy_pages over int8 pools with their scale rows at
-   K = 2 (8-byte rows) and K = 32, byte-equal to the plain version.
+   K = 2 (8-byte rows) and K = 32, byte-equal to the plain version.  The
+   chunk kernel also at the speculative verify lane's shape, q (8, 4, 12,
+   128) over the 8-slot L pool, bf16 and int8 with garbage planted, with a
+   CUDA-graph replay (nested as ``verify`` in its entries of the kernels
+   line).
 4. serve   — the drain path: ``HIEngine.serve`` on the full-width qwen2-1.5b
    cascade (L = qwen2-1.5b, S = its ``s_variant(4)``), random float32 params
    from a seeded ``torch.Generator``, bf16 KV cache; 16 requests through
@@ -62,7 +66,26 @@ Phases (any failure exits non-zero before the last line):
    bf16 run's, the slots the bf16 byte budget admits in int8, the free-run
    token agreement with the bf16 run, the L tier's decode step time over
    bf16 and int8 pools, and the reference's teacher-forced measure on the
-   L tier (reported).
+   L tier (reported).  Then, each run on a fresh scheduler:
+   faults — the stream trace under a seeded ``FaultSchedule`` (20% of
+   escalation transits lost, an L outage that opens the breaker, a latency
+   spike) with a ``RetryPolicy`` and ``validate=True``, twice: one status
+   of ``STATUSES`` per request, ``ok`` and ``degraded_local`` both, the
+   breaker opened and closed again, no slot held, one fetch per tick,
+   launches against the lane flags, and the two runs' records equal field
+   by field; a pure delay gives the fault-free tokens.
+   observability — the trace with ``Telemetry``, ``GateAudit``,
+   ``SLOWatchdog`` and ``FlightRecorder`` on and with them off: the same
+   tokens and confidences, one fetch per tick, one scheduler build; TTFT /
+   TPOT quantiles, the audit's decision counts and the host ms per tick on
+   and off (``--trace DIR`` also writes and parses back the Chrome trace).
+   speculative — ``serve_stream(speculative=True)``, 8 slots paired 1:1,
+   ``decode_block`` 4, sharing and the chunk lane on: at theta 0 the plain
+   stream's S tokens; at theta 0.6 the port's host oracle
+   (``TokenCascade.generate_speculative`` on the card) on the positions it
+   chose by a margin over ``SPEC_MARGIN_TOL``; the chunk kernel launched
+   once per L layer and verify tick besides the chunk lanes; drafted,
+   accepted, acceptance rate and req/s.
 7. mamba2  — the SSM family at full size (L mamba2-370m, 48 layers; S 12):
    phases 4 to 6 again (drain with ssd_chunk launched once per layer per
    prefill; the 32-request stream trace at vocab 50,280 with the chunk lane
@@ -70,7 +93,10 @@ Phases (any failure exits non-zero before the last line):
    trace), each with its small card-against-CPU check.
 8. chunk   — the chunk lane at mamba2 widths cut to 8 layers (S 2): four
    prompts of 96..200 tokens fed 64 per tick, the staged rollback on the
-   card, tokens against the same per-token steps on a one-row cache.
+   card, tokens against the same per-token steps on a one-row cache.  Then
+   the speculative lane at the same widths and depth: theta 0 against the
+   plain stream, theta 0.6 against the host oracle, and the recurrent state
+   the rollback copies a tick.
 9. hybrid  — zamba2-2.7b at full width cut to 24 layers (S 6; the
    reference cannot build the full-depth cascade): a 12-request stream
    with repeated system prompts, asserting ssd_chunk, the paged kernel at
@@ -145,6 +171,30 @@ N_MIXED, N_REPEAT, N_LONG = 12, 12, 8
 NPG = 34
 L_PAGES = 4 * NPG + 1 + 8 * 32
 S_PAGES = 8 * NPG + 1 + 16 * 32
+
+# the fault phase: the stream trace under a seeded schedule (20% of
+# escalation transits lost, an L outage over ticks 8..19 that opens the
+# breaker, a latency spike over ticks 30..33), with retries and a breaker
+# that opens after 2 consecutive failures and probes after 4 ticks
+FAULTS = dict(seed=18, loss_prob=0.2, outages=((8, 20),), spikes=((30, 34),))
+RETRY = dict(ack_timeout_ticks=2, max_retries=2, backoff_cap_ticks=4,
+             breaker_threshold=2, breaker_cooldown_ticks=4)
+# a pure delay: every transit takes 2..4 ticks, nothing is lost
+DELAY = dict(seed=18, delay_ticks=2, delay_jitter=2)
+
+# the speculative phase: the stream settings with the draft-verify lane on.
+# Both tiers admit every request at one slot index, so the L tier has the S
+# tier's 8 slots and pool (l_slots is not read); the verify chunk is q
+# (8, decode_block, 12, 128) over that pool
+SPEC_KW = dict(STREAM_KW, speculative=True)
+SPEC_L_PAGES = S_PAGES
+# the first SPEC_ORACLE requests are held against the port's host oracle
+# (``TokenCascade.generate_speculative`` on the card): a request's tokens
+# may part from the oracle's only at a position the oracle chose by a
+# top1 - top2 margin under SPEC_MARGIN_TOL (the two paths' logits differ
+# by the order of their float32 sums, far below it), and at least
+# SPEC_MIN_EQUAL requests must equal the oracle's throughout
+SPEC_ORACLE, SPEC_MIN_EQUAL, SPEC_MARGIN_TOL = 8, 4, 1e-2
 
 # the recurrent families (SSM mamba2-370m at full size; hybrid zamba2-2.7b
 # at full width, cut in depth: the reference cannot build its full-depth
@@ -537,12 +587,13 @@ def _gather_sdpa(q, pool_k, pool_v, block, valid, *scales):
     return _sdpa(*_paged_library(q, pool_k, pool_v, block, valid, *scales))
 
 
-def check_paged(gen, name, c, cases, quant=False):
+def check_paged(gen, name, c, cases, quant=False, graph=False):
     """Kernels 3 and 4 (one source): each case is (label, B, H, K, D, pages,
     first query positions, pages per slot, plant garbage).  ``quant``: the
     int8 bodies, over int8 pools and their scales; a planted case must also
     give bit for bit what the same inputs give without the garbage.  The
-    main path's L-tier case is timed first."""
+    main path's L-tier case is timed first.  The decode kernel, and the
+    chunk kernel where ``graph``, are also timed by a CUDA-graph replay."""
     import torch
     from repro_torch.kernels import decode_attention as da
     kernel = (da.decode_attention_paged_cuda if c == 1
@@ -607,7 +658,7 @@ def check_paged(gen, name, c, cases, quant=False):
         dev_ms = device_ms(kernel, msets, pattern)
         # the decode kernel is also timed as a CUDA graph, with no host
         # submission in the window
-        g_ms = graph_ms(kernel, msets) if c == 1 else None
+        g_ms = graph_ms(kernel, msets) if c == 1 or graph else None
         plain_ms = timed(plain, msets, 20)
         raw = [(x[0], x[1], x[2], x[3], x[4], *x[5]) for x in sets]
         lib_sets = [_paged_library(*x) for x in raw]
@@ -1221,17 +1272,27 @@ def _expected_launches(sched, before, kb, chunk):
     chunk pass, copy_pages once per COW tick.  SSM: ssd_chunk once per layer
     and prefill, no pages.  Hybrid: ssd_chunk once per mamba layer and
     prefill, the paged decode kernel once per group and step (the chunk
-    lane's ``chunk`` per-token steps included), copy_pages per COW tick."""
+    lane's ``chunk`` per-token steps included), copy_pages per COW tick.
+    Speculative: the L tier's ``live`` ticks are verify ticks, which gate
+    nothing and run one ``kb``-token chunk pass (dense: the chunk kernel
+    once per layer; the hybrid's ``kb`` per-token steps as its decode)."""
     exp = dict.fromkeys(_kernel_names(), 0)
     for rt in (sched.srt, sched.lrt):
         d = {k: rt.lane_ticks[k] - before[rt.name][k] for k in rt.lane_ticks}
         cfg = rt.pool.cfg
         n_layers = cfg.num_layers
+        verify = sched.speculative and rt is sched.lrt
         # over int8 pools the paged kernels count as their int8 variants
         q = "[int8]" if rt.pool.kv_dtype == "int8" else ""
-        exp["hi_gate"] += d["admit"] + d["chunk"] + kb * d["live"]
+        exp["hi_gate"] += d["admit"] + d["chunk"] + \
+            (0 if verify else kb * d["live"])
         if cfg.family == "dense":
-            exp["decode_attention_paged" + q] += kb * n_layers * d["live"]
+            if verify:
+                exp["decode_attention_chunk_paged" + q] += \
+                    n_layers * d["live"]
+            else:
+                exp["decode_attention_paged" + q] += \
+                    kb * n_layers * d["live"]
             exp["decode_attention_chunk_paged" + q] += n_layers * d["chunk"]
             exp["copy_pages" + q] += d["cow"]
             continue
@@ -1640,6 +1701,438 @@ def int8_gate_phase():
         raise AssertionError("the int8 fidelity gate failed")
 
 
+# ---------------------------------------------------------------------------
+# faults, observability and the speculative lane (qwen2-1.5b, mamba2)
+# ---------------------------------------------------------------------------
+
+def check_verify_chunk(gen):
+    """The chunk kernel at the speculative verify lane's shape: q (8, 4,
+    12, 128), the L tier's 8 slots paired with the S tier's, over the L
+    pool; bf16, then int8 with garbage planted where no query looks.
+    Timed as the other paged cases, with a CUDA-graph replay.  Returns the
+    two cases' results."""
+    import numpy as np
+    c = SPEC_KW["decode_block"]
+    pos = np.random.default_rng(4).integers(32, 528, 8).tolist()
+    case = ("L verify qwen2-1.5b", 8, 12, 2, 128, SPEC_L_PAGES, pos, NPG)
+    return (check_paged(gen, "decode_attention_chunk_paged", c,
+                        [case + (False,)], graph=True),
+            check_paged(gen, "decode_attention_chunk_paged", c,
+                        [case + (True,)], quant=True, graph=True))
+
+
+def _counted_run(eng, reqs, kw, **extra):
+    """One ``serve_stream`` call on a fresh scheduler (so that runs do not
+    share a prefix cache), the launch counts set to 0 just before it and
+    read just after.  Asserts one host fetch per tick, every kernel's
+    launches as the lane flags predict, one record per request and no slot
+    held after the drain.  Returns (records, scheduler, launches, ticks,
+    wall seconds)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import engine as engine_mod
+
+    eng._stream = None
+    fetches = []
+    real = engine_mod._host_fetch
+    engine_mod._host_fetch = lambda tree: (fetches.append(1), real(tree))[1]
+    ticks0 = eng.stats["stream_ticks"]
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = eng.serve_stream(reqs, **kw, **extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        engine_mod._host_fetch = real
+    sched = eng._stream[1]
+    ticks = eng.stats["stream_ticks"] - ticks0
+    zero = {rt.name: dict.fromkeys(rt.lane_ticks, 0)
+            for rt in (sched.srt, sched.lrt)}
+    chunk = kw["chunk_size"] if kw.get("chunk_prefill") else 0
+    want = _expected_launches(sched, zero, kw["decode_block"], chunk)
+    if len(fetches) != ticks or ticks == 0:
+        raise AssertionError(f"{len(fetches)} host fetches in {ticks} ticks")
+    if counts != want:
+        raise AssertionError(f"launches {counts}, lane flags predict {want}")
+    if set(out) != {r.request_id for r in reqs}:
+        raise AssertionError("not one record per request")
+    if sched.srt.pool.held_slots or sched.lrt.pool.held_slots:
+        raise AssertionError("slots held after drain")
+    return out, sched, counts, ticks, wall
+
+
+def _add(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def fault_stream_phase(eng, reqs, ref):
+    """The stream trace under ``FAULTS`` with ``RETRY`` and
+    ``validate=True``, twice, each on a fresh scheduler: one record per
+    request with a status of ``STATUSES``, some ``ok`` and some
+    ``degraded_local``, the breaker opened and closed again, no slot held,
+    one fetch per tick and launches as the lane flags say; the two runs'
+    records equal field by field (all but the wall-clock ``ttft``).  Then
+    the pure delay ``DELAY``: every request served as in the fault-free
+    run ``ref``, token for token.  Returns the launches."""
+    import numpy as np
+    from repro_torch.serving.faults import (STATUSES, CircuitBreaker,
+                                            FaultSchedule, RetryPolicy)
+
+    total = {}
+    kw = dict(STREAM_KW, faults=FaultSchedule(**FAULTS),
+              retry=RetryPolicy(**RETRY))
+    runs = []
+    for run in range(2):
+        out, sched, counts, ticks, wall = _counted_run(eng, reqs, kw)
+        _add(total, counts)
+        brk = sched._breaker
+        statuses = [rec["status"] for rec in out.values()]
+        if not set(statuses) <= set(STATUSES):
+            raise AssertionError(f"statuses {set(statuses)}")
+        if "ok" not in statuses or "degraded_local" not in statuses:
+            raise AssertionError(f"statuses {sorted(set(statuses))}: need "
+                                 "ok and degraded_local")
+        if brk.opens < 1 or brk.state != CircuitBreaker.CLOSED:
+            raise AssertionError(f"breaker opened {brk.opens} times, ends "
+                                 f"{brk.state}: it must open and close")
+        for rid, rec in out.items():
+            if rec["status"] != "ok" or not rec["served_remote"]:
+                if not np.array_equal(rec["tokens"], rec["s_tokens"]):
+                    raise AssertionError(f"request {rid}: a local answer "
+                                         "lost its S tokens")
+            if not np.array_equal(rec["s_tokens"], ref[rid]["s_tokens"]):
+                raise AssertionError(f"request {rid}: faults moved an S "
+                                     "token")
+        st = sched.stats
+        n = {s: statuses.count(s) for s in STATUSES}
+        log(f"  faults {FAULTS}, retry {RETRY}, run {run}: {wall * 1e3:.1f}"
+            f" ms, {ticks} ticks, {len(out) / wall:.2f} req/s; statuses "
+            f"{n}; breaker opened {brk.opens}x ({st['breaker_open_ticks']} "
+            f"open ticks), closed at the end; escalation retries "
+            f"{st['esc_retries']}, lost {st['esc_lost']}; one host fetch per "
+            f"tick; launches {counts} as the lane flags predict")
+        runs.append(out)
+    for rid, rec in runs[0].items():
+        for key, v in rec.items():
+            if key != "ttft" and not np.array_equal(v, runs[1][rid][key]):
+                raise AssertionError(f"request {rid}: {key} differs between"
+                                     " two runs of one schedule")
+    out, sched, counts, ticks, wall = _counted_run(
+        eng, reqs, dict(STREAM_KW, faults=FaultSchedule(**DELAY),
+                        retry=RetryPolicy(ack_timeout_ticks=8)))
+    _add(total, counts)
+    waits = []
+    for rid, rec in out.items():
+        if rec["status"] != ref[rid]["status"] or not np.array_equal(
+                rec["tokens"], ref[rid]["tokens"]):
+            raise AssertionError(f"request {rid}: a pure delay changed its "
+                                 "answer")
+        if rec["served_remote"]:
+            waits.append(rec["queue_wait_ticks"])
+    if not waits or min(waits) < DELAY["delay_ticks"]:
+        raise AssertionError(f"queue waits {waits} under a delay of "
+                             f"{DELAY['delay_ticks']}")
+    log(f"  pure delay {DELAY}: {ticks} ticks, the fault-free records' "
+        f"tokens and statuses for all {len(out)} requests; queue waits "
+        f"{min(waits)}..{max(waits)} ticks; two runs of the fault schedule "
+        "gave equal records")
+    return total
+
+
+def observability_phase(eng, reqs, keep: Path | None):
+    """The stream trace with every collector off, then with
+    ``Telemetry``, ``GateAudit``, ``SLOWatchdog`` and ``FlightRecorder``
+    on, each on a fresh scheduler: the same tokens and confidences, one
+    fetch per tick, one scheduler build for the run.  Prints TTFT / TPOT
+    quantiles, the audit's decision counts and the host's ms per tick with
+    the collectors on and off; with ``keep``, writes the Chrome trace there
+    and parses it back.  Returns the launches."""
+    import numpy as np
+    from repro_torch.serving import trace_export
+    from repro_torch.serving.audit import (GateAudit, SLOThresholds,
+                                           SLOWatchdog)
+    from repro_torch.serving.flight_recorder import FlightRecorder
+    from repro_torch.serving.telemetry import Telemetry
+
+    total = {}
+    off, _, counts, ticks_off, wall_off = _counted_run(eng, reqs, STREAM_KW)
+    _add(total, counts)
+    tel, aud = Telemetry(), GateAudit()
+    wd = SLOWatchdog(SLOThresholds(ttft_p95=60.0, tpot_p95=10.0))
+    fr = FlightRecorder(capacity=16)
+    builds0 = eng.stats["stream_compiles"]
+    on, sched, counts, ticks_on, wall_on = _counted_run(
+        eng, reqs, STREAM_KW, telemetry=tel, audit=aud, watchdog=wd,
+        flight_recorder=fr)
+    _add(total, counts)
+    if eng.stats["stream_compiles"] != builds0 + 1 or \
+            sched.counters.compiles != 1 or len(tel.ticks) != ticks_on:
+        raise AssertionError("the collectors changed the scheduler builds "
+                             "or the ticks")
+    for rid, rec in off.items():
+        if not np.array_equal(on[rid]["tokens"], rec["tokens"]) or \
+                on[rid]["confidence"] != rec["confidence"]:
+            raise AssertionError(f"request {rid}: collectors on changed "
+                                 "its tokens or confidence")
+    if set(tel.traces) != set(on) or aud.decisions == 0:
+        raise AssertionError("spans or audit records missing")
+    h = tel.histogram_summary()
+    phases = {p: s / ticks_on * 1e3 for p, s in tel.phase_summary().items()
+              if s}
+    kinds = {}
+    for r in aud.records:
+        kinds[r.kind] = kinds.get(r.kind, 0) + 1
+    q = {k: {p: round(h[k].get(p, math.nan) * 1e3, 2)
+             for p in ("p50", "p95", "p99")} for k in ("ttft", "tpot")}
+    log(f"  collectors off: {ticks_off} ticks, {wall_off / ticks_off * 1e3:.2f}"
+        f" host ms per tick; on: {ticks_on} ticks, "
+        f"{wall_on / ticks_on * 1e3:.2f} host ms per tick (phases, ms per "
+        f"tick: { {p: round(v, 3) for p, v in phases.items()} }); tokens "
+        f"and confidences equal; one host fetch per tick; one scheduler "
+        f"build")
+    log(f"  TTFT / TPOT quantiles (ms): {q}; audit {aud.decisions} "
+        f"decisions {kinds}, {aud.outcomes} outcomes, ECE "
+        f"{aud.ece():.4f}, offload rate {aud.offload_rate():.3f}; watchdog "
+        f"breaches {len(wd.breaches)}; flight-recorder ring "
+        f"{len(fr.ring)}, dumps {len(fr.dumps)}")
+    if keep is not None:
+        keep.mkdir(parents=True, exist_ok=True)
+        path = keep / f"{ARCH}_stream_telemetry.json"
+        trace_export.write_chrome_trace(tel, str(path))
+        ev = json.loads(path.read_text())["traceEvents"]
+        ends = {e["args"]["request_id"] for e in ev
+                if e["ph"] == "i" and e["name"].startswith("terminal:")}
+        if ends != set(on):
+            raise AssertionError("the Chrome trace lost a request")
+        log(f"  Chrome trace {path} ({path.stat().st_size / 1e6:.2f} MB, "
+            f"{len(ev)} events) parsed back: a terminal per request")
+    return total
+
+
+def _spec_oracle(eng, reqs, out, kw):
+    """The first ``SPEC_ORACLE`` requests through the port's host oracle
+    on the card.  Each request's tokens must equal the oracle's up to their
+    first difference, and that difference may only fall on a position the
+    oracle chose by a margin under ``SPEC_MARGIN_TOL`` (after it the two
+    histories part).  Returns how many requests equal the oracle
+    throughout (their rounds too, where every margin is decisive) and how
+    many tokens were compared."""
+    import numpy as np
+    from repro_torch.serving.batcher import pad_to_bucket
+    from repro_torch.serving.token_cascade import TokenCascade
+
+    tc = TokenCascade(s_cfg=eng.s.cfg, l_cfg=eng.l.cfg,
+                      s_params=eng.s.params, l_params=eng.l.params,
+                      hi=eng.hi, block=kw["decode_block"],
+                      cache_len=CACHE_LEN)
+    whole = compared = 0
+    for r in reqs[:SPEC_ORACLE]:
+        prompt = np.zeros(pad_to_bucket(len(r.prompt), kw["buckets"]),
+                          np.int32)
+        prompt[: len(r.prompt)] = r.prompt
+        ref = tc.generate_speculative(prompt[None],
+                                      min(r.max_new_tokens, MAX_NEW))
+        got, want = out[r.request_id], ref["tokens"][0]
+        diff = np.flatnonzero(got["tokens"] != want)
+        if len(diff):
+            j = int(diff[0])
+            if ref["margins"][j] > SPEC_MARGIN_TOL:
+                raise AssertionError(
+                    f"request {r.request_id}: {got['tokens']} != the "
+                    f"oracle's {want} at position {j}, chosen by a margin "
+                    f"of {ref['margins'][j]:.3g}")
+            compared += j
+            continue
+        compared += len(want)
+        whole += 1
+        if (ref["margins"] > SPEC_MARGIN_TOL).all() and \
+                got["rounds"] != ref["rounds"]:
+            raise AssertionError(f"request {r.request_id}: rounds "
+                                 f"{got['rounds']} != {ref['rounds']}")
+    return whole, compared
+
+
+def speculative_phase(eng, reqs, plain):
+    """``serve_stream(..., speculative=True)`` on the stream trace
+    (``SPEC_KW``): at theta 0 (never escalates) the tokens are the plain
+    stream's S tokens ``plain``; at theta 0.6 the first ``SPEC_ORACLE``
+    requests equal the host oracle on decisive positions.  Each run: one
+    fetch per tick and launches as the lane flags say, the chunk kernel
+    once per L layer and verify tick.  Returns the launches and the chunk
+    kernel's launches at the verify shape (both runs: at theta 0 the
+    verify chunk still runs, as the L tier's catch-up), bf16 and int8.
+    Then the theta 0.6 run again over int8 pools: launches as the lane
+    flags say, and the tokens' agreement with the bf16 run (reported)."""
+    import numpy as np
+    total = {}
+    try:
+        eng.hi = dataclasses.replace(eng.hi, theta=0.0)
+        out, sched, counts, ticks, wall = _counted_run(eng, reqs, SPEC_KW)
+        _add(total, counts)
+        for rid, rec in out.items():
+            if not np.array_equal(rec["tokens"], plain[rid]["s_tokens"]):
+                raise AssertionError(f"request {rid}: speculative at theta 0"
+                                     " != the plain stream's S tokens")
+        st = sched.stats
+        verify0 = sched.lrt.lane_ticks["live"]
+        if st["escalated_blocks"] or st["accepted"] != st["drafted"]:
+            raise AssertionError(f"theta 0 escalated: {dict(st)}")
+        log(f"  speculative, theta 0: {ticks} ticks, {len(out) / wall:.2f} "
+            f"req/s; every draft accepted ({st['drafted']}); tokens equal "
+            "to the plain stream's S tokens")
+        eng.hi = dataclasses.replace(eng.hi, theta=THETA)
+        out, sched, counts, ticks, wall = _counted_run(eng, reqs, SPEC_KW)
+        _add(total, counts)
+        _check_spec_outputs(out, reqs, eng.l.cfg)
+        st = sched.stats
+        verify = sched.lrt.lane_ticks["live"]
+        n_l = eng.l.cfg.num_layers
+        lane = n_l * sched.lrt.lane_ticks["chunk"] + \
+            eng.s.cfg.num_layers * sched.srt.lane_ticks["chunk"]
+        if counts["decode_attention_chunk_paged"] != n_l * verify + lane:
+            raise AssertionError("chunk kernel launches != verify ticks x "
+                                 "L layers + the chunk lanes'")
+        whole, compared = _spec_oracle(eng, reqs, out, SPEC_KW)
+        if whole < SPEC_MIN_EQUAL:
+            raise AssertionError(f"{whole} of {SPEC_ORACLE} requests equal "
+                                 f"to the oracle throughout (need "
+                                 f"{SPEC_MIN_EQUAL})")
+        n_tok = sum(len(r["tokens"]) for r in out.values())
+        log(f"  speculative, theta {THETA}: {wall * 1e3:.1f} ms, {ticks} "
+            f"ticks ({verify} ran the verify lane), {len(out) / wall:.2f} "
+            f"req/s, {n_tok / wall:.1f} tok/s; drafted {st['drafted']}, "
+            f"accepted {st['accepted']} (rate "
+            f"{st['accepted'] / max(st['drafted'], 1):.3f}), blocks "
+            f"{st['blocks']}, escalated {st['escalated_blocks']}; chunk "
+            f"kernel {counts['decode_attention_chunk_paged']} launches = "
+            f"{n_l} x {verify} verify ticks + {lane} chunk-lane; one host "
+            f"fetch per tick; {whole} of {SPEC_ORACLE} requests equal to the "
+            f"host oracle throughout, {compared} tokens compared (a "
+            f"difference only where the margin is under "
+            f"{SPEC_MARGIN_TOL:g})")
+        # over int8 pools: the verify chunk's 4 tokens append into a
+        # page and may rewrite its scale; the int8 chunk body runs at the
+        # verify shape
+        out8, sched8, counts, ticks, wall = _counted_run(
+            eng, reqs, dict(SPEC_KW, kv_dtype="int8"))
+        _add(total, counts)
+        _check_spec_outputs(out8, reqs, eng.l.cfg)
+        verify8 = sched8.lrt.lane_ticks["live"]
+        same = [np.mean(out8[r.request_id]["tokens"]
+                        == out[r.request_id]["tokens"]) for r in reqs]
+        st = sched8.stats
+        log(f"  speculative over int8 pools, theta {THETA}: {ticks} ticks "
+            f"({verify8} verify), {len(out8) / wall:.2f} req/s; accepted "
+            f"{st['accepted']} of {st['drafted']}; int8 chunk kernel "
+            f"{counts['decode_attention_chunk_paged[int8]']} launches as the"
+            f" lane flags predict; tokens equal to the bf16 run's at "
+            f"{np.mean(same):.3f} of positions (free run, reported)")
+    finally:
+        eng.hi = dataclasses.replace(eng.hi, theta=THETA)
+    return total, n_l * (verify0 + verify), n_l * verify8
+
+
+def _check_spec_outputs(out, reqs, cfg):
+    import numpy as np
+    for r in reqs:
+        rec = out[r.request_id]
+        n = min(r.max_new_tokens, MAX_NEW)
+        if rec["status"] != "ok" or len(rec["tokens"]) != n:
+            raise AssertionError(f"request {r.request_id}: {rec['status']}, "
+                                 f"{len(rec['tokens'])} tokens, want {n}")
+        if not ((rec["tokens"] >= 0) & (rec["tokens"] < cfg.vocab_size)).all():
+            raise AssertionError("token ids out of range")
+        if sum(k for _, k in rec["rounds"]) + 1 < n:
+            raise AssertionError("rounds do not account for the tokens")
+        if not (np.isfinite(rec["confidence"])
+                and 0 <= rec["confidence"] <= 1):
+            raise AssertionError("confidence not finite in [0, 1]")
+
+
+def ssm_speculative_phase():
+    """mamba2-370m at full width cut to ``CHUNK_DEPTH`` layers (S 2):
+    speculative with the chunk lane on (``CHUNK_KW`` with a 64 bucket,
+    whose prompts take the admit lane), the S draft staging
+    every step's state and the verify rolling both tiers back through it.
+    Theta 0 equals the plain stream's S tokens; theta 0.6 equals the host
+    oracle on decisive positions.  Reports the state bytes the lane copies
+    a tick, here and at full depth.  Returns the launches."""
+    import numpy as np
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.batcher import Request
+
+    cfg = dataclasses.replace(ARCHS[SSM_ARCH], num_layers=CHUNK_DEPTH)
+    eng = engine_mod.build_engine(
+        cfg, HIConfig(theta=THETA, capacity_factor=CAPACITY), seed=0,
+        cache_len=CACHE_LEN, max_new_tokens=MAX_NEW, device="cuda")
+    rng = np.random.default_rng(6)
+    reqs = [Request(i, rng.integers(1, cfg.vocab_size, int(n))
+                    .astype(np.int32), max_new_tokens=MAX_NEW)
+            for i, n in enumerate(np.concatenate(
+                [rng.integers(24, 65, 2), rng.integers(65, 201, 4)]))]
+    # prompts of the 64 bucket take the admit lane (ssd_chunk), the
+    # longer ones the chunk lane
+    plain_kw = dict(CHUNK_KW, buckets=(64, 128, 256))
+    kw = dict(plain_kw, speculative=True)
+    total = {}
+    plain, _, counts, _, _ = _counted_run(eng, reqs, plain_kw)
+    _add(total, counts)
+    try:
+        eng.hi = dataclasses.replace(eng.hi, theta=0.0)
+        out, _, counts, _, _ = _counted_run(eng, reqs, kw)
+        _add(total, counts)
+        for rid, rec in out.items():
+            if not np.array_equal(rec["tokens"], plain[rid]["s_tokens"]):
+                raise AssertionError(f"{SSM_ARCH} request {rid}: "
+                                     "speculative at theta 0 != the plain "
+                                     "stream's S tokens")
+        eng.hi = dataclasses.replace(eng.hi, theta=THETA)
+        out, sched, counts, ticks, wall = _counted_run(eng, reqs, kw)
+        _add(total, counts)
+        _check_spec_outputs(out, reqs, cfg)
+        whole, compared = _spec_oracle(eng, reqs, out, kw)
+        if compared == 0:
+            raise AssertionError("no decisive token to compare")
+    finally:
+        eng.hi = dataclasses.replace(eng.hi, theta=THETA)
+    st = sched.stats
+
+    def row_bytes(rt):
+        # state and conv window of one slot in one layer of a tier
+        return sum(t[0, 0].numel() * t.element_size()
+                   for t in (rt.pool.buffers["state"],
+                             rt.pool.buffers["conv"]))
+
+    kb, b = kw["decode_block"], kw["num_slots"]
+    s_row, l_row = row_bytes(sched.srt), row_bytes(sched.lrt)
+    # the S draft copies every step's rows; the verify one copy before its
+    # chunk and one per chunk step
+    per_tick = (kb * eng.s.cfg.num_layers * s_row
+                + (kb + 1) * cfg.num_layers * l_row) * b
+    full = ARCHS[SSM_ARCH]
+    full_s = full.s_variant(eng.hi.s_scale)
+    full_tick = (kb * full_s.num_layers * s_row
+                 + (kb + 1) * full.num_layers * l_row) * b
+    log(f"  speculative {cfg.name} at {CHUNK_DEPTH} layers (S "
+        f"{eng.s.cfg.num_layers}), {len(reqs)} prompts, {kw}: theta 0 equal"
+        f" to the plain stream's S tokens; theta {THETA}: {ticks} ticks, "
+        f"{wall * 1e3:.1f} ms, drafted {st['drafted']}, accepted "
+        f"{st['accepted']}; {whole} of {min(SPEC_ORACLE, len(reqs))} requests"
+        f" equal to the host oracle throughout, {compared} tokens compared;"
+        f" recurrent state copied for the rollback: "
+        f"{per_tick / 2 ** 20:.1f} MiB a tick here, "
+        f"{full_tick / 2 ** 20:.1f} MiB at full depth ({full.num_layers} / "
+        f"{full_s.num_layers} layers; not run)")
+    del eng
+    return total
+
+
 def _check_stream_outputs(out, reqs, cfg, theta, statuses):
     import numpy as np
     for r in reqs:
@@ -1817,6 +2310,7 @@ def main(argv=None) -> int:
                check_ssd_chunk(gen), check_decode_attention_paged_int8(gen),
                check_decode_attention_chunk_paged_int8(gen),
                check_copy_pages(gen, quant=True)]
+    verify_cases = check_verify_chunk(gen)
     total = dict.fromkeys(_kernel_names(), 0)   # launches over every path
 
     def add(counts):
@@ -1841,6 +2335,16 @@ def main(argv=None) -> int:
                                       ("cow", "saved", "chunk"),
                                       max_ratio=INT8_MAX_RATIO)
     add(int8_launches)
+    log(f"== faults ({ARCH}: the stream trace under a seeded schedule)")
+    fault_launches = fault_stream_phase(eng, stream_reqs, stream_out)
+    add(fault_launches)
+    log(f"== observability ({ARCH}: telemetry, gate audit, SLO watchdog, "
+        "flight recorder)")
+    add(observability_phase(eng, stream_reqs, args.trace))
+    log(f"== speculative ({ARCH}: the draft-verify lane)")
+    spec_launches, *verify_launches = speculative_phase(eng, stream_reqs,
+                                                        stream_out)
+    add(spec_launches)
     del eng
     torch.cuda.empty_cache()
 
@@ -1865,6 +2369,10 @@ def main(argv=None) -> int:
     log(f"== chunk lane ({SSM_ARCH} widths, {CHUNK_DEPTH} layers)")
     add(chunk_lane_phase())
     torch.cuda.empty_cache()
+    log(f"== speculative ({SSM_ARCH} widths, {CHUNK_DEPTH} layers)")
+    ssm_spec = ssm_speculative_phase()
+    add(ssm_spec)
+    torch.cuda.empty_cache()
 
     log(f"== serve_stream ({HYBRID_ARCH} widths, {HYBRID_DEPTH} layers)")
     check_small_reference(HYBRID_ARCH)
@@ -1885,7 +2393,14 @@ def main(argv=None) -> int:
               "decode_attention_chunk_paged[int8]", "copy_pages[int8]")),
             (f"{HYBRID_ARCH} int8", hybrid_int8,
              ("ssd_chunk", "decode_attention_paged[int8]",
-              "copy_pages[int8]"))):
+              "copy_pages[int8]")),
+            (f"{ARCH} faults", fault_launches,
+             ("hi_gate", "decode_attention_paged",
+              "decode_attention_chunk_paged")),
+            (f"{ARCH} speculative", spec_launches,
+             ("hi_gate", "decode_attention_paged",
+              "decode_attention_chunk_paged")),
+            (f"{SSM_ARCH} speculative", ssm_spec, ("hi_gate", "ssd_chunk"))):
         for n in names:
             if counts[n] == 0:
                 raise AssertionError(f"{n} never launched on the {path} path")
@@ -1894,6 +2409,16 @@ def main(argv=None) -> int:
         k["launches"] = total[k["name"]]
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
+    # the chunk kernel's entries carry the verify shape's case beside their
+    # own: its launches are one per L layer and verify tick
+    for case, n in zip(verify_cases, verify_launches):
+        entry = next(k for k in kernels if k["name"] == case["name"])
+        case["launches"] = n
+        entry["verify"] = {k: case[k] for k in (
+            "shape", "launches", "max_abs_err", "ms", "device_ms",
+            "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "gather_sdpa_ms")}
+        entry["max_abs_err"] = max(entry["max_abs_err"], case["max_abs_err"])
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

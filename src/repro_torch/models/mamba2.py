@@ -427,7 +427,7 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
     return _step(params, cfg, token, cache), cache
 
 
-def _snapshot(cache: Params, b: int, axis: int) -> Params:
+def snapshot_rows(cache: Params, b: int, axis: int) -> Params:
     """A copy of rows [:b] of the recurrent leaves (rows on ``axis``)."""
     return {k: _rows(cache[k], axis)[:b].movedim(0, axis).clone()
             for k in ("state", "conv")}
@@ -447,7 +447,7 @@ def chunk_steps(step, tokens: torch.Tensor, cache: Params, keep, axis: int):
     for j in range(c):
         logits.append(step(tokens[:, j:j + 1], j))
         if pick is None or j in pick:
-            snaps[j] = _snapshot(cache, b, axis)
+            snaps[j] = snapshot_rows(cache, b, axis)
     if pick is None:
         staged = {k: torch.stack([snaps[j][k] for j in range(c)])
                   for k in ("state", "conv")}

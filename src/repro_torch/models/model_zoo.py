@@ -23,7 +23,8 @@ pool carries ``ks``/``vs`` scale rows, one per physical page and kv head):
   init_prefix_cache(cfg, entries, device)      -> {"logits": (E + 1, V), ...}
 
 and the recurrent-state hooks the scheduler calls for every family
-(``gather_chunk_slots`` ... ``snapshot_restore``).  They pass through for
+(``gather_chunk_slots`` ... ``snapshot_restore``, and ``draft_stage`` for
+the speculative lane's rollback).  They pass through for
 the dense family, whose state is the pages; for the SSM and hybrid
 families they move per-slot state rows.  Every hook updates the caches IN
 PLACE, as the pages are: the scheduler's tick uses no return value but
@@ -182,6 +183,16 @@ def chunk_stage(cfg: ModelConfig, cache):
     if not _recurrent(cfg):
         return {}
     return mamba2.chunk_stage(cfg, cache)
+
+
+def draft_stage(cfg: ModelConfig, cache, b: int):
+    """A copy of rows [:b] of the recurrent state ({} for the dense
+    family): the speculative lane's per-step snapshot, and the verify's
+    pre-chunk state, from which ``restore_stage`` / ``select_stage``
+    roll a slot back."""
+    if not _recurrent(cfg):
+        return {}
+    return mamba2.snapshot_rows(cache, b, _SLOT_AXIS[cfg.family])
 
 
 def restore_stage(cfg: ModelConfig, cache, stage, mask: torch.Tensor):

@@ -28,7 +28,15 @@ of the reference is not ported yet (ROADMAP Queue A item 4).
 
 Continuous serving.  :meth:`HIEngine.serve_stream` serves requests through
 ``scheduler.ContinuousScheduler``: slot-level admission over the paged KV
-pools, prefix sharing and chunked prefill, one ``_host_fetch`` per tick.
+pools, prefix sharing and chunked prefill, the speculative draft-verify
+lane, seeded transport faults with retries and the circuit breaker, and the
+host-side collectors (telemetry, gate audit, SLO watchdog, flight
+recorder), with one ``_host_fetch`` per tick.
+
+Counters.  ``stats`` is a dict view over the engine's typed counters
+(``telemetry.EngineStatsView``): the keys the scheduler also counts read
+the live scheduler's counters, so the engine's totals and the scheduler's
+cannot diverge.
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ from repro_torch.core import router as router_mod
 from repro_torch.kernels import ops
 from repro_torch.models import model_zoo
 from repro_torch.serving import sampler
+from repro_torch.serving.telemetry import EngineCounters, EngineStatsView
 
 KV_DTYPE = torch.bfloat16
 RESULT_KEYS = ("tokens", "s_tokens", "confidence", "offloaded",
@@ -170,10 +179,8 @@ class HIEngine:
         # (batch, bucket) -> [cascade fn, s_cache, l_cache]
         self._buffers: Dict[Tuple[int, int], list] = {}
         self._stream = None           # (scheduler key, ContinuousScheduler)
-        self.stats: Dict[str, float] = {
-            "requests": 0, "offloaded": 0, "dropped": 0, "serve_time": 0.0,
-            "cache_allocs": 0, "stream_compiles": 0, "stream_ticks": 0,
-            "prefill_tokens_saved": 0, "degraded_local": 0, "rejected": 0}
+        self.counters = EngineCounters()
+        self.stats: EngineStatsView = EngineStatsView(self.counters)
 
     def _entry(self, b: int, s: int) -> list:
         """The cascade and the tier caches for a (batch, bucket) shape,
@@ -261,10 +268,36 @@ class HIEngine:
         per-head float32 scales (about half the bf16 pool's bytes for the
         dense family; the recurrent state does not shrink).
 
-        Not ported yet, and raising ``NotImplementedError``: temperature > 0
-        (Queue A item 4), an active ``faults`` schedule, ``retry``,
-        ``telemetry``, ``audit``, ``watchdog`` and ``flight_recorder`` (item
-        7), ``speculative`` (item 9) and ``mesh`` (item 14).
+        ``speculative`` fuses the S->L draft-verify token cascade into the
+        tick (``serving/token_cascade.py`` is its host oracle): the S tier
+        drafts ``decode_block`` tokens per slot, a block whose minimum
+        hi_gate confidence clears theta is accepted at S-tier cost, the
+        rest get one batched L verify chunk with longest-prefix acceptance
+        and an in-tick rollback of the rejected tail.  Greedy-only, as in
+        the reference: a request with temperature > 0 raises.
+
+        ``faults`` (a ``serving.faults.FaultSchedule``) injects seeded
+        transport faults on the S->L escalation path (delivery delay, loss,
+        L outage windows, latency spikes) and ``retry`` (a
+        ``RetryPolicy``) sets the backoff, the circuit breaker (open =
+        fail-local: the L queue pauses and the tick's theta operand drops
+        to ``FAIL_LOCAL_THETA``) and the admission retry cap.  Every record
+        carries ``status`` in {``ok``, ``degraded_local``, ``dropped``,
+        ``rejected``}; faults never change a tensor shape.  Speculative
+        mode has no L queue: an active schedule there raises.
+
+        ``telemetry`` (``serving.telemetry.Telemetry``), ``audit``
+        (``serving.audit.GateAudit``), ``watchdog``
+        (``serving.audit.SLOWatchdog``) and ``flight_recorder``
+        (``serving.flight_recorder.FlightRecorder``) install the host-side
+        collectors for this call: span trees and tick-phase times, the
+        per-decision gate audit, once-per-tick SLO checks, and the
+        tick-snapshot ring with its postmortem dumps.  They read what the
+        tick's one fetch brought back and add no device sync; outputs are
+        token for token those with the collectors off.
+
+        Not ported, and raising ``NotImplementedError``: temperature > 0
+        (Queue A item 4) and ``mesh`` (item 14).
 
         Returns per-request result records keyed by request_id."""
         from repro_torch.serving.batcher import AdmissionQueue
@@ -273,21 +306,15 @@ class HIEngine:
 
         requests = list(requests)
         hot = [r.request_id for r in requests if r.temperature > 0]
+        if hot and speculative:
+            raise NotImplementedError(
+                "speculative serving is greedy-only: requests "
+                f"{hot} set temperature > 0, which requires rejection "
+                "sampling (the reference's refusal; future work)")
         if hot:
             raise NotImplementedError(
                 f"requests {hot} set temperature > 0: temperature sampling "
                 "is not ported (ROADMAP Queue A item 4)")
-        if (faults is not None and faults.active) or retry is not None:
-            raise NotImplementedError(
-                "fault schedules and retry policies are not ported: ROADMAP "
-                "Queue A item 7 (faults and observability)")
-        for name, obj in (("telemetry", telemetry), ("audit", audit),
-                          ("watchdog", watchdog),
-                          ("flight_recorder", flight_recorder)):
-            if obj is not None:
-                raise NotImplementedError(
-                    f"{name} is not ported: ROADMAP Queue A item 7 (faults "
-                    "and observability)")
         key = (tuple(sorted(buckets)), num_slots, l_slots, page_size,
                admit_width, decode_block, prefix_sharing, prefix_entries,
                chunk_prefill, chunk_size, chunk_width, speculative, kv_dtype,
@@ -306,30 +333,23 @@ class HIEngine:
             self._stream = (key, sched)
             self.stats["stream_compiles"] += sched.stats["compiles"]
         sched = self._stream[1]
-        sched.set_faults(NO_FAULTS, RetryPolicy(), validate)
+        # the engine's totals read this scheduler's counters live (a
+        # replaced scheduler's totals fold into the base first)
+        self.stats.attach(sched)
+        sched.set_audit(audit)
+        sched.set_telemetry(telemetry)
+        sched.set_watchdog(watchdog)
+        sched.set_flight_recorder(flight_recorder)
+        sched.set_faults(faults if faults is not None else NO_FAULTS,
+                         retry if retry is not None else RetryPolicy(),
+                         validate)
         queue = AdmissionQueue(buckets=buckets,
                                page_size=page_size if prefix_sharing else None)
         for r in requests:
             queue.submit(r)
         theta = (self.online_policy.theta if self.online_policy is not None
                  else self.hi.theta)
-        before = self._stream_totals(sched)
-        try:
-            return sched.run(queue, theta=theta)
-        finally:
-            after = self._stream_totals(sched)
-            for k in after:
-                self.stats[k] += after[k] - before[k]
-
-    @staticmethod
-    def _stream_totals(sched) -> Dict[str, float]:
-        """The scheduler's counters under the engine's stats keys."""
-        c = sched.counters
-        return {"requests": c.requests, "offloaded": c.offloaded,
-                "dropped": c.dropped, "serve_time": c.serve_time,
-                "stream_ticks": c.ticks, "degraded_local": c.degraded_local,
-                "rejected": c.rejected,
-                "prefill_tokens_saved": sched.prefix_stats["tokens_saved"]}
+        return sched.run(queue, theta=theta)
 
     def summary(self) -> Dict[str, float]:
         n = max(self.stats["requests"], 1)

@@ -4,10 +4,12 @@ The port's copy of the reference's ``serving/faults.py``: the per-request
 status vocabulary (:data:`STATUSES`), the seeded transport-fault schedule
 (:class:`FaultSchedule`, :data:`NO_FAULTS`), the retry policy, the simulated
 ED<->ES link (:class:`EscalationLink`) and the circuit breaker.  The
-scheduler passes every escalation through the link and the breaker even
-under :data:`NO_FAULTS`, so escalation timing, ``queue_wait_ticks`` and the
-record fields are the reference's.  Running with a non-empty schedule is
-not ported yet (``serve_stream`` raises; ROADMAP Queue A item 7).
+scheduler passes every escalation through the link and the breaker, under
+:data:`NO_FAULTS` too, so escalation timing, ``queue_wait_ticks`` and the
+record fields are the reference's; ``serve_stream(faults=..., retry=...)``
+installs a schedule and a policy for one call.  None of it touches the
+device: faults change which requests the lanes serve and the tick's theta
+operand, never a tensor shape.
 
 Every decision is a pure function of ``(seed, request_id, attempt)`` or of
 the run-relative tick, so a replayed run sees the identical fault sequence.

@@ -1,9 +1,9 @@
 """Continuous-batching scheduler over the paged KV pool, single device.
 
-The port of the reference's ``serving/scheduler.py`` for role ``"plain"``:
-slot-level admission instead of drained batches.  Each tier owns
-``num_slots`` decode slots backed by one :class:`KVPool`; every scheduler
-tick runs, per tier and in this order:
+The port of the reference's ``serving/scheduler.py``: slot-level admission
+instead of drained batches.  Each tier owns ``num_slots`` decode slots
+backed by one :class:`KVPool`; every scheduler tick runs, per tier and in
+this order:
 
 1. **COW lane** (prefix sharing): the admission plans' copy-on-write page
    copies, so appends never touch a shared page;
@@ -15,7 +15,20 @@ tick runs, per tier and in this order:
    their next C tokens; a slot that consumes its last chunk samples token 0
    and joins decode in the same tick;
 4. **decode lane**: ``decode_block`` decode steps for every decoding slot at
-   per-slot positions.
+   per-slot positions; in speculative mode this is the S tier's DRAFT,
+   with a copy of the recurrent rows after every step;
+5. **verify lane** (``speculative``, L tier only): one
+   ``forward_chunk_paged`` pass over the S tier's drafted block, the
+   token-level S->L cascade.  Per slot, a block whose minimum hi_gate
+   confidence clears theta is accepted at S-tier cost; otherwise the L
+   logits re-derive each draft position greedily, the longest agreeing
+   prefix is kept, the first divergence takes L's token (the bonus), and
+   both tiers roll back the rejected tail: recurrent state through
+   ``select_stage`` over the staged copies, attention state by rewinding
+   the host position (``KVPool.truncate`` asserts the rewind never
+   reaches a shared page).  The verify takes the S tier's drafts, staged
+   states and last tokens as device tensors, and the S rollback takes L's
+   ``keep`` on the device: nothing crosses to the host between the tiers.
 
 Where the reference traces every lane into one executable and skips idle
 ones with ``lax.cond``, the port runs each lane's tensor code eagerly and
@@ -46,11 +59,25 @@ starts from a zero state, as a prefill does.
 
 The L-tier queue enforces the time-constrained offloading drop rule (Fresa
 & Champati, arXiv:2112.11413), and every S->L escalation crosses the
-reference's host-side transport model (``faults.EscalationLink`` and
-``CircuitBreaker``) even under ``NO_FAULTS``, so escalation timing and the
-record fields (``status``, ``queue_wait_ticks`` ...) are the reference's.
-Fault schedules, telemetry collectors, the speculative lane and the mesh
-path are not ported yet (ROADMAP Queue A items 7, 9 and 14).
+host-side transport model of ``serving/faults.py``: a seeded
+``FaultSchedule`` (delay, loss, L outages, latency spikes) set with
+:meth:`ContinuousScheduler.set_faults`, retries with capped backoff, and
+the circuit breaker, whose open state runs the tick with theta
+``FAIL_LOCAL_THETA`` (a device operand, so nothing is rebuilt).  Every
+request ends with one record whose ``status`` is in ``faults.STATUSES``;
+an outage releases busy L slots' pages through ``KVPool.free``, and
+``validate=True`` checks both pools' invariants after every tick.
+Speculative mode has no L queue, so an active schedule there raises, as in
+the reference.  The mesh path is not ported yet (ROADMAP Queue A item 14).
+
+Observability.  :meth:`set_telemetry`, :meth:`set_audit`,
+:meth:`set_watchdog` and :meth:`set_flight_recorder` install the host-side
+collectors of ``telemetry.py``, ``audit.py`` and ``flight_recorder.py``.
+Each hook is one ``is None`` branch when its collector is off; on, they
+read host clocks and what the tick's one fetch brought back, and add no
+device sync.  The phase marks are ``fault_tick``, ``build_operands``,
+``dispatch`` (kernel launches, asynchronous on the card), ``host_fetch``
+(where the device time surfaces) and ``postprocess``.
 ``kv_dtype="int8"`` stores both tiers' pages as int8 with one float32 scale
 per physical page and kv head; the paged kernels dequantise in the gather
 and the COW copies move the scale rows with their pages, in the same
@@ -80,7 +107,7 @@ from repro_torch.serving.faults import (FAIL_LOCAL_THETA, NO_FAULTS,
                                         EscalationLink, FaultSchedule,
                                         RetryPolicy)
 from repro_torch.serving.kv_pool import AdmitPlan, KVPool
-from repro_torch.serving.telemetry import SchedCounters, StatsView
+from repro_torch.serving.telemetry import SchedCounters, StatsView, Telemetry
 
 # lanes whose ticks each tier counts from its host flags; "prefill" is the
 # admit lane's batched prefill, skipped on ticks whose admissions all
@@ -111,11 +138,14 @@ def _upload(arrays: Dict[str, np.ndarray],
 
 
 def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
-                  sharing: bool, chunk: int = 0):
+                  sharing: bool, chunk: int = 0, role: str = "plain"):
     """The per-tier tick: COW copies, batched admission prefill with the
     prefix-cache save / restore, the chunk-prefill lane and
-    ``decode_block`` decode steps.  ``tin`` holds the tick's device
-    operands, ``flags`` the host values its branches read."""
+    ``decode_block`` decode steps (``role`` ``"plain"``, or ``"spec_s"``,
+    the speculative draft, which also returns its staged states), or, for
+    ``role == "spec_l"``, the verify lane over the S tier's drafts.  ``tin``
+    holds the tick's device operands, ``flags`` the host values its
+    branches read."""
 
     def conf_of(logits, theta):
         return ops.hi_gate(logits, theta, metric)[0]
@@ -178,7 +208,58 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
         last = logits_c[torch.arange(w, device=dev), idx]
         return sampler.greedy(last), conf_of(last, theta)
 
-    def tick(params, theta, tin, flags, pool: KVPool):
+    def verify(params, theta, tin, flags, pool: KVPool, draft, wb):
+        """The fused verify chunk over the S tier's drafts (greedy-only
+        acceptance).  ``draft`` holds the S tick's device tensors: ``toks``
+        and ``confs`` (K, B) and ``last0`` (B + 1,)."""
+        k = decode_block
+        block = tin["block"]
+        b = block.shape[0]
+        dev = block.device
+        if not flags["any_live"]:
+            zi = torch.zeros((b,), dtype=torch.int64, device=dev)
+            return {"toks": torch.zeros((b, k), dtype=torch.int64,
+                                        device=dev),
+                    "confs": torch.zeros((b, k), dtype=torch.float32,
+                                         device=dev),
+                    "keep": zi, "accept": zi,
+                    "esc": torch.zeros((b,), dtype=torch.bool, device=dev),
+                    "n_emit": zi,
+                    "match": torch.zeros((b, k), dtype=torch.bool,
+                                         device=dev),
+                    "draft_confs": torch.zeros((b, k), dtype=torch.float32,
+                                               device=dev)}
+        toks, confs = draft["toks"], draft["confs"]          # (K, B)
+        # input j of the chunk is the token before draft j
+        vin = torch.cat([draft["last0"][None, :b], toks[:-1]], 0).T
+        core = pool.buffers
+        pre = model_zoo.draft_stage(cfg, core, b)
+        vlog, core, staged = model_zoo.forward_chunk_paged(
+            params, cfg, vin, tin["pos"], block, core, write_block=wb)
+        lv = sampler.greedy(vlog)                             # (B, K)
+        live = tin["draft_live"]
+        esc = (confs.min(dim=0).values < theta) & live
+        match = lv == toks.T
+        m = torch.where(match.all(dim=1), k,
+                        torch.argmax((~match).to(torch.int32), dim=1))
+        accept = torch.where(esc, m, k)                       # drafts kept
+        keep = torch.where(esc, torch.clamp(m + 1, max=k), k)  # inputs kept
+        model_zoo.restore_stage(cfg, core, pre, ~live)
+        sel = model_zoo.select_stage(cfg, staged, keep)
+        model_zoo.restore_stage(cfg, core, sel, live)
+        cols = torch.arange(k, device=dev)[None, :]
+        bonus = esc[:, None] & (cols == m[:, None])
+        return {"toks": torch.where(bonus, lv, toks.T),
+                # an L-verified token
+                "confs": torch.where(bonus, 1.0, confs.T),
+                "keep": keep, "accept": accept, "esc": esc,
+                "n_emit": torch.where(esc & (m < k), m + 1, k),
+                # the audit's ground truth: the raw per-position accept /
+                # reject and the S draft confidences (``confs`` sets the
+                # bonus position to 1.0, which would skew calibration)
+                "match": match, "draft_confs": confs.T}
+
+    def tick(params, theta, tin, flags, pool: KVPool, draft=None):
         a = tin["admit_tokens"].shape[0]
         n_slots = tin["last_tok"].shape[0]
         dev = tin["last_tok"].device
@@ -208,11 +289,15 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
         b = block.shape[0]
         wb = tin["draft_wblock"] if chunk else \
             (tin["wblock"] if sharing else None)
+        if role == "spec_l":
+            out.update(verify(params, theta, tin, flags, pool, draft, wb))
+            return out
+        staged = {}
         if flags["any_live"]:
             core = pool.buffers
             pre_d = model_zoo.chunk_stage(cfg, core) if chunk else None
             last = last0[:n_slots]
-            toks, confs = [], []
+            toks, confs, snaps = [], [], []
             for kk in range(decode_block):
                 logits, core = model_zoo.decode_step_paged(
                     params, cfg, last[:, None], tin["pos"] + kk, block, core,
@@ -220,6 +305,8 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
                 confs.append(conf_of(logits, theta))
                 last = sampler.greedy(logits)
                 toks.append(last)
+                if role == "spec_s":
+                    snaps.append(model_zoo.draft_stage(cfg, core, b))
             if chunk:
                 # slots still mid chunk-prefill took garbage decode steps:
                 # their page writes went to the null page; restore their
@@ -227,12 +314,17 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
                 model_zoo.restore_stage(cfg, core, pre_d, ~tin["draft_live"])
             out["toks"] = torch.stack(toks)                  # (K, B)
             out["confs"] = torch.stack(confs)
+            staged = {key: torch.stack([s[key] for s in snaps])
+                      for key in (snaps[0] if snaps else {})}
         else:
             # no decoding slot this tick (e.g. all still chunk-prefilling)
             out["toks"] = torch.zeros((decode_block, b), dtype=torch.int64,
                                       device=dev)
             out["confs"] = torch.zeros((decode_block, b),
                                        dtype=torch.float32, device=dev)
+        if role == "spec_s":
+            return out, {"staged": staged, "toks": out["toks"],
+                         "confs": out["confs"], "last0": last0}
         return out
 
     return tick
@@ -245,6 +337,7 @@ class _Active:
     steps: int
     tokens: List[int] = field(default_factory=list)
     confs: List[float] = field(default_factory=list)
+    rounds: List = field(default_factory=list)   # spec: (escalated, n_emit)
     first_tok: float = 0.0                       # monotonic first-emit time
     hit_eos: bool = False
 
@@ -275,7 +368,7 @@ class _TierRuntime:
                  page_size: int, admit_width: int, device,
                  prefix_entries: int = 0, max_prompt_len: int = 0,
                  num_pages: Optional[int] = None, chunk_size: int = 0,
-                 chunk_width: int = 2, name: str = "S",
+                 chunk_width: int = 2, spec: bool = False, name: str = "S",
                  dtype=torch.bfloat16):
         if num_pages is None:
             # sharing headroom: beyond every slot's full context, enough
@@ -287,7 +380,8 @@ class _TierRuntime:
                            num_pages=num_pages, dtype=dtype,
                            prefix_entries=prefix_entries, device=device)
         self.sharing = prefix_entries > 0
-        self.name = name
+        self.name = name               # tier label for telemetry tracks
+        self.spec = spec
         self.num_slots = num_slots
         self.admit_width = admit_width
         self.chunk_size = chunk_size
@@ -328,7 +422,7 @@ class _TierRuntime:
         if slot is None:
             return None
         chunked = bool(self.chunk_size) and adm.bucket > self.chunk_size
-        if self.sharing:
+        if self.sharing and not (chunked and self.spec):
             plan = self.pool.admit_prefix(slot, context, adm.bucket,
                                           adm.page_hashes, adm.full_hash,
                                           tick, register=not chunked)
@@ -336,6 +430,16 @@ class _TierRuntime:
                 return None
             if plan.is_restore:
                 chunked = False          # full hit: restoring beats chunking
+        elif self.sharing:
+            # speculative pairing: both tiers chunk in lock-step (the verify
+            # lane needs both ready), so chunked admissions skip per-tier
+            # prefix hits: a hit in one tier's index and not the other's
+            # would desynchronise the pair's prefill
+            try:
+                self.pool.alloc(slot, context, tick=tick)
+            except ValueError:
+                return None
+            plan = AdmitPlan(slot=slot)
         else:
             if not self.pool.can_alloc(context):
                 return None
@@ -367,7 +471,8 @@ class _TierRuntime:
         """This tick's operands (numpy, copied to the device by the caller)
         and the host values the tick branches on: ``any_admit``,
         ``any_prefill``, ``any_cow`` with the ``cow_src``/``cow_dst`` pairs,
-        ``any_chunk`` and ``any_live``."""
+        ``any_chunk`` and ``any_live``.  In speculative mode
+        ``draft_live`` marks the slots that draft and verify."""
         a = self.admit_width
         tokens = np.zeros((a, s_max), np.int32)
         lens = np.ones((a,), np.int32)
@@ -442,6 +547,9 @@ class _TierRuntime:
             flags["any_live"] = bool(dlive.any())
         else:
             flags["any_live"] = self.busy > 0
+            if self.spec:
+                out["draft_live"] = np.asarray(
+                    [r is not None for r in self.slot_req])
         if not self.sharing:
             flags["any_prefill"] = bool(self.admitted)
             return out, self._count(flags)
@@ -485,16 +593,21 @@ class _TierRuntime:
         return flags
 
 
+
+
 class ContinuousScheduler:
     """Slot-level admission over paged pools for both cascade tiers.
 
     ``admit_width`` batches admission prefills like the drain path batches
-    prompts; ``decode_block`` fuses that many decode steps per tick.
-    ``prefix_sharing`` turns on the pools' content-addressed prefix reuse;
-    ``chunk_prefill`` routes prompts longer than ``chunk_size`` through the
-    chunk lane (C tokens per tick, interleaved with decode).  Kernels are
-    chosen by the device the tiers' params live on: CUDA kernels on the
-    card, their plain versions on the CPU.
+    prompts; ``decode_block`` fuses that many decode steps per tick (and is
+    the speculative draft length K).  ``prefix_sharing`` turns on the
+    pools' content-addressed prefix reuse; ``chunk_prefill`` routes prompts
+    longer than ``chunk_size`` through the chunk lane (C tokens per tick,
+    interleaved with decode).  ``speculative`` fuses the S->L draft-verify
+    token cascade into the tick (greedy-only; both tiers admit every
+    request at the same slot index, so the L tier has ``num_slots``
+    slots).  Kernels are chosen by the device the tiers' params live on:
+    CUDA kernels on the card, their plain versions on the CPU.
     """
 
     def __init__(self, s_tier, l_tier, hi: HIConfig, *, max_prompt_len: int,
@@ -513,11 +626,13 @@ class ContinuousScheduler:
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be 'bf16' or 'int8', "
                              f"got {kv_dtype!r}")
-        if speculative:
-            raise NotImplementedError(
-                "speculative=True is not ported: ROADMAP Queue A item 9 "
-                "(speculative lane)")
         if mesh is not None:
+            if speculative:
+                raise NotImplementedError(
+                    "speculative + mesh: the fused draft-verify cascade "
+                    "pairs S and L slots 1:1, which a replicated S tier "
+                    "breaks (the reference's refusal, same precedent as "
+                    "speculative + faults)")
             raise NotImplementedError(
                 "mesh= is not ported: ROADMAP Queue A item 14 (multi-device)")
         if chunk_prefill and chunk_size < 1:
@@ -534,8 +649,12 @@ class ContinuousScheduler:
         self.max_new_tokens = max_new_tokens
         self.decode_block = max(1, decode_block)
         self.prefix_sharing = prefix_sharing
+        self.speculative = speculative
         self.chunk = int(chunk_size) if chunk_prefill else 0
-        l_slots = l_slots if l_slots is not None else max(2, num_slots // 2)
+        if speculative:
+            l_slots = num_slots          # strict 1:1 slot pairing
+        else:
+            l_slots = l_slots if l_slots is not None else max(2, num_slots // 2)
         admit_width = admit_width if admit_width is not None else num_slots
         page = page_size
         raw_ctx = max_prompt_len + max_new_tokens + self.decode_block - 1
@@ -549,15 +668,16 @@ class ContinuousScheduler:
                                 prefix_entries=s_entries,
                                 max_prompt_len=max_prompt_len,
                                 num_pages=num_pages, chunk_size=self.chunk,
-                                chunk_width=chunk_width, name="S",
-                                dtype=pool_dtype)
+                                chunk_width=chunk_width, spec=speculative,
+                                name="S", dtype=pool_dtype)
         self.lrt = _TierRuntime(l_tier.cfg, l_slots, max_context, page,
-                                min(admit_width, l_slots), self.device,
+                                admit_width if speculative
+                                else min(admit_width, l_slots), self.device,
                                 prefix_entries=l_entries,
                                 max_prompt_len=max_prompt_len,
                                 num_pages=num_pages, chunk_size=self.chunk,
-                                chunk_width=chunk_width, name="L",
-                                dtype=pool_dtype)
+                                chunk_width=chunk_width, spec=speculative,
+                                name="L", dtype=pool_dtype)
         # with chunking on and sharing off, every admit-lane prompt is <=
         # chunk_size: the batched admission pass shrinks from
         # (A, max_prompt_len) to (A, ~chunk_size)
@@ -567,6 +687,14 @@ class ContinuousScheduler:
                                     -(-self.chunk // page) * page)
         self.counters = SchedCounters()
         self.stats: StatsView = StatsView(self.counters)
+        # observability collectors (None = off: each hook is one branch)
+        self.tel: Optional[Telemetry] = None
+        self.aud = None                      # GateAudit
+        self.wd = None                       # SLOWatchdog
+        self.fr = None                       # FlightRecorder
+        self._opens_seen = 0                 # breaker-open dump edge
+        self._run_theta = float(hi.theta)    # the run's calibrated theta
+        self._eff_theta = float(hi.theta)    # the theta in effect this tick
         # fault-injection state (host-side; per run)
         self.faults: FaultSchedule = NO_FAULTS
         self.policy: RetryPolicy = RetryPolicy()
@@ -576,29 +704,61 @@ class ContinuousScheduler:
         self._esc_meta: Dict[int, Escalation] = {}
         self._probe: Optional[int] = None
         self._tick0 = 0
+        roles = ("spec_s", "spec_l") if speculative else ("plain", "plain")
         self._ticks = {
-            "s": _tier_tick_fn(s_tier.cfg, hi.metric, self.decode_block,
-                               self.srt.sharing, chunk=self.chunk),
-            "l": _tier_tick_fn(l_tier.cfg, hi.metric, self.decode_block,
-                               self.lrt.sharing, chunk=self.chunk)}
+            key: _tier_tick_fn(tier.cfg, hi.metric, self.decode_block,
+                               rt.sharing, chunk=self.chunk, role=role)
+            for key, tier, rt, role in (("s", s_tier, self.srt, roles[0]),
+                                        ("l", l_tier, self.lrt, roles[1]))}
         self.counters.compiles += 1
 
     def set_faults(self, faults: Optional[FaultSchedule] = None,
                    policy: Optional[RetryPolicy] = None,
                    validate: Optional[bool] = None) -> None:
         """Install the fault schedule / retry policy / per-tick invariant
-        checking for subsequent ``run`` calls.  Only ``NO_FAULTS`` is
-        ported: an active schedule raises."""
+        checking for subsequent ``run`` calls.  Host-side only: fault
+        windows are run-relative ticks (each ``run`` re-anchors tick 0, so
+        a schedule replays identically on a reused scheduler)."""
         if faults is not None:
-            if faults.active:
-                raise NotImplementedError(
-                    "fault schedules are not ported: ROADMAP Queue A item 7 "
-                    "(faults and observability)")
+            if self.speculative and faults.active:
+                raise ValueError(
+                    "fault injection models the S->L escalation QUEUE; "
+                    "speculative mode has no L queue (escalation is fused "
+                    "into the tick): the reference's refusal")
             self.faults = faults
         if policy is not None:
             self.policy = policy
         if validate is not None:
             self.validate = bool(validate)
+
+    def set_telemetry(self, tel: Optional[Telemetry]) -> None:
+        """Install (``Telemetry``) or remove (``None``) the telemetry
+        collector for subsequent ``run`` calls."""
+        self.tel = tel
+        if tel is not None:
+            tel.counters = self.counters
+            tel.audit = self.aud
+
+    def set_audit(self, aud) -> None:
+        """Install (``GateAudit``) or remove (``None``) the gate audit.  The
+        confidences it reads already come back in the tick's one
+        ``_host_fetch``."""
+        self.aud = aud
+        if self.tel is not None:
+            self.tel.audit = aud
+
+    def set_watchdog(self, wd) -> None:
+        """Install (``SLOWatchdog``) or remove (``None``) the once-per-tick
+        SLO evaluation; breaches become telemetry instant events and
+        flight-recorder dumps when those collectors are installed."""
+        self.wd = wd
+
+    def set_flight_recorder(self, fr) -> None:
+        """Install (``FlightRecorder``) or remove (``None``) the bounded
+        tick-snapshot ring.  Dumps fire on a watchdog breach, the breaker
+        opening, a ``check_invariants`` failure and the idle-tick stall
+        bound."""
+        self.fr = fr
 
     @property
     def prefix_stats(self) -> Dict[str, int]:
@@ -614,29 +774,122 @@ class ContinuousScheduler:
 
     def _dispatch(self, theta_t: torch.Tensor) -> Dict[str, Dict]:
         """Build both tiers' operands, copy them to the device at once, run
-        the tier ticks, and host-fetch the outputs: the tick's single
+        the tier ticks (in speculative mode the L verify takes the S
+        draft's device tensors, and the S tier rolls back to L's ``keep``
+        on the device), and host-fetch the outputs: the tick's single
         device->host copy."""
         from repro_torch.serving import engine as engine_mod  # _host_fetch
 
+        tel = self.tel
         tiers = (("s", self.srt, self.s), ("l", self.lrt, self.l))
         host_in, flags = {}, {}
         for key, rt, _ in tiers:
             arrays, flags[key] = rt.tick_inputs(self._admit_s_max)
             host_in.update({f"{key}.{k}": v for k, v in arrays.items()})
         dev_in = _upload(host_in, self.device)
-        outs = {}
-        for key, rt, tier in tiers:
-            tin = {k[2:]: v for k, v in dev_in.items()
-                   if k.startswith(key + ".")}
-            out = self._ticks[key](tier.params, theta_t, tin, flags[key],
-                                   rt.pool)
-            outs.update({f"{key}.{k}": v for k, v in out.items()})
-        fetched = engine_mod._host_fetch(outs)    # the tick's single sync
+        tins = {key: {k[2:]: v for k, v in dev_in.items()
+                      if k.startswith(key + ".")} for key, _, _ in tiers}
+        if tel is not None:
+            tel.mark("build_operands")
+        outs = {"s": {}, "l": {}}
+        if self.speculative:
+            s_out, ext = self._ticks["s"](self.s.params, theta_t, tins["s"],
+                                          flags["s"], self.srt.pool)
+            outs["s"] = s_out
+            outs["l"] = self._ticks["l"](self.l.params, theta_t, tins["l"],
+                                         flags["l"], self.lrt.pool,
+                                         draft=ext)
+            if flags["s"]["any_live"]:
+                # roll the S tier back to the accepted boundary: recurrent
+                # state from the draft's per-step copies (attention state
+                # is positional: the host rewinds pos)
+                cfg = self.s.cfg
+                sel = model_zoo.select_stage(cfg, ext["staged"],
+                                             outs["l"]["keep"])
+                model_zoo.restore_stage(cfg, self.srt.pool.buffers, sel,
+                                        tins["s"]["draft_live"])
+        else:
+            for key, rt, tier in tiers:
+                outs[key] = self._ticks[key](tier.params, theta_t, tins[key],
+                                             flags[key], rt.pool)
+        if tel is not None:
+            tel.mark("dispatch")
+        fetched = engine_mod._host_fetch(
+            {f"{key}.{k}": v for key in outs for k, v in outs[key].items()})
+        if tel is not None:
+            tel.mark("host_fetch")
         self.counters.ticks += 1
         host = {"s": {}, "l": {}}
         for k, v in fetched.items():
             host[k[0]][k[2:]] = v
         return host
+
+    def _gauges(self, l_queue_len: int = 0) -> Dict[str, float]:
+        """Per-tick telemetry gauges: host state the scheduler already
+        holds, so sampling moves nothing on the device."""
+        g: Dict[str, float] = {}
+        for rt in (self.srt, self.lrt):
+            for k, v in rt.pool.gauges().items():
+                g[f"{k}@{rt.name}"] = v
+            g[f"busy_slots@{rt.name}"] = rt.busy
+        g["l_queue_depth"] = l_queue_len
+        if self._link is not None:
+            g["esc_in_flight"] = self._link.pending
+        if self._breaker is not None:
+            g["breaker_state"] = self._breaker.state_id
+        return g
+
+    def _observe_tick(self, l_queue_len: int = 0) -> None:
+        """End-of-tick observability: telemetry gauges (with the audit's
+        aggregates), the SLO watchdog, the flight-recorder snapshot and its
+        dump triggers.  One branch with every collector off."""
+        tel, aud, wd, fr = self.tel, self.aud, self.wd, self.fr
+        if tel is None and wd is None and fr is None:
+            return
+        tick = self.counters.ticks - 1       # the tick just dispatched
+        gauges = self._gauges(l_queue_len)
+        if aud is not None:
+            gauges.update(aud.gauge_values())
+        if tel is not None:
+            tel.end_tick(gauges)
+        breaches = [] if wd is None else \
+            wd.evaluate(tick, tel=tel, audit=aud, gauges=gauges)
+        if tel is not None:
+            for b in breaches:
+                tel.instant(f"slo_breach:{b['kind']}", **b)
+        if fr is None:
+            return
+        # deterministic fields only: serve_time is wall clock and would
+        # break the byte-equal dumps
+        counters = {k: v for k, v in self.stats.items() if k != "serve_time"}
+        snap: Dict[str, Any] = {"tick": tick, "gauges": gauges,
+                                "counters": counters}
+        if fr.include_timings and tel is not None and tel.ticks:
+            snap["phase_seconds"] = {
+                p: round(t1 - t0, 9)
+                for p, t0, t1 in tel.ticks[-1].segments}
+        fr.record(snap)
+        for b in breaches:
+            fr.trigger(f"slo_breach:{b['kind']}", tick, b)
+        if self._breaker is not None \
+                and self._breaker.opens > self._opens_seen:
+            self._opens_seen = self._breaker.opens
+            fr.trigger("breaker_open", tick,
+                       {"opens": self._breaker.opens,
+                        "opened_tick": self._breaker.opened_tick})
+
+    def _check_pools(self, cur: int) -> None:
+        """``validate=True``: both pools' invariants after the tick; a
+        failure dumps the flight recorder before it re-raises."""
+        if not self.validate:
+            return
+        try:
+            self.srt.pool.check_invariants()
+            self.lrt.pool.check_invariants()
+        except AssertionError as e:
+            if self.fr is not None:
+                self.fr.trigger("invariant_failure", cur, {"error": str(e)})
+            raise
 
     @torch.inference_mode()
     def run(self, queue: AdmissionQueue, *, theta: Optional[float] = None
@@ -644,10 +897,11 @@ class ContinuousScheduler:
         """Drain ``queue`` through the slots; returns per-request records
         keyed by request_id: tokens / s_tokens / confidence / offloaded /
         served_remote / dropped / status / escalation_retries /
-        queue_wait_ticks / esc_created_tick / ttft, as the reference's.
-        Every submitted request terminates with exactly one record whose
-        ``status`` is one of ``faults.STATUSES``.  ``stats['serve_time']``
-        brackets the whole drain once."""
+        queue_wait_ticks / esc_created_tick / ttft, as the reference's,
+        plus the block accounting in speculative mode.  Every submitted
+        request terminates with exactly one record whose ``status`` is one
+        of ``faults.STATUSES``, under any fault schedule.
+        ``stats['serve_time']`` brackets the whole drain once."""
         t0 = time.perf_counter()
         try:
             return self._run(queue, theta)
@@ -662,18 +916,40 @@ class ContinuousScheduler:
              ) -> Dict[int, Dict[str, Any]]:
         theta = float(self.hi.theta if theta is None else theta)
         theta_t = self._theta(theta)
-        theta_fail_t = self._theta(FAIL_LOCAL_THETA)
         results: Dict[int, Dict[str, Any]] = {}
+        tel = self.tel
+        self._run_theta = theta
+        self._eff_theta = theta
+
+        if self.speculative:
+            while len(queue) or self.srt.busy:
+                if tel is not None:
+                    tel.begin_tick(self.counters.ticks)
+                self._try_admit_spec(queue, results)
+                if tel is not None:
+                    tel.mark("fault_tick")   # admission bookkeeping
+                host = self._dispatch(theta_t)
+                self._absorb_spec(host, results)
+                self._check_pools(self.counters.ticks - 1)
+                if tel is not None:
+                    tel.mark("postprocess")
+                self._observe_tick()
+            return results
+
+        theta_fail_t = self._theta(FAIL_LOCAL_THETA)
         # per-run fault state: run-relative tick 0 anchors here
         self._tick0 = self.counters.ticks
         self._link = EscalationLink(self.faults, self.policy)
         self._breaker = CircuitBreaker(self.policy)
         self._esc_meta = {}
         self._probe = None
+        self._opens_seen = 0
         stall, idle = self._stall_limit(), 0
         l_queue: deque = deque()
         while (len(queue) or l_queue or self.srt.busy or self.lrt.busy
                or self._link.pending):
+            if tel is not None:
+                tel.begin_tick(self.counters.ticks)
             cur = self.counters.ticks - self._tick0
             state = self._breaker.state_at(cur)
             if state == CircuitBreaker.OPEN:
@@ -697,6 +973,8 @@ class ContinuousScheduler:
                     if self._breaker.state == CircuitBreaker.HALF_OPEN \
                             and self._probe is None:
                         self._probe = esc.rid
+            if tel is not None:
+                tel.mark("fault_tick")   # fault machinery + admission
             s_busy = self.srt.busy
             if not (len(queue) or l_queue or s_busy or self.lrt.busy
                     or self._link.pending):
@@ -709,20 +987,27 @@ class ContinuousScheduler:
                 # admission retry; bounded unless the schedule is not
                 idle += 1
                 if idle > stall:
+                    if self.fr is not None:
+                        self.fr.trigger("stall", cur, {
+                            "idle_ticks": idle, "queue": len(queue),
+                            "l_queue": len(l_queue),
+                            "in_flight": self._link.pending})
                     raise RuntimeError(
                         f"scheduler stalled: {idle} consecutive idle ticks "
                         f"with work pending (queue={len(queue)}, "
                         f"l_queue={len(l_queue)}, "
                         f"in_flight={self._link.pending})")
             open_now = self._breaker.state == CircuitBreaker.OPEN
+            self._eff_theta = FAIL_LOCAL_THETA if open_now else theta
             host = self._dispatch(theta_fail_t if open_now else theta_t)
             self._absorb(self.srt, host["s"],
                          lambda rec: self._finish_s(rec, theta, results))
             self._absorb(self.lrt, host["l"],
                          lambda rec: self._finish_l(rec, results))
-            if self.validate:
-                self.srt.pool.check_invariants()
-                self.lrt.pool.check_invariants()
+            self._check_pools(cur)
+            if tel is not None:
+                tel.mark("postprocess")
+            self._observe_tick(len(l_queue))
         self.counters.esc_lost += self._link.lost
         self.counters.breaker_opens += self._breaker.opens
         return results
@@ -754,13 +1039,18 @@ class ContinuousScheduler:
 
     def _fault_tick(self, cur: int, l_queue: deque, results: Dict) -> None:
         """Advance the transport sim one tick: outage aborts first (busy L
-        slots release their pages through ``KVPool.free``), then arrivals /
-        ack timeouts, then due resends (held while the breaker is open)."""
+        slots release their pages through ``KVPool.free``; later ticks
+        reuse them in stream order), then arrivals / ack timeouts, then due
+        resends (held while the breaker is open)."""
         link = self._link
+        tel = self.tel
         if self.faults.in_outage(cur):
             for slot in range(self.lrt.num_slots):
                 if self.lrt.slot_req[slot] is not None:
                     rec = self.lrt.release(slot)
+                    if tel is not None:
+                        tel.req_l_release(rec.adm.request.request_id,
+                                          "outage_abort")
                     self._esc_failed(
                         self._esc_meta[rec.adm.request.request_id], cur,
                         results)
@@ -770,6 +1060,8 @@ class ContinuousScheduler:
                                  cur, results)
         arrived, failed = link.step(cur)
         for esc in arrived:
+            if tel is not None:
+                tel.req_esc_end(esc.rid, "arrived")
             l_queue.append(esc.adm)
         for esc in failed:
             self._esc_failed(esc, cur, results)
@@ -780,6 +1072,8 @@ class ContinuousScheduler:
                     self._degrade(esc, cur, results)  # too late to retry
                 else:
                     link.send(esc, cur)
+                    if tel is not None:
+                        tel.req_esc_send(esc.rid, -1, esc.attempt)
 
     @staticmethod
     def _budget_expired(adm: AdmittedRequest) -> bool:
@@ -793,6 +1087,8 @@ class ContinuousScheduler:
         exhausted or the latency budget says the answer would come too
         late."""
         self._breaker.record_failure(cur)
+        if self.tel is not None:
+            self.tel.req_esc_end(esc.rid, "failed")
         if self._probe == esc.rid:
             self._probe = None
         if esc.attempt >= self.policy.max_retries \
@@ -811,6 +1107,8 @@ class ContinuousScheduler:
         rec["status"] = "degraded_local"
         rec["escalation_retries"] = esc.attempt
         rec["queue_wait_ticks"] = max(cur - esc.created_tick, 0)
+        if self.tel is not None:
+            self.tel.req_terminal(esc.rid, rec)
 
     def _l_give_up(self, adm: AdmittedRequest, cur: int,
                    results: Dict) -> None:
@@ -843,6 +1141,9 @@ class ContinuousScheduler:
             "esc_created_tick": -1,
             "ttft": float("nan"),
         }
+        if self.tel is not None:
+            self.tel.req_terminal(adm.request.request_id,
+                                  results[adm.request.request_id])
 
     # -- admission / completion -------------------------------------------
 
@@ -875,6 +1176,56 @@ class ContinuousScheduler:
                     continue
                 queue.appendleft(adm)   # no pages this tick: retry next tick
                 break
+            if self.tel is not None:
+                self.tel.req_admitted(rt.name, slot, adm.request.request_id,
+                                      adm.submit_time,
+                                      chunked=bool(rt.chunk_left[slot]))
+            admitted += 1
+
+    def _try_admit_spec(self, queue, results: Dict) -> None:
+        """Speculative admission: both tiers claim the SAME slot index for a
+        request (the verify chunk addresses the L pool by the S slot's
+        id) and prefill both caches through their admit lanes."""
+        srt, lrt = self.srt, self.lrt
+        srt.admitted, srt.plans = [], []
+        lrt.admitted, lrt.plans = [], []
+        tick = self.counters.ticks
+        admitted = 0
+        while admitted < srt.admit_width and len(queue):
+            slot = srt.free_slot()
+            if slot is None:
+                break
+            assert lrt.slot_req[slot] is None, "spec slot pairing broken"
+            adm = queue.popleft()
+            steps = min(adm.request.max_new_tokens, self.max_new_tokens)
+            if srt.admit(adm, steps, self.decode_block, tick) is None:
+                adm.admit_retries += 1
+                if adm.admit_retries > self.policy.admit_retry_limit:
+                    self._reject(adm, results)
+                    continue
+                queue.appendleft(adm)
+                break
+            if lrt.admit(adm, steps, self.decode_block, tick) is None:
+                # roll the S-side admission back and retry next tick: drop
+                # its same-tick prefix-index registrations first (their
+                # pages will never be prefilled now), then free the slot
+                if srt.admitted and srt.admitted[-1] == slot:
+                    srt.admitted.pop()
+                    srt.plans.pop()
+                if srt.sharing:
+                    srt.pool.retract(slot, adm.page_hashes, adm.full_hash,
+                                     tick)
+                srt.release(slot)
+                adm.admit_retries += 1
+                if adm.admit_retries > self.policy.admit_retry_limit:
+                    self._reject(adm, results)
+                    continue
+                queue.appendleft(adm)
+                break
+            if self.tel is not None:
+                self.tel.req_admitted("S", slot, adm.request.request_id,
+                                      adm.submit_time,
+                                      chunked=bool(srt.chunk_left[slot]))
             admitted += 1
 
     def _drop_expired(self, l_queue: deque, results: Dict,
@@ -901,27 +1252,46 @@ class ContinuousScheduler:
                         rec["escalation_retries"] = esc.attempt
                         rec["queue_wait_ticks"] = max(
                             cur - esc.created_tick, 0)
+                    if self.tel is not None:
+                        self.tel.req_terminal(adm.request.request_id, rec)
             else:
                 kept.append(adm)
         l_queue.extend(kept)
 
-    def _absorb_chunk(self, rt: _TierRuntime, out) -> None:
+    def _absorb_chunk(self, rt: _TierRuntime, out, emit: bool) -> None:
         """Advance the tick's scheduled chunk-prefill rows; finishing rows
-        emit their chunk-sampled token 0."""
+        emit their chunk-sampled token 0 where ``emit`` (the S tier; the
+        paired L tier in speculative mode only advances)."""
         for row, (slot, keep, fin) in enumerate(rt.chunk_sched):
             rt.chunk_fed[slot] += keep
             rt.chunk_left[slot] -= keep
-            if fin:
-                rt.slot_req[slot].emit(out["chunk_tok"][row],
-                                       out["chunk_conf"][row])
+            if self.tel is not None:
+                self.tel.req_chunk(rt.name, slot,
+                                   rt.slot_req[slot].adm.request.request_id,
+                                   fed=keep, keep=int(rt.chunk_left[slot]))
+            if fin and emit:
+                rec = rt.slot_req[slot]
+                if self.aud is not None and not rec.done:
+                    self.aud.decision(
+                        rid=rec.adm.request.request_id, tier=rt.name,
+                        tclass=rec.adm.request.tclass, kind="chunk",
+                        conf=float(out["chunk_conf"][row]),
+                        theta=self._eff_theta)
+                rec.emit(out["chunk_tok"][row], out["chunk_conf"][row])
 
     def _absorb(self, rt: _TierRuntime, out: Dict[str, np.ndarray],
                 finish) -> None:
+        aud = self.aud
         for row, slot in enumerate(rt.admitted):
-            rt.slot_req[slot].emit(out["admit_tok"][row],
-                                   out["admit_conf"][row])
+            rec = rt.slot_req[slot]
+            if aud is not None and not rec.done:
+                aud.decision(rid=rec.adm.request.request_id, tier=rt.name,
+                             tclass=rec.adm.request.tclass, kind="admit",
+                             conf=float(out["admit_conf"][row]),
+                             theta=self._eff_theta)
+            rec.emit(out["admit_tok"][row], out["admit_conf"][row])
         if self.chunk:
-            self._absorb_chunk(rt, out)
+            self._absorb_chunk(rt, out, emit=True)
         k_steps = out["toks"].shape[0]
         for slot in range(rt.num_slots):
             rec = rt.slot_req[slot]
@@ -930,11 +1300,86 @@ class ContinuousScheduler:
             if self.chunk and rt.chunk_left[slot] > 0:
                 continue               # still chunk-prefilling: no decode
             for k in range(k_steps):
+                if aud is not None and not rec.done:
+                    aud.decision(rid=rec.adm.request.request_id,
+                                 tier=rt.name,
+                                 tclass=rec.adm.request.tclass,
+                                 kind="decode",
+                                 conf=float(out["confs"][k][slot]),
+                                 theta=self._eff_theta)
                 rec.emit(out["toks"][k][slot], out["confs"][k][slot])
             rt.last_tok[slot] = int(out["toks"][k_steps - 1][slot])
             rt.pos[slot] += k_steps
+            if self.tel is not None:
+                self.tel.req_decode(rt.name, slot,
+                                    rec.adm.request.request_id, k_steps)
             if rec.done:
                 finish(rt.release(slot))
+
+    def _absorb_spec(self, host: Dict, results: Dict) -> None:
+        """Fused-cascade absorb: per decoding slot the L verify decided how
+        many draft tokens stand (``accept``), which block input boundary
+        both caches keep (``keep``) and what to emit (``n_emit`` of
+        ``toks``).  The host rewinds positions by the rejected tail and
+        asserts the rewind is COW-safe (``KVPool.truncate``)."""
+        s, l = host["s"], host["l"]
+        srt, lrt = self.srt, self.lrt
+        k = self.decode_block
+        for row, slot in enumerate(srt.admitted):
+            srt.slot_req[slot].emit(s["admit_tok"][row], s["admit_conf"][row])
+        if self.chunk:
+            self._absorb_chunk(srt, s, emit=True)
+            self._absorb_chunk(lrt, s, emit=False)
+        for slot in range(srt.num_slots):
+            rec = srt.slot_req[slot]
+            if rec is None:
+                continue
+            if self.chunk and srt.chunk_left[slot] > 0:
+                continue               # still chunk-prefilling: no decode
+            n = int(l["n_emit"][slot])
+            keep = int(l["keep"][slot])
+            esc = bool(l["esc"][slot])
+            rec.rounds.append((esc, n))
+            self.counters.blocks += 1
+            self.counters.drafted += k
+            self.counters.accepted += int(l["accept"][slot])
+            if esc:
+                self.counters.escalated_blocks += 1
+            rid = rec.adm.request.request_id
+            if self.tel is not None:
+                self.tel.req_decode("S", slot, rid, n)
+                if esc:
+                    self.tel.req_l_verify(slot, rid,
+                                          int(l["accept"][slot]), n)
+            if self.aud is not None:
+                # the block-level gate decision, and per emitted position
+                # the verify lane's ground truth (L re-derived every drafted
+                # position greedily, escalated or not); the rolled-back tail
+                # is drafted again and would count twice
+                tclass = rec.adm.request.tclass
+                dc = l["draft_confs"][slot]
+                mt = l["match"][slot]
+                self.aud.decision(rid=rid, tier="S", tclass=tclass,
+                                  kind="block", conf=float(dc[:k].min()),
+                                  theta=self._eff_theta, offload=esc)
+                for j in range(n):
+                    self.aud.outcome(rid=rid, tier="L", tclass=tclass,
+                                     conf=float(dc[j]),
+                                     theta=self._eff_theta,
+                                     ok=bool(mt[j]), kind="draft")
+            for j in range(n):
+                rec.emit(l["toks"][slot][j], l["confs"][slot][j])
+            last = int(l["toks"][slot][max(n - 1, 0)])
+            for rt in (srt, lrt):
+                rt.pos[slot] += keep
+                rt.last_tok[slot] = last
+                if keep < k:
+                    # the rejected tail is rolled back: the rewound write
+                    # position can never reach a shared page
+                    rt.pool.truncate(slot, int(rt.pos[slot]))
+            if rec.done:
+                self._finish_spec(srt.release(slot), results)
+                lrt.release(slot)
 
     def _finish_s(self, rec: _Active, theta: float, results: Dict) -> None:
         """S decode finished: record the local answer, and when the gate
@@ -943,6 +1388,12 @@ class ContinuousScheduler:
         conf = float(np.mean(np.asarray(rec.confs, np.float32)))
         rid = rec.adm.request.request_id
         self.counters.requests += 1
+        if self.aud is not None:
+            # the request-level decision at the REAL theta, as
+            # ``offloaded``: fail-local degradation shows in ``status``
+            self.aud.decision(rid=rid, tier="S",
+                              tclass=rec.adm.request.tclass, kind="request",
+                              conf=conf, theta=theta)
         results[rid] = {
             "tokens": np.asarray(rec.tokens, np.int32),
             "s_tokens": np.asarray(rec.tokens, np.int32),
@@ -957,6 +1408,8 @@ class ContinuousScheduler:
             "ttft": rec.ttft,
         }
         if conf >= theta:
+            if self.tel is not None:      # never escalates: final status
+                self.tel.req_terminal(rid, results[rid])
             return
         self.counters.offloaded += 1
         cur = self.counters.ticks - self._tick0
@@ -969,6 +1422,8 @@ class ContinuousScheduler:
         rec.adm.admit_retries = 0   # L admission gets a fresh retry budget
         self._esc_meta[rid] = esc
         self._link.send(esc, cur)
+        if self.tel is not None:
+            self.tel.req_esc_send(rid, -1, esc.attempt)
 
     def _finish_l(self, rec: _Active, results: Dict) -> None:
         rid = rec.adm.request.request_id
@@ -976,6 +1431,16 @@ class ContinuousScheduler:
         out["tokens"] = np.asarray(rec.tokens, np.int32)
         out["served_remote"] = True
         out["status"] = "ok"
+        if self.aud is not None:
+            # one agreement sample per completed escalation: did the S
+            # answer match what L produced?
+            st, lt = out["s_tokens"], out["tokens"]
+            m = min(len(st), len(lt))
+            ok = m > 0 and bool(np.array_equal(st[:m], lt[:m]))
+            self.aud.outcome(rid=rid, tier="L",
+                             tclass=rec.adm.request.tclass,
+                             conf=out["confidence"], theta=self._run_theta,
+                             ok=ok, kind="l_agree")
         esc = self._esc_meta.pop(rid, None)
         if esc is not None:
             cur = self.counters.ticks - self._tick0
@@ -986,3 +1451,37 @@ class ContinuousScheduler:
             self._breaker.record_success()
             if self._probe == rid:
                 self._probe = None
+        if self.tel is not None:
+            self.tel.req_terminal(rid, out)
+
+    def _finish_spec(self, rec: _Active, results: Dict) -> None:
+        rid = rec.adm.request.request_id
+        self.counters.requests += 1
+        escalated = sum(1 for esc, _ in rec.rounds if esc)
+        if escalated:
+            self.counters.offloaded += 1
+        conf = float(np.mean(np.asarray(rec.confs, np.float32))) \
+            if rec.confs else 1.0
+        if self.aud is not None:
+            self.aud.decision(rid=rid, tier="S",
+                              tclass=rec.adm.request.tclass, kind="request",
+                              conf=conf, theta=self._run_theta,
+                              offload=escalated > 0)
+        results[rid] = {
+            "tokens": np.asarray(rec.tokens, np.int32),
+            "s_tokens": np.asarray(rec.tokens, np.int32),
+            "confidence": conf,
+            "offloaded": escalated > 0,
+            "served_remote": False,
+            "dropped": False,
+            "status": "ok",
+            "escalation_retries": 0,
+            "queue_wait_ticks": 0,
+            "esc_created_tick": -1,      # the fused cascade has no L queue
+            "ttft": rec.ttft,
+            "rounds": list(rec.rounds),
+            "blocks": len(rec.rounds),
+            "escalated_blocks": escalated,
+        }
+        if self.tel is not None:
+            self.tel.req_terminal(rid, results[rid])

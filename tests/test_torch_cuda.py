@@ -1222,3 +1222,237 @@ def test_mamba2_stream_synchronises_only_in_host_fetch(gen, monkeypatch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert len(out) == len(reqs)
+
+
+# ---------------------------------------------------------------------------
+# the speculative verify shape; fault, speculative and observability streams
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_chunk_kernel_at_the_verify_shape(gen, dtype):
+    """The verify lane's chunk at qwen2-1.5b's widths: q (8, 4, 12, 128),
+    the L tier's 8 slots of 34 pages of 16, with garbage planted where no
+    query may look (NaN / inf in bf16; arbitrary bytes and NaN / inf scales
+    in int8); the same bits twice."""
+    kernel = da.decode_attention_chunk_paged_cuda
+    attr = "launches_int8" if dtype == "int8" else "launches"
+    if dtype == "int8":
+        q, (pk, pv), dirty, clean, block, valid = _int8_inputs(
+            gen, 8, 12, 2, 128, 16, 34, 4)
+        args, ref_args = (pk, pv, block, valid, *dirty), \
+            (pk, pv, block, valid, *clean)
+    else:
+        q, pk, pv, block, valid, ck, cv = _paged_inputs(
+            gen, 8, 12, 2, 128, 16, 34, 4, torch.bfloat16)
+        args, ref_args = (pk, pv, block, valid), (ck, cv, block, valid)
+    before = getattr(kernel, attr)
+    out = ops.decode_attention_chunk_paged(q, *args)
+    again = ops.decode_attention_chunk_paged(q, *args)
+    torch.cuda.synchronize()
+    assert getattr(kernel, attr) == before + 2
+    assert torch.isfinite(out).all() and (out[-1] == 0).all()
+    assert torch.equal(out, again)
+    ref = da.decode_attention_chunk_paged_plain(q, *ref_args)
+    torch.testing.assert_close(out, ref, atol=ATT_ATOL, rtol=0)
+
+
+SPEC_KW = dict(STREAM_KW, speculative=True)
+
+
+def _counted(eng, reqs, kw, fetches, **extra):
+    n0, t0 = len(fetches), eng.stats["stream_ticks"]
+    ops.reset_launch_counts()
+    out = eng.serve_stream(reqs, **kw, **extra)
+    assert len(fetches) - n0 == eng.stats["stream_ticks"] - t0 > 0
+    sched = eng._stream[1]
+    assert sched.srt.pool.held_slots == sched.lrt.pool.held_slots == []
+    return out, ops.launch_counts(), sched
+
+
+def _fetch_counter(monkeypatch):
+    from repro_torch.serving import engine as engine_mod
+    fetches = []
+    real = engine_mod._host_fetch
+    monkeypatch.setattr(engine_mod, "_host_fetch",
+                        lambda tree: (fetches.append(1), real(tree))[1])
+    return fetches
+
+
+def _bucketed(req, buckets):
+    from repro_torch.serving.batcher import pad_to_bucket
+    prompt = np.zeros(pad_to_bucket(len(req.prompt), buckets), np.int32)
+    prompt[: len(req.prompt)] = req.prompt
+    return prompt
+
+
+def _decisive_prefix(tier, prompt, toks, tol=1e-2):
+    """How many of ``toks`` the CPU tier's contiguous path chooses by a
+    margin over ``tol`` (teacher-forced, up to the first that is not)."""
+    from repro_torch.models import model_zoo
+    from repro_torch.parity import decisive
+    cache = model_zoo.init_cache(tier.cfg, 1, 64, device="cpu")
+    lg, cache = model_zoo.prefill(tier.params, tier.cfg,
+                                  torch.from_numpy(prompt[None]).long(),
+                                  cache)
+    logs = [lg[0].numpy()]
+    for t in toks[:-1]:
+        lg, cache = model_zoo.decode_step(tier.params, tier.cfg,
+                                          torch.tensor([[int(t)]]), cache)
+        logs.append(lg[0].numpy())
+    dec = decisive(np.stack(logs), tol)
+    return int(np.argmin(dec)) if not dec.all() else len(dec)
+
+
+def test_spec_stream_on_card_matches_cpu(gen, monkeypatch):
+    """Reduced qwen2-1.5b ``serve_stream(speculative=True)`` (sharing with
+    COW, the chunk lane) on the card against the CPU: one host fetch per
+    tick, the chunk kernel once per L layer and verify tick besides the
+    chunk lanes, and tokens equal up to the first position the CPU's host
+    oracle chose by a margin under 1e-2 (or where the CPU's stream and
+    oracle part)."""
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.serving.engine import HIEngine
+    from repro_torch.serving.token_cascade import TokenCascade
+
+    cpu, gpu = _reduced_tiers()
+    reqs = _stream_requests(cpu[0].cfg.vocab_size)
+    fetches = _fetch_counter(monkeypatch)
+    hi = HIConfig(theta=0.5, capacity_factor=1.0)
+    outs = {}
+    for name, tiers in (("cpu", cpu), ("cuda", gpu)):
+        eng = HIEngine(*tiers, hi, max_new_tokens=6)
+        outs[name], counts, sched = _counted(eng, reqs, SPEC_KW, fetches)
+    s, l = sched.srt, sched.lrt
+    kb = SPEC_KW["decode_block"]
+    ls, ll = s.pool.cfg.num_layers, l.pool.cfg.num_layers
+    assert counts == {
+        "hi_gate": sum(t.lane_ticks["admit"] + t.lane_ticks["chunk"]
+                       for t in (s, l)) + kb * s.lane_ticks["live"],
+        "decode_attention": 0,
+        "decode_attention_paged": kb * ls * s.lane_ticks["live"],
+        "decode_attention_chunk_paged": (ll * l.lane_ticks["live"]
+                                         + ls * s.lane_ticks["chunk"]
+                                         + ll * l.lane_ticks["chunk"]),
+        "copy_pages": s.lane_ticks["cow"] + l.lane_ticks["cow"],
+        "ssd_chunk": 0, **NO_INT8}
+    assert l.lane_ticks["live"] > 0
+    tc = TokenCascade(s_cfg=cpu[0].cfg, l_cfg=cpu[1].cfg,
+                      s_params=cpu[0].params, l_params=cpu[1].params, hi=hi,
+                      block=kb, cache_len=64)
+    compared = 0
+    for r in reqs:
+        c, g = outs["cpu"][r.request_id], outs["cuda"][r.request_id]
+        assert c["status"] == g["status"] == "ok"
+        ref = tc.generate_speculative(_bucketed(r, STREAM_KW["buckets"])[None],
+                                      min(r.max_new_tokens, 6))
+        same = c["tokens"] == ref["tokens"][0]
+        ok = (ref["margins"] > 1e-2) & same
+        first = int(np.argmin(ok)) if not ok.all() else len(ok)
+        np.testing.assert_array_equal(g["tokens"][:first],
+                                      c["tokens"][:first])
+        compared += first
+    assert compared > 0
+
+
+def test_fault_stream_on_card_matches_cpu(gen, monkeypatch):
+    """Reduced qwen2-1.5b under a seeded schedule (loss, delay, an L
+    outage, a spike) at theta 1.1, where every request escalates: the
+    records' host fields on the card equal the CPU's exactly, tokens up to
+    the CPU's first non-decisive position, one fetch per tick, no slot
+    held; a second card run on a fresh engine gives equal records."""
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.serving.engine import HIEngine
+    from repro_torch.serving.faults import (STATUSES, FaultSchedule,
+                                            RetryPolicy)
+
+    cpu, gpu = _reduced_tiers()
+    reqs = _stream_requests(cpu[0].cfg.vocab_size, seed=2)
+    fetches = _fetch_counter(monkeypatch)
+    kw = dict(faults=FaultSchedule(seed=5, loss_prob=0.25, delay_ticks=1,
+                                   delay_jitter=2, outages=((2, 6),),
+                                   spikes=((7, 10),)),
+              retry=RetryPolicy(ack_timeout_ticks=2, max_retries=2,
+                                backoff_cap_ticks=4, breaker_threshold=2,
+                                breaker_cooldown_ticks=4))
+    hi = HIConfig(theta=1.1, capacity_factor=1.0)
+    outs = []
+    for tiers in (cpu, gpu, gpu):
+        eng = HIEngine(*tiers, hi, max_new_tokens=6)
+        outs.append(_counted(eng, reqs, STREAM_KW, fetches, **kw)[0])
+    c_out, g_out, g2_out = outs
+    fields = ("status", "escalation_retries", "queue_wait_ticks",
+              "esc_created_tick", "served_remote", "dropped", "offloaded")
+    assert {r["status"] for r in c_out.values()} >= {"ok", "degraded_local"}
+    for r in reqs:
+        c, g = c_out[r.request_id], g_out[r.request_id]
+        assert g["status"] in STATUSES
+        for key in fields:
+            assert g[key] == c[key], (r.request_id, key)
+        for key, v in g.items():
+            if key != "ttft":
+                np.testing.assert_array_equal(g2_out[r.request_id][key], v)
+        prompt = _bucketed(r, STREAM_KW["buckets"])
+        first = _decisive_prefix(cpu[0], prompt, c["s_tokens"])
+        np.testing.assert_array_equal(g["s_tokens"][:first],
+                                      c["s_tokens"][:first])
+        if c["served_remote"]:
+            first = _decisive_prefix(cpu[1], prompt, c["tokens"])
+            np.testing.assert_array_equal(g["tokens"][:first],
+                                          c["tokens"][:first])
+
+
+@pytest.mark.parametrize("kind", ["collectors", "speculative"])
+def test_observed_and_speculative_streams_sync_only_in_host_fetch(
+        gen, monkeypatch, kind):
+    """With every collector on (telemetry, audit, watchdog, flight
+    recorder), and with the speculative lane, a reduced stream runs under
+    the sync debugger set to raise, which ``_host_fetch`` alone lifts: the
+    verify takes the draft's tensors and the S rollback L's ``keep`` on the
+    card.  The tokens equal those of the same stream with the collectors
+    off (and the debugger off) on a fresh engine."""
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.kernels import build
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.audit import (GateAudit, SLOThresholds,
+                                           SLOWatchdog)
+    from repro_torch.serving.engine import HIEngine
+    from repro_torch.serving.flight_recorder import FlightRecorder
+    from repro_torch.serving.telemetry import Telemetry
+
+    _, gpu = _reduced_tiers()
+    reqs = _stream_requests(gpu[0].cfg.vocab_size, seed=1)
+    hi = HIConfig(theta=0.5, capacity_factor=1.0)
+    kw = SPEC_KW if kind == "speculative" else STREAM_KW
+    base = HIEngine(*gpu, hi, max_new_tokens=6).serve_stream(reqs, **kw)
+    eng = HIEngine(*gpu, hi, max_new_tokens=6)
+    build.library()
+    eng.serve_stream(reqs, **kw)                  # warm: allocations, build
+    torch.cuda.synchronize()
+    eng._stream = None
+    eng.serve_stream([], **kw)        # a fresh scheduler, built out here
+    extra = {}
+    if kind == "collectors":
+        extra = dict(telemetry=Telemetry(), audit=GateAudit(),
+                     watchdog=SLOWatchdog(SLOThresholds(ttft_p95=1e-9)),
+                     flight_recorder=FlightRecorder(capacity=4))
+    real = engine_mod._host_fetch
+
+    def fetch(tree):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(tree)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(engine_mod, "_host_fetch", fetch)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = eng.serve_stream(reqs, **kw, **extra)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for r in reqs:
+        np.testing.assert_array_equal(out[r.request_id]["tokens"],
+                                      base[r.request_id]["tokens"])
+    if kind == "collectors":
+        assert set(extra["telemetry"].traces) == set(out)
+        assert extra["flight_recorder"].dumps     # the 1 ns TTFT bound

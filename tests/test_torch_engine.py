@@ -278,7 +278,10 @@ def test_engine_output_shapes_and_stats():
                       "cache_allocs", "offload_frac", "drop_frac",
                       # serve_stream's counters (0 on the drain path)
                       "stream_compiles", "stream_ticks",
-                      "prefill_tokens_saved", "degraded_local", "rejected"}
+                      "prefill_tokens_saved", "degraded_local", "rejected",
+                      # and the fault path's, as the reference's engine
+                      "breaker_open_ticks", "breaker_opens", "esc_retries",
+                      "esc_lost"}
     assert s["stream_ticks"] == s["stream_compiles"] == 0
 
 

@@ -526,18 +526,41 @@ def test_no_stale_reads_after_slot_reuse():
     assert reused[1]["confidence"] == fresh[1]["confidence"]
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(speculative=True), "item 9"),
-    (dict(audit=object()), "item 7"),
-    (dict(mesh=object()), "item 14"),
-    (dict(faults=FaultSchedule(loss_prob=0.5)), "item 7"),
-    (dict(telemetry=object()), "item 7"),
+@pytest.mark.parametrize("kwargs,exc,match", [
+    # the refusals that still stand, each with the reference's message:
+    # speculative mode has no L queue for a fault schedule to act on ...
+    (dict(speculative=True, faults=FaultSchedule(loss_prob=0.5)),
+     ValueError, "speculative mode has no L queue"),
+    # ... also when installed on the scheduler itself
+    (dict(speculative=True, set_faults=FaultSchedule(loss_prob=0.5)),
+     ValueError, "speculative mode has no L queue"),
+    (dict(mesh=object()), NotImplementedError, "item 14"),
+    # speculative acceptance is greedy-only
+    (dict(speculative=True, temperature=0.7), NotImplementedError,
+     "greedy-only"),
+    (dict(speculative=True, mesh=object()), NotImplementedError,
+     r"speculative \+ mesh"),
 ])
-def test_unported_options_raise(kwargs, match):
+def test_unported_options_raise(kwargs, exc, match):
+    kwargs = dict(kwargs)
     reqs = _mixed_requests([8], np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match=match):
-        _engine().serve_stream(reqs, buckets=(8,), num_slots=2, page_size=8,
-                               **kwargs)
+    temp = kwargs.pop("temperature", 0.0)
+    if temp:
+        reqs = [Request(r.request_id, r.prompt, max_new_tokens=STEPS,
+                        temperature=temp) for r in reqs]
+    eng = _engine()
+    faults = kwargs.pop("set_faults", None)
+    if faults is not None:
+        from repro_torch.serving.scheduler import ContinuousScheduler
+        sched = ContinuousScheduler(eng.s, eng.l, eng.hi, max_prompt_len=8,
+                                    max_new_tokens=STEPS, num_slots=2,
+                                    page_size=8, **kwargs)
+        with pytest.raises(exc, match=match):
+            sched.set_faults(faults)
+        return
+    with pytest.raises(exc, match=match):
+        eng.serve_stream(reqs, buckets=(8,), num_slots=2, page_size=8,
+                         **kwargs)
 
 
 def test_temperature_raises():
