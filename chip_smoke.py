@@ -36,7 +36,16 @@ Phases (any failure exits non-zero before the last line):
    chunk kernel also at the speculative verify lane's shape, q (8, 4, 12,
    128) over the 8-slot L pool, bf16 and int8 with garbage planted, with a
    CUDA-graph replay (nested as ``verify`` in its entries of the kernels
-   line).
+   line); hi_gate also at the classifier cascade's (2,000, 10), timed in
+   max_prob and entropy (nested as ``cascade`` in its entry).
+   cascade — the paper's Figure-1 pipeline over classifiers:
+   ``HICascade`` over random SML_CIFAR / LML_CIFAR at their published
+   widths, 10,000 images of ``data/images`` in batches of 2,000, theta at
+   the S tier's median confidence: hi_gate launched once a batch and equal
+   to the plain metric (masks, served sets, drops; predictions where the S
+   margin is decisive), the dog filter's one-logit head on the sigmoid
+   with no launch, and the paper's Table 1 / Table 3 / Fig. 8 numbers
+   through the port's replay.
 4. serve   — the drain path: ``HIEngine.serve`` on the full-width qwen2-1.5b
    cascade (L = qwen2-1.5b, S = its ``s_variant(4)``), random float32 params
    from a seeded ``torch.Generator``, bf16 KV cache; 16 requests through
@@ -86,6 +95,16 @@ Phases (any failure exits non-zero before the last line):
    chose by a margin over ``SPEC_MARGIN_TOL``; the chunk kernel launched
    once per L layer and verify tick besides the chunk lanes; drafted,
    accepted, acceptance rate and req/s.
+   legacy — ``serve_legacy`` (per-token prefill and greedy decode, the
+   route on the host) on one batch of 8 prompts of 128: the drain kernel
+   launched (128 + 16) x (7 + 28) times and no hi_gate, the offloads and
+   mean confidences of ``serve`` on the same batch, tokens up to a
+   teacher-forced margin, and both req/s.
+   temperature — the sampler's keys and bits on the card against the
+   CPU's, bit for bit, and the committed words generated with jax; one
+   sampling step's time at (8, 151,936); the stream trace at temperature
+   0.7, theta 0: ``serve`` by bucket and ``serve_stream`` twice, the two
+   stream runs equal and equal to the drain on decisive draws.
 7. mamba2  — the SSM family at full size (L mamba2-370m, 48 layers; S 12):
    phases 4 to 6 again (drain with ssd_chunk launched once per layer per
    prefill; the 32-request stream trace at vocab 50,280 with the chunk lane
@@ -217,6 +236,44 @@ Z_L_PAGES = 4 * Z_NPG + 1 + 8 * 16
 # the reference's byte contract for int8 pools against bf16 on qwen2
 # (benchmarks/bench_serving.py, asserted <= 0.55x)
 INT8_MAX_RATIO = 0.55
+
+# the sampler's bits on the card: a fixed (request seed, token index) grid
+# at qwen2's vocab; its keys and the first and last two bits of each row,
+# generated with jax (tests/test_torch_sampler.py checks them against jax)
+SAMPLER_VOCAB = 151_936
+SAMPLER_SEEDS = (0, 1, 7, 31, 12345, 65535, 1000003, 2 ** 31 - 1)
+SAMPLER_IDX = (0, 1, 2, 3, 15, 16, 100, 2 ** 31 - 1)
+SAMPLER_KEYS = ((1797259609, 2579123966), (1948878966, 4237131848),
+                (966301609, 1948237315), (4191038410, 4045769906),
+                (1129288793, 111391168), (2002551412, 2027354116),
+                (2408512133, 1374696441), (375109920, 4169173816))
+SAMPLER_BITS = ((3617712097, 783310428, 2050723640, 4291114161),
+                (1733648124, 2357486511, 231193668, 1609519782),
+                (884754664, 1109997517, 3926712195, 3365585778),
+                (2617041338, 104242795, 2120560266, 1356952859),
+                (935579544, 2940652993, 3026431569, 1756190098),
+                (1225084740, 3105217150, 1696176773, 1974551068),
+                (2782424888, 3351575534, 841076450, 3380150124),
+                (2111541414, 1345954618, 171566650, 609683880))
+
+# the classifier cascade (``cascade_phase``): the paper's CIFAR-10 test
+# size of ``data/images``, in batches; predictions compared where the S
+# tier's top1 - top2 probability margin exceeds CASCADE_MARGIN
+CASCADE_IMAGES, CASCADE_BATCH, CASCADE_DATA_SEED = 10_000, 2_000, 7
+CASCADE_SEED, CASCADE_MARGIN, CASCADE_CAPACITY = 19, 1e-4, 0.4
+# the legacy baseline (``legacy_phase``): one batch of 8 random prompts at
+# bucket 128; serve and serve_legacy differ by the order of float32 sums
+# (batched prefill against per-token decode) and the bf16 K/V roundings
+# that order moves: tokens compared up to the first teacher-forced logit
+# margin under LEGACY_MARGIN, mean confidences to LEGACY_CONF_TOL
+LEGACY_SEED, LEGACY_BUCKET = 19, 128
+LEGACY_MARGIN, LEGACY_CONF_TOL = 5e-2, 1e-5
+# temperature sampling (``temperature_phase``): a sampled token is compared
+# where the margin of logits / t + gumbel exceeds SAMPLE_MARGIN: the
+# stream's paged kernels and the drain's contiguous path sum in other
+# orders, which moves bf16 K/V roundings and so the logits, by far more
+# than the order of float32 sums alone
+TEMPERATURE, SAMPLE_MARGIN = 0.7, 5e-2
 
 # tolerances of kernel vs plain version (both float32 arithmetic; only the
 # order of the sums differs)
@@ -357,12 +414,16 @@ def bound(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-# hi_gate's timed shapes: (label, N, C); the first is the main row
+# hi_gate's timed shapes: (label, N, C); the first is the main row; the
+# last is the classifier cascade's (a 2,000-image batch of CIFAR logits),
+# also timed in entropy, its costliest metric
 GATE_SHAPES = (("S tier qwen2-1.5b", 8, 151_936),
                ("L tier qwen2-1.5b", 4, 151_936),
                ("chunk lane qwen2-1.5b", 2, 151_936),
                ("S tier mamba2-370m", 8, 50_280),
-               ("S tier zamba2-2.7b", 8, 32_000))
+               ("S tier zamba2-2.7b", 8, 32_000),
+               ("cascade SML_CIFAR", 2000, 10))
+CASCADE_GATE = GATE_SHAPES[-1]
 
 
 def gate_times(gate, gen, n, c):
@@ -386,6 +447,7 @@ def check_hi_gate(gen):
             for dtype in (torch.float32, torch.bfloat16):
                 x = (torch.randn((n, c), generator=gen, device="cuda") * 3)
                 # a max duplicated across splits, and one in the last split
+                first = min(7, c // 2)
                 x[0, 7] = x[0, c // 2] = x[0].max() + 2.0
                 x[n - 1, c - 1] = x[n - 1].max() + 1.0
                 x = x.to(dtype)
@@ -398,7 +460,8 @@ def check_hi_gate(gen):
                 if not bool((err <= CONF_ATOL + CONF_RTOL * conf_p.abs()).all()):
                     raise AssertionError(f"hi_gate {metric} n={n} {dtype}: "
                                          f"max err {err.max().item():.3e}")
-                if (not torch.equal(pred_k, pred_p) or int(pred_k[0]) != 7
+                if (not torch.equal(pred_k, pred_p)
+                        or int(pred_k[0]) != first
                         or int(pred_k[n - 1]) != c - 1):
                     raise AssertionError(f"hi_gate {metric}: argmax differs")
                 if metric == "margin" and float(conf_k[0]) != 0.0:
@@ -411,36 +474,44 @@ def check_hi_gate(gen):
         log(f"  hi_gate n={r[0]} C={r[1]} {r[2]:8s} {r[3]:8s} max_abs_err "
             f"{r[4]:.2e} (tol {CONF_ATOL:g} + {CONF_RTOL:g}*|conf|)")
 
-    # timing at each path shape, float32 logits, max_prob
+    # timing at each path shape, float32 logits, max_prob (and entropy at
+    # the cascade's shape)
     theta = torch.tensor(THETA, device="cuda")
-
-    def gate(x):
-        return hg.hi_gate_cuda(x, theta, "max_prob")
-
     main = None
-    for label, n, c in GATE_SHAPES:
+    cases = [(label, n, c, "max_prob") for label, n, c in GATE_SHAPES]
+    cases.append(CASCADE_GATE + ("entropy",))
+    for label, n, c, metric in cases:
+        def gate(x):
+            return hg.hi_gate_cuda(x, theta, metric)
+
         nbytes = n * c * 4
         sets, t = gate_times(gate, gen, n, c)
         ms, dev_ms, g_ms = t["ms"], t["device_ms"], t["graph_ms"]
-        plain_ms = timed(lambda x: hg.hi_gate_plain(x, theta, "max_prob"),
+        plain_ms = timed(lambda x: hg.hi_gate_plain(x, theta, metric),
                          sets, 50)
         # the nearest PyTorch calls: two of them (no single call computes
         # the gate), so no library yardstick
         two_ms = timed(lambda x: torch.softmax(x, -1).max(-1), sets, 200)
-        bound_ms, by = bound(nbytes + n * 12 + 4, 6 * n * c)
-        log(f"  hi_gate {label} ({n}, {c}) f32, {hg.gate_splits(n, c)} "
-            f"splits: {ms * 1e3:.1f} us (device {dev_ms * 1e3:.2f} us; graph"
-            f" {g_ms * 1e3:.2f} us)  plain {plain_ms * 1e3:.1f} us  bound "
-            f"{bound_ms * 1e3:.2f} us ({by})  softmax().max(), two calls, no"
-            f" single-call equivalent: {two_ms * 1e3:.1f} us")
+        # entropy: exp, log and a product-sum per element on top
+        flops = (6 if metric != "entropy" else 9) * n * c
+        bound_ms, by = bound(nbytes + n * 12 + 4, flops)
+        log(f"  hi_gate {label} ({n}, {c}) f32 {metric}, "
+            f"{hg.gate_splits(n, c)} splits: {ms * 1e3:.1f} us (device "
+            f"{dev_ms * 1e3:.2f} us; graph {g_ms * 1e3:.2f} us)  plain "
+            f"{plain_ms * 1e3:.1f} us  bound {bound_ms * 1e3:.3f} us ({by})  "
+            f"softmax().max(), two calls, no single-call equivalent: "
+            f"{two_ms * 1e3:.1f} us")
+        entry = {"shape": f"logits ({n}, {c}) float32, {metric}",
+                 "max_abs_err": worst, "ms": ms, "device_ms": dev_ms,
+                 "graph_ms": g_ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
         if main is None:
             main = {"name": "hi_gate", "route": "cuda",
                     "source": "src/repro_torch/csrc/hi_gate.cu",
-                    "replaces": "src/repro/kernels/hi_gate.py:69",
-                    "shape": f"logits ({n}, {c}) float32, max_prob",
-                    "max_abs_err": worst, "ms": ms, "device_ms": dev_ms,
-                    "graph_ms": g_ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+                    "replaces": "src/repro/kernels/hi_gate.py:69", **entry}
+        elif (n, c) == CASCADE_GATE[1:]:
+            # the classifier cascade's shape, nested beside the main row
+            main.setdefault("cascade", []).append(entry)
     return main
 
 
@@ -2157,6 +2228,441 @@ def _check_stream_outputs(out, reqs, cfg, theta, statuses):
             raise AssertionError("a local answer lost its S tokens")
 
 
+# ---------------------------------------------------------------------------
+# the paper's classifier cascade, the legacy baseline, temperature sampling
+# ---------------------------------------------------------------------------
+
+def _gap_theta(conf):
+    """A theta in the widest gap between neighbouring confidences within 20
+    of the median: no row sits within rounding of it."""
+    import numpy as np
+    c = np.sort(np.asarray(conf, np.float64))
+    mid = len(c) // 2
+    j = mid - 20 + int(np.argmax(np.diff(c[mid - 20:mid + 20])))
+    return float((c[j] + c[j + 1]) / 2)
+
+
+def cascade_phase():
+    """``HICascade`` over random-init SML_CIFAR / LML_CIFAR at their
+    published widths: the paper's CIFAR-10 test size (10,000 images of
+    ``data/images``) in batches of 2,000, theta at the S tier's median
+    confidence, capacity ``CASCADE_CAPACITY`` (under the half that wants to
+    offload, so every batch drops escalations).
+    ``use_kernel=True`` launches hi_gate once per batch and must give the
+    plain metric's offload mask, served set and drops exactly, and its
+    predictions wherever the S tier's top1 - top2 probability margin
+    exceeds ``CASCADE_MARGIN``.  SML_BINARY under the binary-relevance rule
+    scores with the sigmoid and launches nothing.  Then the paper's
+    published numbers through the port's replay.  Returns the launches of
+    the kernel path's run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.core import metrics, replay
+    from repro_torch.core.cascade import HICascade
+    from repro_torch.data.images import make_dataset
+    from repro_torch.kernels import hi_gate as hg
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+
+    g = torch.Generator(device="cuda").manual_seed(CASCADE_SEED)
+    sp = cnn.init_cnn(g, cnn.SML_CIFAR, "cuda")
+    lp = cnn.init_cnn(g, cnn.LML_CIFAR, "cuda")
+    t0 = time.perf_counter()
+    x, labels = make_dataset(CASCADE_IMAGES, seed=CASCADE_DATA_SEED)
+    xg = torch.from_numpy(x).cuda()
+    batches = xg.split(CASCADE_BATCH)
+    log(f"  {CASCADE_IMAGES} images of data/images (seed "
+        f"{CASCADE_DATA_SEED}) in {time.perf_counter() - t0:.1f} s; "
+        f"SML_CIFAR {cnn.num_params(sp):,} params, LML_CIFAR "
+        f"{cnn.num_params(lp):,}")
+
+    def s_apply(p, xx):
+        return cnn.apply_cnn(p, cnn.SML_CIFAR, xx)
+
+    def l_apply(p, xx):
+        return cnn.apply_cnn(p, cnn.LML_CIFAR, xx)
+
+    with torch.inference_mode():
+        s_logits = [s_apply(sp, b) for b in batches]
+        theta = _gap_theta(torch.cat(s_logits).softmax(-1).amax(-1).cpu())
+        hi = HIConfig(theta=theta, capacity_factor=CASCADE_CAPACITY)
+        runs = {}
+        for use_kernel in (True, False):
+            casc = HICascade(s_apply, l_apply, hi, use_kernel=use_kernel)
+            casc.infer(sp, lp, batches[0])          # warm
+            torch.cuda.synchronize()
+            if use_kernel:
+                ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs = [casc.infer(sp, lp, b) for b in batches]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if use_kernel:
+                launches = ops.launch_counts()
+            runs[use_kernel] = (outs, dt)
+        want = dict.fromkeys(_kernel_names(), 0)
+        want["hi_gate"] = len(batches)
+        if launches != want:
+            raise AssertionError(f"cascade launches {launches}, want {want}")
+        n_cmp = 0
+        for b, (k, p, sl) in enumerate(zip(runs[True][0], runs[False][0],
+                                           s_logits)):
+            for key in ("offload_mask", "served_remote", "dropped"):
+                if not torch.equal(k[key], p[key]):
+                    raise AssertionError(f"batch {b}: {key} differs between "
+                                         "the kernel and the plain metric")
+            top2 = sl.softmax(-1).topk(2, -1).values
+            sure = (top2[:, 0] - top2[:, 1]) > CASCADE_MARGIN
+            if not torch.equal(k["pred"][sure], p["pred"][sure]):
+                raise AssertionError(f"batch {b}: predictions differ")
+            err = float((k["conf"] - p["conf"]).abs().max())
+            if not err <= CONF_ATOL:
+                raise AssertionError(f"batch {b}: conf err {err:.2e}")
+            n_cmp += int(sure.sum())
+        outs = runs[True][0]
+        pred = torch.cat([o["pred"] for o in outs]).cpu().numpy()
+        served = torch.cat([o["served_remote"] for o in outs]).cpu().numpy()
+        offl = torch.cat([o["offload_mask"] for o in outs]).cpu().numpy()
+        drops = [int(o["dropped"]) for o in outs]
+        if not (0 < offl.sum() < len(offl) and sum(drops) > 0):
+            raise AssertionError(f"offloaded {offl.sum()}, drops {drops}: "
+                                 "both branches and the drop must run")
+        rep = metrics.hi_report(pred, None, served, offl, labels, None, 0.5)
+        n = CASCADE_IMAGES
+        log(f"  theta {theta:.6f} (median S confidence): offloaded "
+            f"{int(offl.sum())}, served remote {int(served.sum())}, dropped "
+            f"{sum(drops)} ({drops} per batch); hi_gate launches "
+            f"{launches['hi_gate']} (one per batch); kernel path == plain "
+            f"metric on masks, served sets and drops, predictions on "
+            f"{n_cmp}/{n} rows with S margin > {CASCADE_MARGIN:g}")
+        log(f"  cascade per {CASCADE_BATCH}-image batch: use_kernel "
+            f"{runs[True][1] / len(batches) * 1e3:.2f} ms "
+            f"({n / runs[True][1]:.0f} images/s), plain "
+            f"{runs[False][1] / len(batches) * 1e3:.2f} ms "
+            f"({n / runs[False][1]:.0f} images/s); random weights: "
+            f"accuracy {100 * rep.accuracy:.2f}%, cost at beta 0.5 "
+            f"{rep.cost:.1f} ({rep.cost_formula()})")
+        # the dog filter: one logit, the sigmoid, no kernel
+        bp = cnn.init_cnn(g, cnn.SML_BINARY, "cuda")
+
+        def b_apply(p, xx):
+            return cnn.apply_cnn(p, cnn.SML_BINARY, xx)
+
+        before = hg.hi_gate_cuda.launches
+        bout = HICascade(b_apply, b_apply,
+                         HIConfig(theta=0.5, binary_relevance=True),
+                         use_kernel=True).infer(bp, bp, batches[0])
+        sig = torch.sigmoid(b_apply(bp, batches[0]))[:, 0]
+        if hg.hi_gate_cuda.launches != before or not torch.equal(
+                bout["conf"], sig):
+            raise AssertionError("the binary head did not take the sigmoid")
+        if not torch.equal(bout["offload_mask"], sig >= 0.5):
+            raise AssertionError("binary relevance: offload != p >= theta")
+    # the paper's published numbers through the port's replay
+    t1 = replay.table1(0.5)
+    red = (replay.table1_cost_reduction(0.25),
+           replay.table1_cost_reduction(0.999))
+    f8 = replay.fig8_hi_vs_full_offload(0.5)
+    dog = replay.DogReplay()
+    log(f"  replay (beta 0.5): Table 1 costs no-offload "
+        f"{t1['no_offload'].cost} (paper 3742), full offload "
+        f"{t1['full_offload'].cost} (paper 10000*beta + 500 = 5500), HI "
+        f"{t1['hi'].cost} (paper 3550*beta + 1648 = 3423), HI accuracy "
+        f"{100 * t1['hi'].accuracy:.2f}% (paper 83.52%); cost reduction vs "
+        f"full offload {red[0]:.2f}% at beta 0.25, {red[1]:.2f}% at 0.999 "
+        f"(paper 14-49%); Table 3 offloaded {dog.n_offloaded} (paper "
+        f"4433); Fig. 8 latency reduction "
+        f"{f8['latency_reduction_pct']:.2f}% (paper 63.15%), offload "
+        f"reduction {f8['offload_reduction_pct']:.2f}% (paper 64.45%)")
+    if not (t1["no_offload"].cost == 3742 and t1["full_offload"].cost == 5500
+            and t1["hi"].cost == 3423 and dog.n_offloaded == 4433
+            and abs(f8["latency_reduction_pct"] - 63.15) < 0.2
+            and abs(f8["offload_reduction_pct"] - 64.45) < 0.2
+            and 13 < red[0] < 20 and 45 < red[1] < 52):
+        raise AssertionError("the replay lost the paper's numbers")
+    return launches, {"batch_ms": runs[True][1] / len(batches) * 1e3,
+                      "plain_batch_ms": runs[False][1] / len(batches) * 1e3}
+
+
+def _forced_logits(tier, tokens, toks):
+    """The tier's drain-path logits (prefill + decode_step on a fresh cache)
+    along ``toks``: (T, B, V) on the card; step i decides toks[:, i]."""
+    import torch
+    from repro_torch.models import model_zoo
+    b = tokens.shape[0]
+    cache = model_zoo.init_cache(tier.cfg, b, CACHE_LEN, device="cuda")
+    lg, cache = model_zoo.prefill(tier.params, tier.cfg, tokens, cache)
+    out = []
+    for i in range(toks.shape[1]):
+        out.append(lg)
+        lg, cache = model_zoo.decode_step(tier.params, tier.cfg,
+                                          toks[:, i:i + 1], cache)
+    return torch.stack(out)
+
+
+def _first_undecided(z, margin):
+    """(T, B, V) scores -> (B,) the first step whose top1 - top2 is under
+    ``margin`` (T if none)."""
+    import numpy as np
+    top2 = z.topk(2, dim=-1).values
+    dec = ((top2[..., 0] - top2[..., 1]) > margin).cpu().numpy()
+    return np.where(dec.all(0), dec.shape[0], np.argmin(dec, 0))
+
+
+def legacy_phase(eng):
+    """``serve_legacy`` on the full-width qwen2 cascade: one batch of 8
+    random 128-token prompts, 16 new tokens.  The drain kernel launches
+    once per layer and token of each tier's per-token loop, (128 + 16) x 7
+    for S and (128 + 16) x 28 for the L tier on the routed rows, and no
+    hi_gate; against ``serve`` on the same batch: the offload flags
+    exactly, mean confidences to ``LEGACY_CONF_TOL``, tokens up to each
+    row's first position whose teacher-forced top1 - top2 logit margin is
+    under ``LEGACY_MARGIN``.  Returns the launches and both req/s."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+
+    cfg = eng.l.cfg
+    toks = np.random.default_rng(LEGACY_SEED).integers(
+        1, cfg.vocab_size, (BATCH, LEGACY_BUCKET)).astype(np.int32)
+    eng.serve(toks)                                   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new = eng.serve(toks)
+    t_serve = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    old = eng.serve_legacy(toks)
+    t_legacy = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    steps = LEGACY_BUCKET + MAX_NEW
+    want = dict.fromkeys(_kernel_names(), 0)
+    want["decode_attention"] = steps * (eng.s.cfg.num_layers
+                                        + cfg.num_layers)
+    if launches != want:
+        raise AssertionError(f"legacy launches {launches}, want {want}")
+    if not np.array_equal(old["offloaded"], new["offloaded"]) or \
+            not np.array_equal(old["served_remote"], new["served_remote"]):
+        raise AssertionError("legacy and serve route differently")
+    cerr = float(np.abs(old["confidence"] - new["confidence"]).max())
+    if not cerr <= LEGACY_CONF_TOL:
+        raise AssertionError(f"legacy confidence err {cerr:.2e}")
+    dev = torch.as_tensor(toks, dtype=torch.int64, device="cuda")
+    n_cmp = 0
+    with torch.inference_mode():
+        for tier, rows, key in ((eng.s, np.arange(BATCH), "s_tokens"),
+                                (eng.l, np.flatnonzero(old["served_remote"]),
+                                 "tokens")):
+            if not len(rows):
+                continue
+            ref = torch.as_tensor(old[key][rows], dtype=torch.int64,
+                                  device="cuda")
+            first = _first_undecided(
+                _forced_logits(tier, dev[rows], ref), LEGACY_MARGIN)
+            for r, n in zip(rows, first):
+                if not np.array_equal(new[key][r, :n], old[key][r, :n]):
+                    raise AssertionError(f"row {r}: serve {new[key][r]} != "
+                                         f"legacy {old[key][r]}")
+                n_cmp += int(n)
+    if n_cmp == 0:
+        raise AssertionError("no decisive token to compare")
+    rates = {"legacy_req_s": BATCH / t_legacy, "serve_req_s": BATCH / t_serve}
+    log(f"  serve_legacy, {BATCH} prompts of {LEGACY_BUCKET}, {MAX_NEW} new "
+        f"tokens: {t_legacy * 1e3:.1f} ms ({rates['legacy_req_s']:.2f} req/s)"
+        f" against serve {t_serve * 1e3:.1f} ms ({rates['serve_req_s']:.2f} "
+        f"req/s) on the same batch; decode_attention launches "
+        f"{launches['decode_attention']} = {steps} x "
+        f"({eng.s.cfg.num_layers} + {cfg.num_layers}), no hi_gate; offloads "
+        f"equal, confidence err {cerr:.2e} (tol {LEGACY_CONF_TOL:g}), "
+        f"{n_cmp} tokens equal up to a margin under {LEGACY_MARGIN:g}")
+    return launches, rates
+
+
+def _sampled_scores(tier, tokens, toks, seeds, temp):
+    """``logits / t + gumbel`` along the drain path's tokens under each
+    step's per-request keys: (T, B, V)."""
+    import torch
+    from repro_torch.serving import sampler
+    lg = _forced_logits(tier, tokens, toks)
+    v = lg.shape[-1]
+    return lg / temp + torch.stack(
+        [sampler.gumbel(sampler.request_keys(seeds, i), (v,))
+         for i in range(toks.shape[1])])
+
+
+def check_sampler_bits():
+    """``request_keys`` and ``random_bits`` over the committed (seeds, token
+    index) grid at (8, 151,936): the card's words equal the CPU's bit for
+    bit, and the committed words, which were generated with jax."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import sampler
+    seeds = torch.tensor(SAMPLER_SEEDS)
+    idx = torch.tensor(SAMPLER_IDX)
+    kc = sampler.request_keys(seeds, idx)
+    kg = sampler.request_keys(seeds.cuda(), idx.cuda())
+    bc = sampler.random_bits(kc, (SAMPLER_VOCAB,))
+    bg = sampler.random_bits(kg, (SAMPLER_VOCAB,)).cpu()
+    ends = torch.cat([bg[:, :2], bg[:, -2:]], 1).numpy()
+    if not (torch.equal(kg.cpu(), kc) and torch.equal(bg, bc)
+            and np.array_equal(kc.numpy(), np.asarray(SAMPLER_KEYS))
+            and np.array_equal(ends, np.asarray(SAMPLER_BITS))):
+        raise AssertionError("the card's sampler bits differ")
+    log(f"  sampler: keys and bits of the ({len(SAMPLER_SEEDS)}, "
+        f"{SAMPLER_VOCAB}) grid on the card equal the CPU's bit for bit "
+        f"({bg.numel():,} words) and the committed jax words")
+
+
+def sampler_step_times():
+    """One sampling step at the S tier's shape, logits (8, 151,936) f32 at
+    temperature 0.7: keys, threefry bits, gumbel, argmax, per-row select,
+    in plain torch.  CUDA events over 50 calls, kernels per call from the
+    profiler, greedy's argmax beside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import sampler
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    seeds = torch.arange(8, device="cuda", dtype=torch.int32)
+    idx = torch.full((8,), 5, device="cuda", dtype=torch.int32)
+    temps = torch.full((8,), TEMPERATURE, device="cuda")
+    sets = copies(lambda: (torch.randn((8, SAMPLER_VOCAB), generator=gen,
+                                       device="cuda"),), 8 * SAMPLER_VOCAB * 4)
+
+    def step(lg):
+        return sampler.sample(sampler.request_keys(seeds, idx), lg, temps)
+
+    ms = timed(step, sets, 50)
+    greedy_ms = timed(sampler.greedy, sets, 50)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(10):
+            step(*sets[i])
+        torch.cuda.synchronize()
+    n_kern = sum(e.count for e in prof.key_averages()
+                 if e.device_type.name == "CUDA") / 10
+    log(f"  sampling step (8, {SAMPLER_VOCAB}) f32 at t {TEMPERATURE}: "
+        f"{ms * 1e3:.1f} us, {n_kern:.0f} kernels a step (plain torch; "
+        f"greedy argmax {greedy_ms * 1e3:.1f} us)")
+    return {"ms": ms, "kernels": n_kern, "greedy_ms": greedy_ms}
+
+
+def temperature_phase(eng, reqs, greedy_out):
+    """The qwen2 stream trace at temperature 0.7, each request's seed its
+    id, theta 0 and capacity 1 (every answer the S tier's): ``serve`` by
+    bucket (batches of 8, pad rows seeded -1) and ``serve_stream`` twice on
+    one scheduler (the second run restores the prompts from the prefix
+    cache).  The stream's tokens equal the drain's up to each request's
+    first draw whose margin of ``logits / t + gumbel`` is under
+    ``SAMPLE_MARGIN`` (teacher-forced on the drain path); the two stream
+    runs give the same tokens; one host fetch per tick; some request parts
+    from the greedy run's tokens (``greedy_out``).  Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.batcher import pad_to_bucket
+
+    buckets = STREAM_KW["buckets"]
+    hi0 = eng.hi
+    eng.hi = dataclasses.replace(hi0, theta=0.0, capacity_factor=1.0)
+    eng.temperature = TEMPERATURE
+    fetches = []
+    real_fetch = engine_mod._host_fetch
+
+    def counting_fetch(tree):
+        fetches.append(1)
+        return real_fetch(tree)
+
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        drain, groups = {}, {}
+        for r in reqs:
+            groups.setdefault(pad_to_bucket(len(r.prompt), buckets),
+                              []).append(r)
+        for bucket, group in sorted(groups.items()):
+            for at in range(0, len(group), BATCH):
+                sub = group[at:at + BATCH]
+                toks = np.zeros((BATCH, bucket), np.int32)
+                seeds = np.full((BATCH,), -1, np.int32)
+                for j, r in enumerate(sub):
+                    toks[j, :len(r.prompt)] = r.prompt
+                    seeds[j] = r.request_id
+                out = eng.serve(toks, seeds=seeds)
+                for j, r in enumerate(sub):
+                    drain[r.request_id] = (toks[j], seeds[j], out["tokens"][j])
+        torch.cuda.synchronize()
+        t_drain = time.perf_counter() - t0
+        engine_mod._host_fetch = counting_fetch
+        runs = []
+        for _ in range(2):
+            ticks0 = eng.stats["stream_ticks"]
+            n0 = len(fetches)
+            t0 = time.perf_counter()
+            runs.append(eng.serve_stream(reqs, **STREAM_KW))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            ticks = eng.stats["stream_ticks"] - ticks0
+            if len(fetches) - n0 != ticks or ticks == 0:
+                raise AssertionError(f"{len(fetches) - n0} fetches in "
+                                     f"{ticks} ticks")
+            log(f"  sampled serve_stream: {dt * 1e3:.1f} ms, {ticks} ticks, "
+                f"{len(reqs) / dt:.2f} req/s; one host fetch per tick")
+        launches = ops.launch_counts()
+    finally:
+        engine_mod._host_fetch = real_fetch
+        eng.hi = hi0
+        eng.temperature = 0.0
+    a, b = runs
+    for rid in a:
+        if not np.array_equal(a[rid]["tokens"], b[rid]["tokens"]):
+            raise AssertionError(f"request {rid}: two sampled runs differ")
+    # stream against drain, teacher-forced on the drain path's S tier
+    n_cmp = n_tok = 0
+    with torch.inference_mode():
+        by_bucket = {}
+        for rid, (toks, seed, dtoks) in drain.items():
+            by_bucket.setdefault(len(toks), []).append((rid, toks, seed,
+                                                        dtoks))
+        for rows in by_bucket.values():
+            for at in range(0, len(rows), BATCH):
+                sub = rows[at:at + BATCH]
+                tk = torch.as_tensor(np.stack([r[1] for r in sub]),
+                                     dtype=torch.int64, device="cuda")
+                dt_ = torch.as_tensor(np.stack([r[3] for r in sub]),
+                                      dtype=torch.int64, device="cuda")
+                sd = torch.as_tensor([int(r[2]) for r in sub],
+                                     device="cuda")
+                z = _sampled_scores(eng.s, tk, dt_, sd, TEMPERATURE)
+                # the drain drew these very tokens where the draw is decided
+                first = _first_undecided(z, SAMPLE_MARGIN)
+                draws = z.argmax(-1).T.cpu().numpy()
+                for row, ((rid, _, _, dtoks), n) in enumerate(zip(sub, first)):
+                    if not np.array_equal(draws[row, :n], dtoks[:n]):
+                        raise AssertionError(f"request {rid}: the drain's "
+                                             "tokens are not its draws")
+                    got = a[rid]["tokens"]
+                    m = min(int(n), len(got))
+                    if not np.array_equal(got[:m], dtoks[:m]):
+                        raise AssertionError(
+                            f"request {rid}: stream {got} != drain "
+                            f"{dtoks[:len(got)]}")
+                    n_cmp += m
+                    n_tok += len(got)
+    differs = sum(not np.array_equal(a[r.request_id]["tokens"],
+                                     greedy_out[r.request_id]["s_tokens"])
+                  for r in reqs)
+    if n_cmp == 0 or differs == 0:
+        raise AssertionError(f"compared {n_cmp} tokens; {differs} requests "
+                             "differ from greedy")
+    log(f"  sampled at t {TEMPERATURE}, theta 0: drain by bucket "
+        f"{t_drain * 1e3:.1f} ms; stream == drain on {n_cmp}/{n_tok} tokens "
+        f"(up to a draw margin under {SAMPLE_MARGIN:g}); the two stream "
+        f"runs equal; {differs}/{len(reqs)} requests differ from greedy; "
+        f"launches {launches}")
+    return launches
+
+
 KERNEL_KINDS = (  # (kind, regex over the kernel's name), first match wins
     ("ssd_chunk", r"ssd_chunk_kernel"),
     # the drain kernel: its splits and their merge
@@ -2317,6 +2823,12 @@ def main(argv=None) -> int:
         for k, v in counts.items():
             total[k] += v
 
+    log("== cascade (HICascade over SML_CIFAR / LML_CIFAR, the paper's "
+        "replays)")
+    cascade_launches, _ = cascade_phase()
+    add(cascade_launches)
+    torch.cuda.empty_cache()
+
     log(f"== serve (the drain path, {ARCH})")
     check_small_reference()
     launches, eng, tokens = serve_full_width()
@@ -2345,6 +2857,14 @@ def main(argv=None) -> int:
     spec_launches, *verify_launches = speculative_phase(eng, stream_reqs,
                                                         stream_out)
     add(spec_launches)
+    log(f"== legacy ({ARCH}: serve_legacy, the per-token baseline)")
+    legacy_launches, _ = legacy_phase(eng)
+    add(legacy_launches)
+    log(f"== temperature ({ARCH}: sampled serve and serve_stream)")
+    check_sampler_bits()
+    sampler_step_times()
+    temp_launches = temperature_phase(eng, stream_reqs, stream_out)
+    add(temp_launches)
     del eng
     torch.cuda.empty_cache()
 
@@ -2400,7 +2920,12 @@ def main(argv=None) -> int:
             (f"{ARCH} speculative", spec_launches,
              ("hi_gate", "decode_attention_paged",
               "decode_attention_chunk_paged")),
-            (f"{SSM_ARCH} speculative", ssm_spec, ("hi_gate", "ssd_chunk"))):
+            (f"{SSM_ARCH} speculative", ssm_spec, ("hi_gate", "ssd_chunk")),
+            ("SML_CIFAR cascade", cascade_launches, ("hi_gate",)),
+            (f"{ARCH} legacy", legacy_launches, ("decode_attention",)),
+            (f"{ARCH} sampled", temp_launches,
+             ("hi_gate", "decode_attention", "decode_attention_paged",
+              "decode_attention_chunk_paged"))):
         for n in names:
             if counts[n] == 0:
                 raise AssertionError(f"{n} never launched on the {path} path")
@@ -2409,6 +2934,12 @@ def main(argv=None) -> int:
         k["launches"] = total[k["name"]]
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
+    # hi_gate's entry carries the cascade shape's cases: one launch a batch
+    # (max_prob, the cascade's metric; entropy is timed beside it)
+    for case in kernels[0]["cascade"]:
+        case["launches"] = (cascade_launches["hi_gate"]
+                            if case["shape"].endswith("max_prob") else 0)
+    kernels[1]["legacy_launches"] = legacy_launches["decode_attention"]
     # the chunk kernel's entries carry the verify shape's case beside their
     # own: its launches are one per L layer and verify tick
     for case, n in zip(verify_cases, verify_launches):

@@ -120,5 +120,7 @@ class HIConfig:
 
     metric: str = "max_prob"        # max_prob | margin | entropy
     theta: float = 0.607            # paper's calibrated theta* for CIFAR-10
+    beta: float = 0.5               # offload cost in [0, 1)
     capacity_factor: float = 0.5    # static offload capacity / batch
     s_scale: int = 4                # S-variant reduction factor
+    binary_relevance: bool = False  # dog-breed rule: offload iff p >= theta

@@ -47,3 +47,8 @@ def confidence(logits: torch.Tensor, metric: str = "max_prob") -> torch.Tensor:
     if metric == "entropy":
         return entropy_conf(logits)
     raise ValueError(f"unknown confidence metric {metric!r}")
+
+
+def temperature_scale(logits: torch.Tensor, temp: float) -> torch.Tensor:
+    """Post-hoc calibration knob (higher temp -> softer pmf)."""
+    return logits / max(temp, 1e-6)

@@ -4,8 +4,10 @@
       --requests 32 --batch 8 --theta 0.6
 
 Runs on the card by default; ``--device cpu`` runs the plain versions of the
-kernels on the CPU.  ``--no-reduced`` runs the full published config.  The
-reference's ``--legacy`` (``serve_legacy``) is not ported yet.
+kernels on the CPU.  ``--no-reduced`` runs the full published config.
+``--legacy`` serves through ``serve_legacy``, the pre-batched-prefill
+baseline; ``--temperature T`` samples each token under the request's seed
+(its id) instead of picking greedily.
 """
 from __future__ import annotations
 
@@ -23,13 +25,15 @@ from repro_torch.serving.engine import build_engine
 def run(arch: str, *, reduced: bool = True, requests: int = 32, batch: int = 8,
         theta: float = 0.6, capacity_factor: float = 0.5, seed: int = 0,
         max_new_tokens: int = 8, metric: str = "max_prob",
+        legacy: bool = False, temperature: float = 0.0,
         device: str = "cuda"):
     cfg = ARCHS[arch]
     if reduced:
         cfg = cfg.reduced()
     hi = HIConfig(theta=theta, capacity_factor=capacity_factor, metric=metric)
     engine = build_engine(cfg, hi, seed=seed, max_new_tokens=max_new_tokens,
-                          cache_len=64, device=device)
+                          cache_len=64, device=device,
+                          temperature=temperature)
 
     rng = np.random.default_rng(seed)
     batcher = Batcher(batch_size=batch, buckets=(16, 32))
@@ -42,7 +46,10 @@ def run(arch: str, *, reduced: bool = True, requests: int = 32, batch: int = 8,
     served = 0
     while batcher.queue:
         b = batcher.next_batch()
-        out = engine.serve(b.tokens)
+        if legacy:
+            out = engine.serve_legacy(b.tokens)
+        else:
+            out = engine.serve(b.tokens, seeds=b.request_ids)
         served += int((b.request_ids >= 0).sum())
         print(f"batch: offloaded {int(out['offloaded'].sum())}/{len(b.tokens)} "
               f"mean_conf {out['confidence'].mean():.3f}")
@@ -69,6 +76,10 @@ def main():
     ap.add_argument("--max-new-tokens", type=int, default=8)
     ap.add_argument("--metric", default="max_prob",
                     choices=["max_prob", "margin", "entropy"])
+    ap.add_argument("--legacy", action="store_true",
+                    help="use the pre-batched-prefill reference path")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0: greedy)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda)")
     args = ap.parse_args()
@@ -76,7 +87,7 @@ def main():
         batch=args.batch, theta=args.theta,
         capacity_factor=args.capacity_factor,
         max_new_tokens=args.max_new_tokens, metric=args.metric,
-        device=args.device)
+        legacy=args.legacy, temperature=args.temperature, device=args.device)
 
 
 if __name__ == "__main__":

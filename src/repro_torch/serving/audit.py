@@ -49,8 +49,7 @@ class AuditRecord(NamedTuple):
 class ReliabilityBins:
     """Streaming correct/incorrect counts per confidence bin.
 
-    Bin semantics are the reference's ``core/calibrate.p_histogram``'s
-    (not ported yet, ROADMAP Queue A item 2): edges are
+    Bin semantics are ``core/calibrate.p_histogram``'s: edges are
     ``np.linspace(0, 1, bins + 1)``, every bin is half-open ``[lo, hi)``
     except the last (closed at 1.0) — ``np.histogram``'s rule, so the
     streaming counts match the NumPy oracle sample for sample

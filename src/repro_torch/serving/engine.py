@@ -22,9 +22,17 @@ allocations.
 Numerics.  TF32 is off for matmuls and cuDNN (:class:`HIEngine` sets
 both): float32 products stay float32, as in the reference.
 
-Decoding is greedy: the reference's temperature sampling is not ported
-(see ``sampler.py``), so the engine takes no temperature.  ``serve_legacy``
-of the reference is not ported yet (ROADMAP Queue A item 4).
+Sampling.  ``temperature`` (engine-wide, default 0) > 0 samples each
+token under the reference's per-request threefry keys
+(``sampler.request_keys``: the request's seed and the token's index), so a
+request's continuation equals the continuous scheduler's token for token;
+at 0 decoding is greedy and builds no keys.
+
+The legacy path.  :meth:`HIEngine.serve_legacy` is the reference's
+pre-batched-prefill baseline, kept slow on purpose: a per-token
+``decode_step`` prefill and greedy decode per tier (``_decode_loop``),
+the plain confidence metric, the route on the host, one host sync per
+tier.  The one-fetch contract does not apply to it.
 
 Continuous serving.  :meth:`HIEngine.serve_stream` serves requests through
 ``scheduler.ContinuousScheduler``: slot-level admission over the paged KV
@@ -49,6 +57,7 @@ import torch
 
 from repro_torch.configs.base import HIConfig, ModelConfig
 from repro_torch.core import router as router_mod
+from repro_torch.core.confidence import confidence
 from repro_torch.kernels import ops
 from repro_torch.models import model_zoo
 from repro_torch.serving import sampler
@@ -101,21 +110,47 @@ class TierModel:
     params: Any
 
 
+def _decode_loop(params, cfg: ModelConfig, tokens: torch.Tensor,
+                 cache_len: int, steps: int, metric: str):
+    """LEGACY path: token-by-token prefill + greedy decode, on the tokens'
+    device: ``S + steps`` ``decode_step`` calls over a fresh bf16 cache, the
+    plain confidence metric per generated token.  Returns (generated
+    (B, steps) int64, mean confidence (B,))."""
+    b, s = tokens.shape
+    cache = model_zoo.init_cache(cfg, b, cache_len, KV_DTYPE, tokens.device)
+    for t in range(s):
+        logits, cache = model_zoo.decode_step(params, cfg, tokens[:, t:t + 1],
+                                              cache)
+    toks, confs = [], []
+    for _ in range(steps):
+        confs.append(confidence(logits, metric))
+        tok = sampler.greedy(logits)
+        logits, cache = model_zoo.decode_step(params, cfg, tok[:, None], cache)
+        toks.append(tok)
+    return torch.stack(toks, dim=1), torch.stack(confs).mean(dim=0)
+
+
 def _generate(params, cfg: ModelConfig, tokens: torch.Tensor, cache, *,
-              steps: int, metric: str, theta: torch.Tensor):
+              steps: int, metric: str, theta: torch.Tensor,
+              seeds: torch.Tensor = None, temperature: float = 0.0):
     """Batched prefill + ``steps`` decode steps, all on the tokens' device.
 
     ``cache`` is overwritten in place.  Each step runs ``hi_gate`` on the
-    current logits (its confidence feeds the mean), picks the greedy token
-    and decodes it, so a call makes ``steps`` hi_gate launches and ``steps``
+    current logits (its confidence feeds the mean), picks the token and
+    decodes it, so a call makes ``steps`` hi_gate launches and ``steps``
     decode steps; the last step's logits are computed and left unused, as in
-    the reference.  Returns (generated (B, steps) int64, mean confidence (B,),
-    cache)."""
+    the reference.  The token is greedy at ``temperature`` <= 0, else drawn
+    under ``request_keys(seeds, i)`` at step i.  Returns (generated
+    (B, steps) int64, mean confidence (B,), cache)."""
     logits, cache = model_zoo.prefill(params, cfg, tokens, cache)
     toks, confs = [], []
-    for _ in range(steps):
+    for i in range(steps):
         confs.append(ops.hi_gate(logits, theta, metric)[0])
-        tok = sampler.greedy(logits)
+        if temperature > 0:
+            tok = sampler.sample(sampler.request_keys(seeds, i), logits,
+                                 temperature)
+        else:
+            tok = sampler.greedy(logits)
         logits, cache = model_zoo.decode_step(params, cfg, tok[:, None], cache)
         toks.append(tok)
     return torch.stack(toks, dim=1), torch.stack(confs).mean(dim=0), cache
@@ -127,16 +162,19 @@ def _make_cascade(s_cfg: ModelConfig, l_cfg: ModelConfig, hi: HIConfig,
     the two tier forwards stays on the device; the caller fetches the
     result dict once, at the end."""
 
-    def cascade(s_params, l_params, tokens, theta, s_cache, l_cache):
+    def cascade(s_params, l_params, tokens, theta, s_cache, l_cache,
+                temperature=0.0, seeds=None):
         s_toks, s_conf, s_cache = _generate(
             s_params, s_cfg, tokens, s_cache, steps=steps, metric=hi.metric,
-            theta=theta)
+            theta=theta, seeds=seeds, temperature=temperature)
         offload = s_conf < theta
         decision = router_mod.route(offload, s_conf, capacity)
         complex_tokens = router_mod.gather(tokens, decision)
         l_toks, _, l_cache = _generate(
             l_params, l_cfg, complex_tokens, l_cache, steps=steps,
-            metric=hi.metric, theta=theta)
+            metric=hi.metric, theta=theta,
+            seeds=None if seeds is None else seeds[decision.indices],
+            temperature=temperature)
         out = {
             "tokens": router_mod.scatter_merge(s_toks, l_toks, decision),
             "s_tokens": s_toks,
@@ -162,12 +200,16 @@ class HIEngine:
     static ``hi.theta``.  Theta enters the kernels as a device tensor, so
     moving it costs nothing on the card.
 
+    ``temperature`` > 0 makes ``serve`` sample every token
+    (``serve_legacy`` stays greedy, as the reference's does) and is the
+    temperature of ``serve_stream``'s requests that set none.
+
     The device is the one the tier params live on.
     """
 
     def __init__(self, s_tier: TierModel, l_tier: TierModel, hi: HIConfig,
                  cache_len: int = 128, max_new_tokens: int = 8,
-                 online_policy=None):
+                 online_policy=None, temperature: float = 0.0):
         disable_tf32()
         self.s = s_tier
         self.l = l_tier
@@ -175,6 +217,7 @@ class HIEngine:
         self.online_policy = online_policy
         self.cache_len = cache_len
         self.max_new_tokens = max_new_tokens
+        self.temperature = temperature
         self.device = s_tier.params["embed"].device
         # (batch, bucket) -> [cascade fn, s_cache, l_cache]
         self._buffers: Dict[Tuple[int, int], list] = {}
@@ -206,11 +249,15 @@ class HIEngine:
         return ent
 
     @torch.inference_mode()
-    def serve(self, tokens: np.ndarray) -> Dict[str, np.ndarray]:
+    def serve(self, tokens: np.ndarray,
+              seeds: np.ndarray = None) -> Dict[str, np.ndarray]:
         """tokens: (B, S) prompt batch -> generations + offload accounting.
 
         One device->host copy per call, after the full cascade, through
-        ``_host_fetch``."""
+        ``_host_fetch``.  ``seeds`` (B,) per-request sampling seeds, read
+        when ``self.temperature > 0`` (typically the request ids, so that
+        sampled continuations match the continuous path's); zeros if
+        None."""
         b, s = tokens.shape
         ent = self._entry(b, s)
         theta = torch.tensor(
@@ -219,8 +266,14 @@ class HIEngine:
         t0 = time.perf_counter()
         dev_tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                                      device=self.device)
+        dev_seeds = None
+        if self.temperature > 0:
+            dev_seeds = torch.as_tensor(
+                np.zeros((b,), np.int32) if seeds is None
+                else np.asarray(seeds, np.int32), device=self.device)
         out, ent[1], ent[2] = ent[0](
-            self.s.params, self.l.params, dev_tokens, theta, ent[1], ent[2])
+            self.s.params, self.l.params, dev_tokens, theta, ent[1], ent[2],
+            temperature=float(self.temperature), seeds=dev_seeds)
         host = _host_fetch(out)       # the single device->host sync point
         t1 = time.perf_counter()
 
@@ -236,6 +289,50 @@ class HIEngine:
         self.stats["dropped"] += int(host["dropped"])
         self.stats["serve_time"] += t1 - t0
         return {k: host[k] for k in RESULT_KEYS}
+
+    @torch.inference_mode()
+    def serve_legacy(self, tokens: np.ndarray) -> Dict[str, np.ndarray]:
+        """The reference's pre-batched-prefill path: a per-token prefill and
+        greedy decode per tier (:func:`_decode_loop`), the route on the
+        host, and one host sync per tier.  The ``legacy`` baseline that
+        ``serve`` is measured against; not used in production."""
+        b = tokens.shape[0]
+        cap = router_mod.capacity_for(b, self.hi.capacity_factor)
+        steps, metric = self.max_new_tokens, self.hi.metric
+        t0 = time.perf_counter()
+        dev_tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                                     device=self.device)
+        s_out, s_conf = _decode_loop(self.s.params, self.s.cfg, dev_tokens,
+                                     self.cache_len, steps, metric)
+        s_out, s_conf = s_out.cpu(), s_conf.cpu()       # host sync 1
+        theta = (self.online_policy.theta if self.online_policy is not None
+                 else self.hi.theta)
+        offload = s_conf < theta
+        decision = router_mod.route(offload, s_conf, cap)
+        complex_tokens = dev_tokens[decision.indices.to(self.device)]
+        l_out, _ = _decode_loop(self.l.params, self.l.cfg, complex_tokens,
+                                self.cache_len, steps, metric)
+        l_out = l_out.cpu()                              # host sync 2
+        merged = router_mod.scatter_merge(s_out, l_out, decision)
+        t1 = time.perf_counter()
+        if self.online_policy is not None:
+            served_idx = decision.indices[decision.valid]
+            if len(served_idx):
+                agree = (s_out[served_idx]
+                         == l_out[decision.valid]).all(dim=-1)
+                self.online_policy.update(s_conf[served_idx].numpy(),
+                                          agree.numpy())
+        self.stats["requests"] += b
+        self.stats["offloaded"] += int(offload.sum())
+        self.stats["dropped"] += int(decision.dropped)
+        self.stats["serve_time"] += t1 - t0
+        return {
+            "tokens": merged.to(torch.int32).numpy(),
+            "s_tokens": s_out.to(torch.int32).numpy(),
+            "confidence": s_conf.numpy(),
+            "offloaded": decision.offload_mask.numpy(),
+            "served_remote": decision.served_remote.numpy(),
+        }
 
     def serve_stream(self, requests, *, buckets=(32, 64), num_slots: int = 8,
                      l_slots: int = None, page_size: int = 16,
@@ -274,7 +371,8 @@ class HIEngine:
         hi_gate confidence clears theta is accepted at S-tier cost, the
         rest get one batched L verify chunk with longest-prefix acceptance
         and an in-tick rollback of the rejected tail.  Greedy-only, as in
-        the reference: a request with temperature > 0 raises.
+        the reference: a request or an engine with temperature > 0
+        raises.
 
         ``faults`` (a ``serving.faults.FaultSchedule``) injects seeded
         transport faults on the S->L escalation path (delivery delay, loss,
@@ -296,8 +394,11 @@ class HIEngine:
         tick's one fetch brought back and add no device sync; outputs are
         token for token those with the collectors off.
 
-        Not ported, and raising ``NotImplementedError``: temperature > 0
-        (Queue A item 4) and ``mesh`` (item 14).
+        Requests sample at their own ``temperature`` or, where that is 0,
+        the engine's, under per-request keys: sampled outputs equal
+        ``serve``'s on the same bucketized traffic with the request ids as
+        seeds.  Not ported, and raising ``NotImplementedError``: ``mesh``
+        (Queue A item 14).
 
         Returns per-request result records keyed by request_id."""
         from repro_torch.serving.batcher import AdmissionQueue
@@ -305,16 +406,18 @@ class HIEngine:
         from repro_torch.serving.scheduler import ContinuousScheduler
 
         requests = list(requests)
-        hot = [r.request_id for r in requests if r.temperature > 0]
-        if hot and speculative:
-            raise NotImplementedError(
-                "speculative serving is greedy-only: requests "
-                f"{hot} set temperature > 0, which requires rejection "
-                "sampling (the reference's refusal; future work)")
-        if hot:
-            raise NotImplementedError(
-                f"requests {hot} set temperature > 0: temperature sampling "
-                "is not ported (ROADMAP Queue A item 4)")
+        if speculative:
+            if self.temperature > 0:
+                raise NotImplementedError(
+                    "speculative serving is greedy-only: engine temperature "
+                    f"{self.temperature} > 0 requires rejection sampling "
+                    "(the reference's refusal; future work)")
+            hot = [r.request_id for r in requests if r.temperature > 0]
+            if hot:
+                raise NotImplementedError(
+                    "speculative serving is greedy-only: requests "
+                    f"{hot} set temperature > 0, which requires rejection "
+                    "sampling (the reference's refusal; future work)")
         key = (tuple(sorted(buckets)), num_slots, l_slots, page_size,
                admit_width, decode_block, prefix_sharing, prefix_entries,
                chunk_prefill, chunk_size, chunk_width, speculative, kv_dtype,
@@ -329,13 +432,14 @@ class HIEngine:
                 prefix_entries=prefix_entries,
                 chunk_prefill=chunk_prefill, chunk_size=chunk_size,
                 chunk_width=chunk_width, speculative=speculative,
-                kv_dtype=kv_dtype, mesh=mesh)
+                kv_dtype=kv_dtype, mesh=mesh, temperature=self.temperature)
             self._stream = (key, sched)
             self.stats["stream_compiles"] += sched.stats["compiles"]
         sched = self._stream[1]
         # the engine's totals read this scheduler's counters live (a
         # replaced scheduler's totals fold into the base first)
         self.stats.attach(sched)
+        sched.set_default_temperature(self.temperature)
         sched.set_audit(audit)
         sched.set_telemetry(telemetry)
         sched.set_watchdog(watchdog)
@@ -361,7 +465,8 @@ class HIEngine:
 def build_engine(cfg: ModelConfig, hi: HIConfig, *, seed: int = 0,
                  cache_len: int = 128,
                  max_new_tokens: int = 8,
-                 device: str = "cuda") -> HIEngine:
+                 device: str = "cuda",
+                 temperature: float = 0.0) -> HIEngine:
     """An S/L cascade for one architecture: L = ``cfg``, S = its
     ``s_variant``, random params from a seeded ``torch.Generator`` on
     ``device`` (float32 params, bf16 KV cache).  ``device`` defaults to the
@@ -375,4 +480,5 @@ def build_engine(cfg: ModelConfig, hi: HIConfig, *, seed: int = 0,
     l_params = model_zoo.init_params(gen, cfg)
     s_params = model_zoo.init_params(gen, s_cfg)
     return HIEngine(TierModel(s_cfg, s_params), TierModel(cfg, l_params), hi,
-                    cache_len=cache_len, max_new_tokens=max_new_tokens)
+                    cache_len=cache_len, max_new_tokens=max_new_tokens,
+                    temperature=temperature)

@@ -117,23 +117,27 @@ LANES = ("cow", "admit", "prefill", "chunk", "live")
 
 def _upload(arrays: Dict[str, np.ndarray],
             device: torch.device) -> Dict[str, torch.Tensor]:
-    """A tick's integer and bool operands in ONE host->device copy: packed
-    into one int32 buffer (pinned, copied without blocking the host) and
-    split into views on the device; bool arrays come back as bool."""
+    """A tick's operands in ONE host->device copy: packed into one int32
+    buffer (pinned, copied without blocking the host) and split into views
+    on the device; bool arrays come back as bool, float32 arrays (the
+    sampling temperatures) cross bit-cast and come back as float32."""
     parts, metas, at = [], [], 0
     for name, a in arrays.items():
         a = np.asarray(a)
-        parts.append(a.astype(np.int32).reshape(-1))
-        metas.append((name, a.dtype == np.bool_, a.shape, at))
+        kind = a.dtype.kind if a.dtype in (np.bool_, np.float32) else "i"
+        parts.append((a.view(np.int32) if kind == "f"
+                      else a.astype(np.int32)).reshape(-1))
+        metas.append((name, kind, a.shape, at))
         at += a.size
     buf = torch.from_numpy(np.concatenate(parts))
     if device.type == "cuda":
         buf = buf.pin_memory().to(device, non_blocking=True)
     out = {}
-    for name, is_bool, shape, start in metas:
+    for name, kind, shape, start in metas:
         n = int(np.prod(shape, dtype=np.int64))
         t = buf[start:start + n].view(shape)
-        out[name] = t.bool() if is_bool else t
+        out[name] = (t.bool() if kind == "b" else
+                     t.view(torch.float32) if kind == "f" else t)
     return out
 
 
@@ -149,6 +153,14 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
 
     def conf_of(logits, theta):
         return ops.hi_gate(logits, theta, metric)[0]
+
+    def pick(logits, flags, seeds, idx, temps):
+        """A lane's tokens: greedy, or, when a slot of this tier samples,
+        ``sampler.sample`` under the rows' per-request keys
+        ``request_keys(seeds, idx)`` (rows at temp 0 stay greedy)."""
+        if not flags["sampled"]:
+            return sampler.greedy(logits)
+        return sampler.sample(sampler.request_keys(seeds, idx), logits, temps)
 
     def admit_and_prefix(params, tin, flags, pool: KVPool):
         """COW + batched admission prefill + prefix-cache save/restore.
@@ -206,7 +218,9 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
         model_zoo.scatter_chunk_slots(cfg, core, mini, sel, tin["chunk_slot"])
         idx = torch.clamp(tin["chunk_keep"].long() - 1, min=0)
         last = logits_c[torch.arange(w, device=dev), idx]
-        return sampler.greedy(last), conf_of(last, theta)
+        # token 0 of the request, as the admit lane's
+        return (pick(last, flags, tin["chunk_seed"], 0, tin["chunk_temp"]),
+                conf_of(last, theta))
 
     def verify(params, theta, tin, flags, pool: KVPool, draft, wb):
         """The fused verify chunk over the S tier's drafts (greedy-only
@@ -270,7 +284,8 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
         if flags["any_admit"]:
             logits0 = admit_and_prefix(params, tin, flags, pool)
             conf0 = conf_of(logits0, theta)
-            tok0 = sampler.greedy(logits0)
+            tok0 = pick(logits0, flags, tin["admit_seed"], 0,
+                        tin["admit_temp"])
             # admitted slots decode their own first tokens in the same tick
             last0[tin["admit_slot"].long()] = tok0
         else:
@@ -303,7 +318,8 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
                     params, cfg, last[:, None], tin["pos"] + kk, block, core,
                     write_block=wb)
                 confs.append(conf_of(logits, theta))
-                last = sampler.greedy(logits)
+                last = pick(logits, flags, tin["seeds"], tin["tok_idx"] + kk,
+                            tin["temps"])
                 toks.append(last)
                 if role == "spec_s":
                     snaps.append(model_zoo.draft_stage(cfg, core, b))
@@ -387,9 +403,15 @@ class _TierRuntime:
         self.chunk_size = chunk_size
         self.chunk_width = max(1, min(chunk_width, num_slots))
         self.chunk_sched: List = []    # (slot, keep, fin) rows THIS tick
+        self.default_temp = 0.0      # engine-level fallback (Request wins)
         self.slot_req: List[Optional[_Active]] = [None] * num_slots
         self.last_tok = np.zeros((num_slots,), np.int32)
         self.pos = np.zeros((num_slots,), np.int32)
+        # sampling: each slot's key seed (its request id), the index of
+        # the token it samples next, and its temperature (0 = greedy)
+        self.seeds = np.zeros((num_slots,), np.int32)
+        self.tok_idx = np.zeros((num_slots,), np.int32)
+        self.temps = np.zeros((num_slots,), np.float32)
         self.chunk_fed = np.zeros((num_slots,), np.int32)   # prompt tokens fed
         self.chunk_left = np.zeros((num_slots,), np.int32)  # 0 = decoding
         self.admitted: List[int] = []    # slots admitted THIS tick, row order
@@ -447,6 +469,11 @@ class _TierRuntime:
             plan = AdmitPlan(slot=slot)
         self.slot_req[slot] = _Active(adm, steps)
         self.pos[slot] = adm.bucket
+        self.seeds[slot] = adm.request.request_id
+        self.tok_idx[slot] = 1                 # token 0 comes from the prefill
+        self.temps[slot] = (adm.request.temperature
+                            if adm.request.temperature > 0
+                            else self.default_temp)
         self.last_tok[slot] = 0                # replaced on-device by tok0
         if chunked and adm.bucket - plan.start > self.chunk_size:
             self.chunk_fed[slot] = plan.start
@@ -461,6 +488,8 @@ class _TierRuntime:
         self.slot_req[slot] = None
         self.pool.free(slot)
         self.pos[slot] = 0
+        self.tok_idx[slot] = 0
+        self.temps[slot] = 0.0
         self.last_tok[slot] = 0
         self.chunk_fed[slot] = 0
         self.chunk_left[slot] = 0
@@ -471,29 +500,40 @@ class _TierRuntime:
         """This tick's operands (numpy, copied to the device by the caller)
         and the host values the tick branches on: ``any_admit``,
         ``any_prefill``, ``any_cow`` with the ``cow_src``/``cow_dst`` pairs,
-        ``any_chunk`` and ``any_live``.  In speculative mode
-        ``draft_live`` marks the slots that draft and verify."""
+        ``any_chunk``, ``any_live`` and ``sampled`` (a slot of this tier
+        samples at temperature > 0).  In speculative mode ``draft_live``
+        marks the slots that draft and verify."""
         a = self.admit_width
         tokens = np.zeros((a, s_max), np.int32)
         lens = np.ones((a,), np.int32)
         slots = np.full((a,), self.num_slots, np.int32)    # drop sentinel
         blocks = np.zeros((a, self.pool.n_pages_per_slot), np.int32)
+        seeds = np.zeros((a,), np.int32)
+        temps = np.zeros((a,), np.float32)
         for row, slot in enumerate(self.admitted):
             adm = self.slot_req[slot].adm
             tokens[row, : adm.bucket] = adm.tokens
             lens[row] = adm.bucket
             slots[row] = slot
             blocks[row] = self.pool.block[slot]
+            seeds[row] = self.seeds[slot]
+            temps[row] = self.temps[slot]
         out = {
             "last_tok": self.last_tok.copy(),
             "pos": self.pos.copy(),
             "block": self.pool.block.copy(),
+            "seeds": self.seeds.copy(),
+            "tok_idx": self.tok_idx.copy(),
+            "temps": self.temps.copy(),
             "admit_tokens": tokens,
             "admit_len": lens,
             "admit_slot": slots,
             "admit_blocks": blocks,
+            "admit_seed": seeds,
+            "admit_temp": temps,
         }
-        flags: Dict[str, Any] = {"any_admit": bool(self.admitted)}
+        flags: Dict[str, Any] = {"any_admit": bool(self.admitted),
+                                 "sampled": bool((self.temps > 0).any())}
         if self.chunk_size:
             c, w = self.chunk_size, self.chunk_width
             npg = self.pool.n_pages_per_slot
@@ -505,6 +545,8 @@ class _TierRuntime:
             cfin = np.zeros((w,), bool)
             cblock = np.zeros((w, npg), np.int32)
             cwb = np.zeros((w, npg), np.int32)
+            cseed = np.zeros((w,), np.int32)
+            ctemp = np.zeros((w,), np.float32)
             dlive = np.zeros((self.num_slots,), bool)
             self.chunk_sched = []
             for slot in range(self.num_slots):
@@ -528,6 +570,8 @@ class _TierRuntime:
                 cfin[row] = keep == left
                 cblock[row] = self.pool.block[slot]
                 cwb[row] = base[slot]
+                cseed[row] = self.seeds[slot]
+                ctemp[row] = self.temps[slot]
                 dlive[slot] = cfin[row]    # joins decode the same tick
                 self.chunk_sched.append((slot, keep, bool(cfin[row])))
             out.update({
@@ -538,6 +582,8 @@ class _TierRuntime:
                 "chunk_fin": cfin,
                 "chunk_block": cblock,
                 "chunk_wblock": cwb,
+                "chunk_seed": cseed,
+                "chunk_temp": ctemp,
                 "draft_live": dlive,
                 "draft_wblock": np.where(dlive[:, None], base,
                                          0).astype(np.int32),
@@ -608,6 +654,13 @@ class ContinuousScheduler:
     request at the same slot index, so the L tier has ``num_slots``
     slots).  Kernels are chosen by the device the tiers' params live on:
     CUDA kernels on the card, their plain versions on the CPU.
+
+    Sampling: a slot holds its request's temperature (``temperature``, the
+    engine-wide default, for requests that set none) and samples token i
+    under ``sampler.request_keys(request_id, i)``, built on the device from
+    the tick's one upload, so a request's tokens do not depend on its slot,
+    tick or batch row.  A tier whose slots are all at temperature 0 picks
+    greedily and builds no keys.
     """
 
     def __init__(self, s_tier, l_tier, hi: HIConfig, *, max_prompt_len: int,
@@ -619,7 +672,8 @@ class ContinuousScheduler:
                  num_pages: Optional[int] = None,
                  chunk_prefill: bool = False, chunk_size: int = 8,
                  chunk_width: int = 2, speculative: bool = False,
-                 kv_dtype: str = "bf16", mesh=None):
+                 kv_dtype: str = "bf16", mesh=None,
+                 temperature: float = 0.0):
         if max_prompt_len % page_size:
             raise ValueError(f"max_prompt_len {max_prompt_len} must be a "
                              f"multiple of page_size {page_size}")
@@ -710,6 +764,7 @@ class ContinuousScheduler:
                                rt.sharing, chunk=self.chunk, role=role)
             for key, tier, rt, role in (("s", s_tier, self.srt, roles[0]),
                                         ("l", l_tier, self.lrt, roles[1]))}
+        self.set_default_temperature(temperature)
         self.counters.compiles += 1
 
     def set_faults(self, faults: Optional[FaultSchedule] = None,
@@ -752,6 +807,14 @@ class ContinuousScheduler:
         SLO evaluation; breaches become telemetry instant events and
         flight-recorder dumps when those collectors are installed."""
         self.wd = wd
+
+    def set_default_temperature(self, temperature: float) -> None:
+        """The engine-level sampling temperature, used for requests that do
+        not set their own (``Request.temperature > 0`` wins): keeps
+        ``serve_stream`` consistent with ``serve``'s engine-wide
+        temperature."""
+        for rt in (self.srt, self.lrt):
+            rt.default_temp = float(temperature)
 
     def set_flight_recorder(self, fr) -> None:
         """Install (``FlightRecorder``) or remove (``None``) the bounded
@@ -1309,6 +1372,7 @@ class ContinuousScheduler:
                                  theta=self._eff_theta)
                 rec.emit(out["toks"][k][slot], out["confs"][k][slot])
             rt.last_tok[slot] = int(out["toks"][k_steps - 1][slot])
+            rt.tok_idx[slot] += k_steps
             rt.pos[slot] += k_steps
             if self.tel is not None:
                 self.tel.req_decode(rt.name, slot,
@@ -1372,6 +1436,7 @@ class ContinuousScheduler:
             last = int(l["toks"][slot][max(n - 1, 0)])
             for rt in (srt, lrt):
                 rt.pos[slot] += keep
+                rt.tok_idx[slot] += n
                 rt.last_tok[slot] = last
                 if keep < k:
                     # the rejected tail is rolled back: the rewound write

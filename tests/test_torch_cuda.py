@@ -991,8 +991,11 @@ def test_int8_paged_trace_on_card_matches_cpu(gen, name):
 
 
 def _cuda(tree):
-    return {k: _cuda(v) if isinstance(v, dict) else v.cuda()
-            for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: _cuda(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cuda(v) for v in tree]
+    return tree.cuda()
 
 
 # ---------------------------------------------------------------------------
@@ -1456,3 +1459,120 @@ def test_observed_and_speculative_streams_sync_only_in_host_fetch(
     if kind == "collectors":
         assert set(extra["telemetry"].traces) == set(out)
         assert extra["flight_recorder"].dumps     # the 1 ns TTFT bound
+
+
+# ---------------------------------------------------------------------------
+# the paper's classifier cascade, the legacy path and the sampler
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("metric", ["max_prob", "margin", "entropy"])
+def test_hi_gate_at_the_cascade_shape(gen, metric):
+    """CNN logits (2,000, 10): one split per row."""
+    x = torch.randn((2000, 10), generator=gen, device="cuda") * 3
+    theta = torch.tensor(0.5, device="cuda")
+    assert hg.gate_splits(2000, 10) == 1
+    conf_p, pred_p, _ = hg.hi_gate_plain(x, theta, metric)
+    conf_k, pred_k, off_k = hg.hi_gate_cuda(x, theta, metric)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(conf_k, conf_p, atol=CONF_ATOL, rtol=CONF_RTOL)
+    assert torch.equal(pred_k, pred_p)
+    assert torch.equal(off_k, (conf_k < theta).to(torch.int32))
+
+
+def _cifar_cascade(use_kernel, theta, cfgs=None, binary=False):
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.core.cascade import HICascade
+    from repro_torch.models import cnn
+    s_cfg, l_cfg = cfgs or (cnn.SML_CIFAR, cnn.LML_CIFAR)
+    return HICascade(lambda p, x: cnn.apply_cnn(p, s_cfg, x),
+                     lambda p, x: cnn.apply_cnn(p, l_cfg, x),
+                     HIConfig(theta=theta, capacity_factor=0.5,
+                              binary_relevance=binary),
+                     use_kernel=use_kernel)
+
+
+def test_cascade_on_card_launches_hi_gate_and_matches_plain(gen):
+    """HICascade over SML/LML_CIFAR on the card: use_kernel launches
+    hi_gate once and gives the plain metric's decisions; the card's
+    cascade equals the CPU's where the S tier's margin is decisive."""
+    from repro_torch.data.images import make_dataset
+    from repro_torch.models import cnn
+    g = torch.Generator().manual_seed(1)
+    sp = cnn.init_cnn(g, cnn.SML_CIFAR, "cpu")
+    lp = cnn.init_cnn(g, cnn.LML_CIFAR, "cpu")
+    x, _ = make_dataset(256, seed=2)
+    xc, xg = torch.from_numpy(x), torch.from_numpy(x).cuda()
+    spg, lpg = _cuda(sp), _cuda(lp)
+    s_logits = cnn.apply_cnn(spg, cnn.SML_CIFAR, xg)
+    # theta in the widest gap between neighbouring confidences near the
+    # median: no row sits within rounding of it on either device
+    conf = np.sort(s_logits.softmax(-1).amax(-1).cpu().numpy())
+    mid = len(conf) // 2
+    j = mid - 20 + int(np.argmax(np.diff(conf[mid - 20:mid + 20])))
+    theta = float((conf[j] + conf[j + 1]) / 2)
+    before = hg.hi_gate_cuda.launches
+    k = _cifar_cascade(True, theta).infer(spg, lpg, xg)
+    assert hg.hi_gate_cuda.launches == before + 1
+    p = _cifar_cascade(False, theta).infer(spg, lpg, xg)
+    c = _cifar_cascade(False, theta).infer(sp, lp, xc)
+    top2 = s_logits.softmax(-1).topk(2, -1).values
+    sure = ((top2[:, 0] - top2[:, 1]) > 1e-4).cpu()
+    for key in ("offload_mask", "served_remote", "dropped"):
+        assert torch.equal(k[key], p[key]), key
+    assert torch.equal(k["pred"].cpu()[sure], p["pred"].cpu()[sure])
+    for key in ("offload_mask", "served_remote"):
+        assert torch.equal(p[key].cpu(), c[key])
+    assert 0 < int(k["n_offloaded"]) < 256 and int(k["dropped"]) >= 0
+    # a one-logit head scores with the sigmoid: no kernel launch
+    bp = _cuda(cnn.init_cnn(g, cnn.SML_BINARY, "cpu"))
+    before = hg.hi_gate_cuda.launches
+    b = _cifar_cascade(True, 0.5, (cnn.SML_BINARY, cnn.SML_BINARY),
+                       binary=True).infer(bp, bp, xg)
+    assert hg.hi_gate_cuda.launches == before
+    want = torch.sigmoid(cnn.apply_cnn(bp, cnn.SML_BINARY, xg))[:, 0]
+    torch.testing.assert_close(b["conf"], want)
+
+
+
+def test_legacy_on_card_matches_serve(gen):
+    """Reduced qwen2-1.5b: serve_legacy on the card launches the drain
+    kernel once per layer and token of both tiers' loops, no hi_gate, and
+    agrees with serve on offloads and confidences."""
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.serving.engine import build_engine
+    cfg = ARCHS["qwen2-1.5b"].reduced()
+    eng = build_engine(cfg, HIConfig(theta=0.6, capacity_factor=0.5),
+                       max_new_tokens=6, cache_len=32)
+    toks = np.random.default_rng(0).integers(1, cfg.vocab_size,
+                                             (8, 16)).astype(np.int32)
+    new = eng.serve(toks)
+    ops.reset_launch_counts()
+    old = eng.serve_legacy(toks)
+    counts = ops.launch_counts()
+    assert counts["decode_attention"] == (16 + 6) * (
+        eng.s.cfg.num_layers + cfg.num_layers)
+    assert counts["hi_gate"] == 0
+    np.testing.assert_array_equal(old["offloaded"], new["offloaded"])
+    np.testing.assert_allclose(old["confidence"], new["confidence"],
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_sampler_bits_on_card_equal_the_cpus(gen):
+    """Keys and bits are integer arithmetic: the card's equal the CPU's
+    (which equal jax's, tests/test_torch_sampler.py), and a sampled draw
+    picks the same tokens."""
+    from repro_torch.serving import sampler
+    seeds = torch.tensor([0, 1, 7, 31, 12345, 65535, 1000003, 2 ** 31 - 1])
+    idx = torch.tensor([0, 1, 2, 3, 15, 16, 100, 2 ** 31 - 1])
+    kc = sampler.request_keys(seeds, idx)
+    kg = sampler.request_keys(seeds.cuda(), idx.cuda())
+    assert torch.equal(kg.cpu(), kc)
+    assert torch.equal(sampler.random_bits(kg, (151_936,)).cpu(),
+                       sampler.random_bits(kc, (151_936,)))
+    assert torch.equal(sampler.uniform(kg, (151_936,)).cpu(),
+                       sampler.uniform(kc, (151_936,)))
+    logits = torch.randn((8, 151_936), generator=gen, device="cuda") * 3
+    tc = sampler.sample(kc, logits.cpu(), 0.7)
+    tg = sampler.sample(kg, logits, 0.7)
+    assert (tg.cpu() == tc).sum() >= 7

@@ -176,16 +176,25 @@ def test_cuda_device_without_a_card_raises():
         build_engine(ARCHS["qwen2-1.5b"].reduced(), HIConfig())
 
 
-def test_temperature_sampling_not_ported():
-    """Greedy is the only decoding the port has: the sampler refuses a
-    temperature above 0, and the engine takes none."""
-    logits = torch.randn(2, 16)
-    assert torch.equal(sampler.sample(logits, 0.0), logits.argmax(-1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sampler.sample(logits, 0.7)
-    with pytest.raises(TypeError, match="temperature"):
-        build_engine(ARCHS["qwen2-1.5b"].reduced(), HIConfig(),
-                     temperature=0.7, device="cpu")
+def test_engine_takes_temperature():
+    """The engine takes ``temperature`` (default 0, greedy); the sampler is
+    exactly greedy at temperature 0 and draws under per-request keys above
+    it, reproducibly."""
+    logits = torch.randn(2, 16, generator=torch.Generator().manual_seed(0))
+    keys = sampler.request_keys(torch.tensor([3, 4]), 0)
+    assert torch.equal(sampler.sample(keys, logits, 0.0), logits.argmax(-1))
+    hot = sampler.sample(keys, logits * 0, 0.7)
+    assert torch.equal(hot, sampler.sample(keys, logits * 0, 0.7))
+    assert build_engine(ARCHS["qwen2-1.5b"].reduced(), HIConfig(),
+                        device="cpu").temperature == 0.0
+    eng = build_engine(ARCHS["qwen2-1.5b"].reduced(), HIConfig(),
+                       temperature=0.7, max_new_tokens=3, cache_len=16,
+                       device="cpu")
+    assert eng.temperature == 0.7
+    toks = np.ones((2, 8), np.int32)
+    a = eng.serve(toks, seeds=np.array([5, 6], np.int32))
+    b = eng.serve(toks, seeds=np.array([5, 6], np.int32))
+    np.testing.assert_array_equal(a["tokens"], b["tokens"])
 
 
 def test_bucket_overflowing_cache_raises():

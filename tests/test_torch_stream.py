@@ -563,7 +563,21 @@ def test_unported_options_raise(kwargs, exc, match):
                          **kwargs)
 
 
-def test_temperature_raises():
-    reqs = [Request(0, np.arange(8, dtype=np.int32), temperature=0.7)]
-    with pytest.raises(NotImplementedError, match="temperature"):
-        _engine().serve_stream(reqs, buckets=(8,), num_slots=2, page_size=8)
+def test_sampled_stream_is_reproducible():
+    """A request at temperature > 0 samples under its own keys: two runs
+    give the same tokens, and they part from greedy."""
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, _cfg().vocab_size, 8).astype(np.int32)
+               for _ in range(3)]
+    reqs = [Request(i, p, max_new_tokens=STEPS, temperature=2.0)
+            for i, p in enumerate(prompts)]
+    kw = dict(buckets=(8,), num_slots=2, page_size=8)
+    a = _engine(theta=0.0).serve_stream(reqs, **kw)
+    b = _engine(theta=0.0).serve_stream(reqs, **kw)
+    greedy = _engine(theta=0.0).serve_stream(
+        [Request(i, p, max_new_tokens=STEPS) for i, p in enumerate(prompts)],
+        **kw)
+    for rid in a:
+        np.testing.assert_array_equal(a[rid]["tokens"], b[rid]["tokens"])
+    assert any(not np.array_equal(a[r]["tokens"], greedy[r]["tokens"])
+               for r in a)
