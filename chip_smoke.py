@@ -126,7 +126,31 @@ Phases (any failure exits non-zero before the last line):
 10. gate   — the reference's int8 fidelity gate on the card with the
    kernels: reduced zamba2-2.7b, 8 slots, 16 teacher-forced steps, bf16
    against int8 pools, >= 0.99 of the 136 greedy decisions agree.
-11. the ``{"kernels": [...]}`` line (launches summed over every main-path
+11. moe     — run right after phase 3's cascade, on a card that holds
+   nothing else yet and before any traced phase (the kernel checks below
+   run with phase 3's).  Kernels 1-5 against their
+   plain versions at the MoE family's shapes (deepseek-moe-16b: group 1 at
+   head dim 128, 16 kv heads in the L tier and 4 in the S tier, vocab
+   102,400, the verify lane's q (8, 4, 16, 128); int8 bodies with garbage
+   planted) and at llava-next-34b's group of 7 (q (4, 1, 56, 128) over 8
+   kv heads, and its chunk lane), nested as ``moe`` in each kernel's
+   entry.  Reduced deepseek-moe-16b and arctic-480b on the card against
+   the CPU (prefill and teacher-forced decode: logits held over float32
+   caches, decisive tokens over bf16; the int8 paged trace; deepseek's
+   small stream), and reduced granite-3-2b, h2o-danube-3-4b, llava (with
+   its patch prefix) and whisper-large-v3 (forward, then its cross K/V and
+   decode).  Then deepseek-moe-16b at its published widths and depth (L 28
+   layers, S 7), random float32 params: phase 4's drain, the stream trace's
+   first 16 requests through ``serve_stream`` at theta 0.6 and the median,
+   the same over int8 pools, and the speculative lane, each asserting one
+   host fetch per tick and the launches the lane flags predict (routing
+   drops make stream == drain and sharing on == off fail at this width, in
+   the reference too: not asserted); per tier the param bytes, the decode
+   step and the routed FFN's share of its device time; and layer 0's routed
+   FFN on the card against the CPU on a 4 x 512 admission and 4 decode
+   tokens: the same choices, the same dropped (token, choice) pairs,
+   outputs within ``MOE_LAYER_TOL``, with the drops the padded tails cause.
+12. the ``{"kernels": [...]}`` line (launches summed over every main-path
    run, each run's counts set to 0 just before it; the int8 bodies listed
    apart as ``name[int8]``), the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
@@ -137,6 +161,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -162,6 +187,10 @@ CHUNK_TC_PASSES = 3
 # (lo.hi + hi.lo + hi.hi; csrc/ssd_scan.cu)
 SSD_TC_PASSES = 3
 L2_BYTES = 50 * 2 ** 20
+
+# the families whose serving state is the pages alone (the kernels' launch
+# counts follow the same lane flags)
+ATTENTION_FAMILIES = ("dense", "moe", "vlm")
 
 # main-path settings (full-width serve phase)
 ARCH = "qwen2-1.5b"
@@ -233,6 +262,22 @@ HYBRID_KW = dict(buckets=(64, 128, 248, 256), num_slots=8, l_slots=4,
 Z_NPG = 18
 Z_L_PAGES = 4 * Z_NPG + 1 + 8 * 16
 
+# the MoE family: deepseek-moe-16b at its published widths and depth (L 28
+# layers, 64 routed experts of 1,408, top 6, 2 shared; S its s_variant(4):
+# 7 layers, 16 experts of 352), through the drain, the stream trace's first
+# MOE_REQUESTS requests over bf16 and int8 pools, and the speculative lane;
+# arctic-480b (the dense residual) at reduced size only
+MOE_ARCH, MOE_DENSE_RESIDUAL = "deepseek-moe-16b", "arctic-480b"
+MOE_REQUESTS = 16
+# llava-next-34b's attention: 56 heads over 8 kv heads of 128, a group of 7
+LLAVA_GROUP7 = "llava-next-34b group 7"
+# the full-width MoE layer's admission: 4 rows of the drain's 512 bucket
+# (buckets (128, 512): prompts of 129..512 tokens), 957 of them padding
+MOE_ADMISSION = (141, 236, 391, 323)
+# card vs CPU on one full-width routed FFN (float32, TF32 off: sums of 2,048
+# and 1,408 terms in another order)
+MOE_LAYER_TOL = 1e-4
+
 # the reference's byte contract for int8 pools against bf16 on qwen2
 # (benchmarks/bench_serving.py, asserted <= 0.55x)
 INT8_MAX_RATIO = 0.55
@@ -280,6 +325,7 @@ TEMPERATURE, SAMPLE_MARGIN = 0.7, 5e-2
 CONF_ATOL, CONF_RTOL = 1e-5, 1e-4        # over 151,936 exp terms
 ATT_ATOL = 1e-4                          # over <= 1,024 positions
 SMALL_LOGIT_TOL = 5e-3                   # card vs CPU, small model, bf16 K/V
+SMALL_FWD_TOL = 1e-3                     # card vs CPU, small float32 forward
 SSD_ATOL, SSD_RTOL = 1e-4, 1e-4          # ssd_chunk, sums of <= 128 terms
 # chunk lane (W rows) vs the same per-token steps on a one-row contiguous
 # cache: the same float32 arithmetic, products of another batch size
@@ -438,11 +484,14 @@ def gate_times(gate, gen, n, c):
                   "graph_ms": graph_ms(gate, sets)}
 
 
-def check_hi_gate(gen):
+def check_hi_gate(gen, shapes=GATE_SHAPES):
+    """hi_gate against its plain version at ``shapes`` (every metric, f32
+    and bf16), then timed at each; returns the first shape's entry of the
+    kernels line (the cascade's shape nested in it)."""
     import torch
     from repro_torch.kernels import hi_gate as hg
     worst, rows = 0.0, []
-    for _, n, c in GATE_SHAPES:
+    for _, n, c in shapes:
         for metric in ("max_prob", "margin", "entropy"):
             for dtype in (torch.float32, torch.bfloat16):
                 x = (torch.randn((n, c), generator=gen, device="cuda") * 3)
@@ -478,8 +527,9 @@ def check_hi_gate(gen):
     # the cascade's shape)
     theta = torch.tensor(THETA, device="cuda")
     main = None
-    cases = [(label, n, c, "max_prob") for label, n, c in GATE_SHAPES]
-    cases.append(CASCADE_GATE + ("entropy",))
+    cases = [(label, n, c, "max_prob") for label, n, c in shapes]
+    if CASCADE_GATE in shapes:
+        cases.append(CASCADE_GATE + ("entropy",))
     for label, n, c, metric in cases:
         def gate(x):
             return hg.hi_gate_cuda(x, theta, metric)
@@ -523,7 +573,10 @@ def _attn_case(gen, b, h, k, d, s, valid, dtype):
     return q, ck, cv, valid
 
 
-def check_decode_attention(gen):
+def check_decode_attention(gen, shapes=None):
+    """The drain kernel against its plain version; ``shapes`` (label, B, H,
+    K, D) over bf16 caches replace the main path's cases.  Returns the
+    first case's entry of the kernels line."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
@@ -536,7 +589,7 @@ def check_decode_attention(gen):
         ("S tier qwen2-1.5b-s4", 8, 3, 1, 128, upto, torch.bfloat16),
         ("gemma3-1b window 256", 4, 4, 1, 256, window, torch.bfloat16),
         ("L tier, f32 cache", 4, 12, 2, 128, upto, torch.float32),
-    ]
+    ] if shapes is None else [x + (upto, torch.bfloat16) for x in shapes]
     worst, main = 0.0, None
     for label, b, h, k, d, valid, dtype in cases:
         args = _attn_case(gen, b, h, k, d, s, valid, dtype)
@@ -828,7 +881,7 @@ def check_decode_attention_chunk_paged_int8(gen):
          True)], quant=True)
 
 
-def check_copy_pages(gen, quant=False):
+def check_copy_pages(gen, quant=False, cases=None):
     """Kernel 5 on a tier's K and V pools at the main path's shapes: the
     pools are NaN except the source pages, so a stray write shows.
     ``quant``: int8 pools and their (L, P, K) float32 scale rows in the
@@ -838,11 +891,11 @@ def check_copy_pages(gen, quant=False):
     import torch
     from repro_torch.kernels import copy_pages as cp
     main = None
-    cases = ((("L tier qwen2-1.5b", 28, L_PAGES, 2, 128, 4),
-              ("L tier zamba2-2.7b", HYBRID_DEPTH // 6, Z_L_PAGES, 32, 80,
-               4)) if quant else
-             (("L tier qwen2-1.5b", 28, L_PAGES, 2, 128, 4),
-              ("S tier qwen2-1.5b-s4", 7, S_PAGES, 1, 128, 8)))
+    cases = cases or ((("L tier qwen2-1.5b", 28, L_PAGES, 2, 128, 4),
+                       ("L tier zamba2-2.7b", HYBRID_DEPTH // 6, Z_L_PAGES,
+                        32, 80, 4)) if quant else
+                      (("L tier qwen2-1.5b", 28, L_PAGES, 2, 128, 4),
+                       ("S tier qwen2-1.5b-s4", 7, S_PAGES, 1, 128, 8)))
     for label, layers, pages, k, d, pairs in cases:
         shape = (layers, pages, 16, k, d)
 
@@ -1031,16 +1084,27 @@ def check_ssd_chunk(gen):
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def check_small_reference(arch=ARCH):
+def check_small_reference(arch=ARCH, kv_dtype=None):
     """The port on the card against the port on the CPU (plain kernel
     versions), ``arch`` reduced, prefill + 8 teacher-forced decode steps:
-    logits allclose and every decisive greedy token equal."""
+    logits allclose and every decisive greedy token equal.
+
+    The MoE family runs twice.  Over float32 caches the logits are held
+    as above.  Over bf16 caches only the decisive tokens are, and the
+    logit error is reported: routing is discontinuous, and a K/V value
+    rounded to the other bf16 neighbour moves a hidden state by ~1e-3,
+    enough to move a token to another expert where the router's k-th and
+    (k+1)-th probabilities lie closer (reduced arctic-480b: 6.6e-5 in
+    layer 1)."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models import model_zoo
     from repro_torch.parity import greedy_agreement
     cfg = ARCHS[arch].reduced()
+    if cfg.family == "moe" and kv_dtype is None:
+        check_small_reference(arch, torch.float32)
+        kv_dtype = torch.bfloat16
     params = model_zoo.init_params(torch.Generator().manual_seed(1), cfg)
     rng = np.random.default_rng(1)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 24)))
@@ -1048,7 +1112,8 @@ def check_small_reference(arch=ARCH):
     logs = {}
     for dev in ("cpu", "cuda"):
         p = _to(params, dev)
-        cache = model_zoo.init_cache(cfg, 4, 64, device=dev)
+        cache = model_zoo.init_cache(cfg, 4, 64, kv_dtype or torch.bfloat16,
+                                     device=dev)
         out, cache = model_zoo.prefill(p, cfg, prompt.to(dev), cache)
         steps = [out.cpu().numpy()]
         for i in range(feed.shape[1]):
@@ -1058,9 +1123,13 @@ def check_small_reference(arch=ARCH):
         logs[dev] = np.stack(steps)
     err = float(np.abs(logs["cuda"] - logs["cpu"]).max())
     n, agree = greedy_agreement(logs["cpu"], logs["cuda"], SMALL_LOGIT_TOL)
-    log(f"  small input (reduced {arch}, card vs CPU, 9 steps): max logit err "
-        f"{err:.2e} (tol {SMALL_LOGIT_TOL:g}); decisive tokens {agree}/{n}")
-    if not err <= SMALL_LOGIT_TOL or n == 0 or agree != n:
+    held = not (cfg.family == "moe" and kv_dtype == torch.bfloat16)
+    kind = "" if kv_dtype is None else f", {str(kv_dtype)[6:]} cache"
+    log(f"  small input (reduced {arch}{kind}, card vs CPU, 9 steps): max "
+        f"logit err {err:.2e} "
+        f"({f'tol {SMALL_LOGIT_TOL:g}' if held else 'reported'}); decisive "
+        f"tokens {agree}/{n}")
+    if (held and not err <= SMALL_LOGIT_TOL) or n == 0 or agree != n:
         raise AssertionError("card and CPU disagree on the small input")
 
 
@@ -1096,7 +1165,7 @@ def check_small_int8_reference(arch=ARCH):
         f"levels off by 1: {flips}; max scale rel err {rel:.2e}; "
         f"launches {ran}")
     want = {"decode_attention_paged[int8]", "copy_pages[int8]"}
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION_FAMILIES:
         want.add("decode_attention_chunk_paged[int8]")
     if not gap > tol or set(ran) != want:
         raise AssertionError("the int8 trace check cannot tell int8 from "
@@ -1110,12 +1179,13 @@ def _to(tree, dev):
 
 def _drain_expected(eng):
     """Each kernel's launches per serve: hi_gate gates both tiers' T steps;
-    the dense family's decode attention runs once per layer and step; the
-    SSM family's prefill launches ssd_chunk once per layer and tier."""
+    the attention families' (dense, MoE) decode attention runs once per
+    layer and step; the SSM family's prefill launches ssd_chunk once per
+    layer and tier."""
     exp = dict.fromkeys(_kernel_names(), 0)
     exp["hi_gate"] = 2 * MAX_NEW
     for cfg in (eng.s.cfg, eng.l.cfg):
-        if cfg.family == "dense":
+        if cfg.family in ATTENTION_FAMILIES:
             exp["decode_attention"] += MAX_NEW * cfg.num_layers
         else:
             exp["ssd_chunk"] += cfg.num_layers
@@ -1339,8 +1409,8 @@ def _stream_trace(cfg, seed=0):
 def _expected_launches(sched, before, kb, chunk):
     """Each kernel's launches over a run, from the ticks in which the host
     ran each lane on each tier (``lane_ticks`` at the run's end less
-    ``before``).  Dense: the paged kernels once per layer and decode step or
-    chunk pass, copy_pages once per COW tick.  SSM: ssd_chunk once per layer
+    ``before``).  Dense and MoE: the paged kernels once per layer and decode
+    step or chunk pass, copy_pages once per COW tick.  SSM: ssd_chunk once per layer
     and prefill, no pages.  Hybrid: ssd_chunk once per mamba layer and
     prefill, the paged decode kernel once per group and step (the chunk
     lane's ``chunk`` per-token steps included), copy_pages per COW tick.
@@ -1357,7 +1427,7 @@ def _expected_launches(sched, before, kb, chunk):
         q = "[int8]" if rt.pool.kv_dtype == "int8" else ""
         exp["hi_gate"] += d["admit"] + d["chunk"] + \
             (0 if verify else kb * d["live"])
-        if cfg.family == "dense":
+        if cfg.family in ATTENTION_FAMILIES:
             if verify:
                 exp["decode_attention_chunk_paged" + q] += \
                     n_layers * d["live"]
@@ -2752,6 +2822,336 @@ def _trace(fn, label, path: Path, ticks=None):
         log(f"    {t / 1e3:9.2f} ms {n:6d}x  {name[:110]}")
 
 
+# ---------------------------------------------------------------------------
+# the MoE family (deepseek-moe-16b), the VLM, the enc-dec and the new dense
+# configs
+# ---------------------------------------------------------------------------
+
+def check_moe_kernels(gen):
+    """Kernels 1-5 against their plain versions at the MoE family's shapes,
+    at the tolerances of the main path's cases (int8 bodies with garbage
+    planted where no query looks): deepseek-moe-16b's L tier (16 / 16 heads
+    of 128, group 1) and S tier (4 / 4), its vocab of 102,400 in hi_gate,
+    the verify lane's q (8, 4, 16, 128), and llava-next-34b's group of 7
+    (56 heads over 8 kv heads of 128) in the paged decode and chunk
+    kernels.  Returns {kernel name: [entry, ...]} for the kernels line."""
+    import numpy as np
+    from repro_torch.configs.registry import ARCHS
+    pos_l, pos_s, _ = _decode_positions()
+    c, kb = STREAM_KW["chunk_size"], SPEC_KW["decode_block"]
+    vpos = np.random.default_rng(4).integers(32, 528, 8).tolist()
+    v = ARCHS[MOE_ARCH].vocab_size
+    lt, st = f"L tier {MOE_ARCH}", f"S tier {MOE_ARCH}-s4"
+    out = {}
+
+    def put(entry):
+        out.setdefault(entry["name"], []).append(entry)
+
+    for shape in ((st, 8, v), (lt, 4, v), (f"chunk lane {MOE_ARCH}", 2, v)):
+        put(check_hi_gate(gen, (shape,)))
+    for shape in ((lt, 4, 16, 16, 128), (st, 8, 4, 4, 128)):
+        put(check_decode_attention(gen, (shape,)))
+    paged, chunked = "decode_attention_paged", "decode_attention_chunk_paged"
+    for case in ((lt, 4, 16, 16, 128, L_PAGES, pos_l, NPG, False),
+                 (st, 8, 4, 4, 128, S_PAGES, pos_s, NPG, False),
+                 (LLAVA_GROUP7, 4, 56, 8, 128, L_PAGES, pos_l, NPG, True)):
+        put(check_paged(gen, paged, 1, [case]))
+    put(check_paged(gen, paged, 1, [(lt, 4, 16, 16, 128, L_PAGES, pos_l, NPG,
+                                     True)], quant=True))
+    for case in ((lt, 2, 16, 16, 128, L_PAGES, [0, 512 - c], NPG, False),
+                 (st, 2, 4, 4, 128, S_PAGES, [0, 512 - c], NPG, False),
+                 (LLAVA_GROUP7, 2, 56, 8, 128, L_PAGES, [0, 512 - c], NPG,
+                  False)):
+        put(check_paged(gen, chunked, c, [case]))
+    put(check_paged(gen, chunked, c, [(lt, 2, 16, 16, 128, L_PAGES,
+                                       [0, 512 - c], NPG, True)], quant=True))
+    verify = (f"L verify {MOE_ARCH}", 8, 16, 16, 128, SPEC_L_PAGES, vpos, NPG)
+    put(check_paged(gen, chunked, kb, [verify + (False,)], graph=True))
+    put(check_paged(gen, chunked, kb, [verify + (True,)], quant=True,
+                    graph=True))
+    for case in ((lt, 28, L_PAGES, 16, 128, 4), (st, 7, S_PAGES, 4, 128, 8)):
+        put(check_copy_pages(gen, cases=(case,)))
+    put(check_copy_pages(gen, quant=True,
+                         cases=((lt, 28, L_PAGES, 16, 128, 4),)))
+    return out
+
+
+def check_small_families():
+    """Reduced llava-next-34b (forward with its patch prefix), whisper-large-
+    v3 (forward; then ``precompute_cross`` and 12 decode steps, teacher-
+    forced, over a float32 cache as the reference's decode == forward test
+    takes), granite-3-2b and h2o-danube-3-4b (forward): the card against
+    the CPU on the same params and inputs, float32 end to end
+    (``SMALL_FWD_TOL``), and whisper's last decode step against its
+    forward at the reference's 2e-3 (``tests/test_models.py:43``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import model_zoo, whisper
+    for arch in ("granite-3-2b", "h2o-danube-3-4b", "llava-next-34b",
+                 "whisper-large-v3"):
+        cfg = ARCHS[arch].reduced()
+        params = model_zoo.init_params(torch.Generator().manual_seed(3), cfg)
+        rng = np.random.default_rng(3)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 12)))
+        extra = {}
+        if cfg.family == "vlm":
+            extra["patches"] = torch.as_tensor(rng.normal(
+                size=(2, cfg.num_patches, cfg.d_model)), dtype=torch.float32)
+        if cfg.family == "encdec":
+            extra["frames"] = torch.as_tensor(rng.normal(
+                size=(2, cfg.num_audio_frames, cfg.d_model)),
+                dtype=torch.float32)
+        outs, steps = {}, {}
+        for dev in ("cpu", "cuda"):
+            p = _to(params, dev)
+            kw = {k: v.to(dev) for k, v in extra.items()}
+            outs[dev] = model_zoo.forward(p, cfg, toks.to(dev), **kw).cpu()
+            if cfg.family == "encdec":
+                cache = model_zoo.init_cache(cfg, 2, 16, torch.float32,
+                                             device=dev)
+                cache = whisper.precompute_cross(p, cfg, kw["frames"], cache)
+                lg = []
+                for t in range(toks.shape[1]):
+                    out, cache = model_zoo.decode_step(
+                        p, cfg, toks[:, t:t + 1].to(dev), cache)
+                    lg.append(out.cpu())
+                steps[dev] = torch.stack(lg, 1)
+        err = float((outs["cuda"] - outs["cpu"]).abs().max())
+        shape = tuple(outs["cuda"].shape)
+        msg = (f"  small {arch} ({cfg.family}, reduced, card vs CPU): forward"
+               f" {shape} max logit err {err:.2e} (tol {SMALL_FWD_TOL:g})")
+        if not err <= SMALL_FWD_TOL:
+            raise AssertionError(msg)
+        if steps:
+            derr = float((steps["cuda"] - steps["cpu"]).abs().max())
+            ferr = float((steps["cpu"][:, -1] - outs["cpu"][:, -1])
+                         .abs().max())
+            msg += (f"; precompute_cross + 12 decode steps max err {derr:.2e}"
+                    f" (tol {SMALL_FWD_TOL:g}), the CPU's last step vs its"
+                    f" forward {ferr:.2e} (tol 2e-3)")
+            if not (derr <= SMALL_FWD_TOL and ferr <= 2e-3):
+                raise AssertionError(msg)
+        log(msg)
+
+
+def _param_bytes(params):
+    return sum(v.numel() * v.element_size() for v in _leaves(params))
+
+
+def _routed_share(tier, steps=4):
+    """The routed FFN's share of a decode step's device time: ``steps``
+    ``decode_step_paged`` calls of 8 slots (as ``_decode_step_ms``) under
+    one ``torch.profiler`` window, ``moe.moe_ffn`` inside a
+    ``record_function`` range; a kernel counts as routed where the host
+    call that launched it (same correlation id) lies in such a range.
+    Returns (routed device ms, all device ms) per step."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import model_zoo, moe
+    cfg = tier.cfg
+    slots, prompt, page = 8, 16, 16
+    npg = (prompt + steps + 2) // page + 1
+    block = torch.arange(1, slots * npg + 1, dtype=torch.int32,
+                         device="cuda").reshape(slots, npg)
+    cache = model_zoo.init_paged_cache(cfg, slots, slots * npg + 1, page,
+                                       torch.bfloat16, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(1, cfg.vocab_size, (slots, prompt), generator=gen,
+                         device="cuda")
+    lg, cache = model_zoo.prefill_paged(
+        tier.params, cfg, toks, torch.full((slots,), prompt, device="cuda"),
+        torch.arange(slots, device="cuda"), block, cache)
+    pos = torch.full((slots,), prompt, device="cuda")
+    real = moe.moe_ffn
+
+    def marked(*a, **k):
+        with record_function("routed_ffn"):
+            return real(*a, **k)
+
+    moe.moe_ffn = marked
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(steps):
+                lg, cache = model_zoo.decode_step_paged(
+                    tier.params, cfg, lg.argmax(-1)[:, None], pos + i, block,
+                    cache)
+            torch.cuda.synchronize()
+    finally:
+        moe.moe_ffn = real
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "t.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                    for e in events if e.get("name") == "routed_ffn"
+                    and e.get("cat") == "user_annotation")
+    launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    total = routed = 0.0
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        total += float(e["dur"])
+        t = launch_ts.get(e.get("args", {}).get("correlation"))
+        if t is not None and any(a <= t <= b for a, b in ranges):
+            routed += float(e["dur"])
+    if len(ranges) != steps * cfg.num_layers or not 0 < routed < total:
+        raise AssertionError(f"routed FFN ranges {len(ranges)} (want "
+                             f"{steps * cfg.num_layers}), routed "
+                             f"{routed:.1f} of {total:.1f} us")
+    return routed / steps / 1e3, total / steps / 1e3
+
+
+def moe_full_width_phase():
+    """deepseek-moe-16b at its published widths and depth (L: 28 layers,
+    d_model 2048, 16 / 16 heads of 128, 64 routed experts of 1,408, top 6,
+    2 shared; S: ``s_variant(4)``, 7 layers, 16 experts of 352), random
+    float32 params from seed 0, bf16 KV: the drain as ARCH's; the stream
+    trace's first ``MOE_REQUESTS`` requests through ``serve_stream`` (chunk
+    lane, sharing, decode_block 4) at theta 0.6 and the median, then over
+    int8 pools; then the speculative lane (8 S / 8 L slots, verify chunk
+    q (8, 4, 16, 128)) at theta 0.6.  Each run: every record completes,
+    one host fetch per tick, every kernel's launches as the lane flags
+    predict.  Routing drops make stream == drain and sharing on == off
+    fail at this width, in the reference too, so they are not asserted.
+    Logs per tier the param bytes, the decode step's ms and the routed
+    FFN's share of its device time; then the full-width MoE layer's drops,
+    card against CPU (:func:`moe_layer_phase`).  Returns the launches of
+    the drain, the bf16 and int8 streams and the speculative run, and the
+    verify lane's chunk-kernel launches."""
+    import torch
+    from repro_torch.kernels import ops
+    launches, eng, _ = serve_full_width(MOE_ARCH)
+    for t, tier in (("L", eng.l), ("S", eng.s)):
+        log(f"  {t} tier {tier.cfg.name}: {_param_bytes(tier.params) / 1e9:.2f}"
+            f" GB of float32 params, {tier.cfg.num_layers} layers, "
+            f"{tier.cfg.num_experts} experts of {tier.cfg.d_ff_expert}, top "
+            f"{tier.cfg.experts_per_token}")
+    reqs = _stream_trace(eng.l.cfg)[:MOE_REQUESTS]
+    ticks0 = eng.stats["stream_ticks"]
+    stream, _, out = serve_stream_full_width(eng, STREAM_KW, reqs)
+    ticks = eng.stats["stream_ticks"] - ticks0
+    log(f"  stream launches per tick (hand-written kernels, both runs): "
+        f"{sum(stream.values()) / ticks:.1f} over {ticks} ticks")
+    log(f"== serve_stream ({MOE_ARCH}, int8 pools)")
+    int8 = int8_stream_phase(eng, STREAM_KW, reqs, out,
+                             ("cow", "saved", "chunk"),
+                             max_ratio=INT8_MAX_RATIO)
+    log(f"== speculative ({MOE_ARCH}: the draft-verify lane)")
+    try:
+        eng.hi = dataclasses.replace(eng.hi, theta=THETA)
+        spec_out, sched, spec, ticks, wall = _counted_run(eng, reqs, SPEC_KW)
+    finally:
+        eng.hi = dataclasses.replace(eng.hi, theta=THETA)
+    _check_spec_outputs(spec_out, reqs, eng.l.cfg)
+    verify = sched.lrt.lane_ticks["live"]
+    n_l = eng.l.cfg.num_layers
+    lane = n_l * sched.lrt.lane_ticks["chunk"] + \
+        eng.s.cfg.num_layers * sched.srt.lane_ticks["chunk"]
+    if verify == 0 or spec["decode_attention_chunk_paged"] != \
+            n_l * verify + lane:
+        raise AssertionError("chunk kernel launches != verify ticks x L "
+                             "layers + the chunk lanes'")
+    st = sched.stats
+    log(f"  speculative, theta {THETA}: {wall * 1e3:.1f} ms, {ticks} ticks "
+        f"({verify} ran the verify lane), {len(spec_out) / wall:.2f} req/s; "
+        f"drafted {st['drafted']}, accepted {st['accepted']}, escalated "
+        f"blocks {st['escalated_blocks']}; chunk kernel "
+        f"{spec['decode_attention_chunk_paged']} launches = {n_l} x {verify}"
+        f" verify ticks + {lane} chunk-lane; "
+        f"{sum(spec.values()) / ticks:.1f} launches per tick; one host fetch"
+        f" per tick")
+    log(f"== routed FFN share and the full-width MoE layer ({MOE_ARCH})")
+    for t, tier in (("L", eng.l), ("S", eng.s)):
+        routed, total = _routed_share(tier)
+        step = _decode_step_ms(tier, torch.bfloat16)
+        log(f"  {t} tier decode step (8 slots, bf16 pool): {step:.2f} ms host"
+            f" wall; device {total:.2f} ms, of which the routed FFN "
+            f"{routed:.2f} ms = {routed / total:.1%}")
+    moe_layer_phase(eng)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak max_memory_allocated over the {MOE_ARCH} phases "
+        f"{peak / 2 ** 30:.2f} GiB")
+    del eng
+    ops.reset_launch_counts()
+    return launches, stream, int8, spec, n_l * verify
+
+
+def moe_layer_phase(eng):
+    """Layer 0's routed FFN at the published widths (64 experts of 1,408
+    over d_model 2,048, top 6, capacity factor 2.0), on the card and on the
+    CPU on the same inputs: the MoE input of a 4-row admission of the 512
+    bucket (T = 2,048, cap 384; right-padded with token 0 as the
+    batcher pads) and of 4 decode tokens (T = 4, cap 1: the L tier's
+    decode, where drops are certain).  Both devices must route alike and
+    drop the same (token, choice) pairs, with outputs within
+    ``MOE_LAYER_TOL``.  Reports the drop counts, and how many real tokens'
+    pairs of the admission drop only because the padded tails (routed
+    ahead of later rows' tokens in token order) took their slots."""
+    import numpy as np
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import layer_params
+    cfg = eng.l.cfg
+    lp = layer_params(eng.l.params["layers"], 0)
+    lens = MOE_ADMISSION
+    rng = np.random.default_rng(9)
+    toks = np.zeros((len(lens), 512), np.int64)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(1, cfg.vocab_size, n)
+    with torch.no_grad():
+        h = eng.l.params["embed"][torch.as_tensor(toks, device="cuda")]
+        h = h + L.attention_forward(
+            lp["attn"], L.rmsnorm(lp["ln1"], h, cfg.norm_eps),
+            num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
+        x = L.rmsnorm(lp["ln2"], h, cfg.norm_eps)
+    last = torch.as_tensor([n - 1 for n in lens], device="cuda")
+    inputs = {"admission": x,
+              "decode": x[torch.arange(len(lens), device="cuda"), last][:, None]}
+    cpu_lp = {k: _to(v, "cpu") if isinstance(v, dict) else v.cpu()
+              for k, v in lp.items() if k in ("router", "experts")}
+    real = torch.as_tensor(toks != 0).reshape(-1)
+    for name, xx in inputs.items():
+        t = xx.shape[0] * xx.shape[1]
+        cap = moe.moe_capacity(t, cfg.num_experts, cfg.experts_per_token,
+                               moe.SERVE_CAPACITY)
+        res = {}
+        for dev, p in (("cuda", lp), ("cpu", cpu_lp)):
+            xd = xx.to(dev)
+            y, aux = moe.moe_ffn(p, cfg, xd, moe.SERVE_CAPACITY)
+            _, idx, _, keep, _ = moe.route(p, cfg, xd.reshape(t, -1), cap)
+            res[dev] = (y.cpu(), float(aux), idx.cpu(), keep.cpu())
+        (yg, ag, ig, kg), (yc, ac, ic, kc) = res["cuda"], res["cpu"]
+        err = float((yg - yc).abs().max())
+        drops = int((~kg).sum())
+        msg = (f"  MoE layer 0 at full width, {name}: T {t}, cap {cap}; "
+               f"choices routed alike on card and CPU: "
+               f"{bool(torch.equal(ig, ic))}; dropped (token, choice) pairs "
+               f"{drops} of {kg.numel()} (card) / {int((~kc).sum())} (CPU), "
+               f"the same set: {bool(torch.equal(kg, kc))}; max output err "
+               f"{err:.2e} (tol {MOE_LAYER_TOL:g}); aux {ag:.6f} / {ac:.6f}")
+        if name == "admission":
+            # the same rows with the padded tails left out, at the same cap
+            _, _, _, k_real, _ = moe.route(
+                lp, cfg, xx.reshape(t, -1)[real.to("cuda")], cap)
+            by_tails = int((~kg[real] & k_real.cpu()).sum())
+            msg += (f"; real tokens' pairs dropped {int((~kg[real]).sum())}"
+                    f", of which dropped only because the padded tails took "
+                    f"their slots: {by_tails}")
+        log(msg)
+        if not (torch.equal(ig, ic) and torch.equal(kg, kc)
+                and err <= MOE_LAYER_TOL) or (name == "decode" and not drops):
+            raise AssertionError("the full-width MoE layer: card and CPU "
+                                 "disagree, or nothing dropped")
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -2817,6 +3217,8 @@ def main(argv=None) -> int:
                check_decode_attention_chunk_paged_int8(gen),
                check_copy_pages(gen, quant=True)]
     verify_cases = check_verify_chunk(gen)
+    log(f"== kernels at the MoE shapes ({MOE_ARCH}; {LLAVA_GROUP7})")
+    moe_cases = check_moe_kernels(gen)
     total = dict.fromkeys(_kernel_names(), 0)   # launches over every path
 
     def add(counts):
@@ -2827,6 +3229,24 @@ def main(argv=None) -> int:
         "replays)")
     cascade_launches, _ = cascade_phase()
     add(cascade_launches)
+    torch.cuda.empty_cache()
+
+    # the MoE family on a card that holds nothing else yet (its full-width
+    # params take 68.2 GB of the 80), and before the traced phases: after
+    # them CUPTI kept only 27 of 50 kernel records in every profiled window
+    log(f"== small inputs, card vs CPU ({MOE_ARCH}, {MOE_DENSE_RESIDUAL}; "
+        "the VLM, the enc-dec and the new dense configs)")
+    for arch in (MOE_ARCH, MOE_DENSE_RESIDUAL):
+        check_small_reference(arch)
+        check_small_int8_reference(arch)
+    check_small_stream_reference(MOE_ARCH)
+    check_small_families()
+    log(f"== serve (the drain path, {MOE_ARCH} at full width)")
+    moe_launches, moe_stream, moe_int8, moe_spec, moe_verify = \
+        moe_full_width_phase()
+    for counts in (moe_launches, moe_stream, moe_int8, moe_spec):
+        add(counts)
+    gc.collect()
     torch.cuda.empty_cache()
 
     log(f"== serve (the drain path, {ARCH})")
@@ -2925,6 +3345,16 @@ def main(argv=None) -> int:
             (f"{ARCH} legacy", legacy_launches, ("decode_attention",)),
             (f"{ARCH} sampled", temp_launches,
              ("hi_gate", "decode_attention", "decode_attention_paged",
+              "decode_attention_chunk_paged")),
+            (MOE_ARCH, moe_launches, ("hi_gate", "decode_attention")),
+            (f"{MOE_ARCH} stream", moe_stream,
+             ("hi_gate", "decode_attention_paged",
+              "decode_attention_chunk_paged", "copy_pages")),
+            (f"{MOE_ARCH} int8", moe_int8,
+             ("hi_gate", "decode_attention_paged[int8]",
+              "decode_attention_chunk_paged[int8]", "copy_pages[int8]")),
+            (f"{MOE_ARCH} speculative", moe_spec,
+             ("hi_gate", "decode_attention_paged",
               "decode_attention_chunk_paged"))):
         for n in names:
             if counts[n] == 0:
@@ -2950,6 +3380,26 @@ def main(argv=None) -> int:
             "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "gather_sdpa_ms")}
         entry["max_abs_err"] = max(entry["max_abs_err"], case["max_abs_err"])
+
+    # each kernel's entry carries its cases at the MoE shapes, with the
+    # launches of the deepseek-moe-16b runs (the verify shape's: its verify
+    # ticks; llava's group 7 and the int8 verify case are timed only)
+    moe_total = {}
+    for counts in (moe_launches, moe_stream, moe_int8, moe_spec):
+        _add(moe_total, counts)
+    for k in kernels:
+        for case in moe_cases.get(k["name"], []):
+            shape = case["shape"]
+            case["launches"] = (0 if shape.startswith(LLAVA_GROUP7)
+                                or (shape.startswith("L verify")
+                                    and k["name"].endswith("[int8]"))
+                                else moe_verify if shape.startswith(
+                                    "L verify")
+                                else moe_total[k["name"]])
+            k.setdefault("moe", []).append(
+                {key: v for key, v in case.items()
+                 if key not in ("name", "route", "source", "replaces")})
+            k["max_abs_err"] = max(k["max_abs_err"], case["max_abs_err"])
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,19 +1,29 @@
-"""Architecture registry of the port: ``--arch <id>`` resolution.
-
-The dense, SSM and hybrid archs are ported; the other families of the
-reference registry join with their model code (ROADMAP Queue A items 11-12).
-"""
+"""Architecture registry of the port: ``--arch <id>`` resolution, the
+reference registry's ten archs."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import (gemma3_1b, mamba2_370m, qwen2_1p5b,
-                                 zamba2_2p7b)
+from repro_torch.configs import (arctic_480b, deepseek_moe_16b, gemma3_1b,
+                                 granite_3_2b, h2o_danube_3_4b,
+                                 llava_next_34b, mamba2_370m, qwen2_1p5b,
+                                 whisper_large_v3, zamba2_2p7b)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in (gemma3_1b.CONFIG, qwen2_1p5b.CONFIG,
-                        mamba2_370m.CONFIG, zamba2_2p7b.CONFIG)
+    c.name: c
+    for c in (
+        mamba2_370m.CONFIG,
+        deepseek_moe_16b.CONFIG,
+        whisper_large_v3.CONFIG,
+        granite_3_2b.CONFIG,
+        zamba2_2p7b.CONFIG,
+        gemma3_1b.CONFIG,
+        llava_next_34b.CONFIG,
+        arctic_480b.CONFIG,
+        qwen2_1p5b.CONFIG,
+        h2o_danube_3_4b.CONFIG,
+    )
 }
 
 

@@ -5,9 +5,12 @@
 
 Runs on the card by default; ``--device cpu`` runs the plain versions of the
 kernels on the CPU.  ``--no-reduced`` runs the full published config.
-``--legacy`` serves through ``serve_legacy``, the pre-batched-prefill
-baseline; ``--temperature T`` samples each token under the request's seed
-(its id) instead of picking greedily.
+Every arch of the registry is a choice; the enc-dec (whisper-large-v3)
+and VLM (llava-next-34b) archs exit with the reference's message, as its
+CLI serves the decoder-only text families only.  ``--legacy`` serves
+through ``serve_legacy``, the pre-batched-prefill baseline;
+``--temperature T`` samples each token under the request's seed (its id)
+instead of picking greedily.
 """
 from __future__ import annotations
 
@@ -30,6 +33,9 @@ def run(arch: str, *, reduced: bool = True, requests: int = 32, batch: int = 8,
     cfg = ARCHS[arch]
     if reduced:
         cfg = cfg.reduced()
+    if cfg.family in ("encdec", "vlm"):
+        raise SystemExit(f"serve driver covers decoder-only text families; "
+                         f"{cfg.family} is exercised via dryrun + smoke tests")
     hi = HIConfig(theta=theta, capacity_factor=capacity_factor, metric=metric)
     engine = build_engine(cfg, hi, seed=seed, max_new_tokens=max_new_tokens,
                           cache_len=64, device=device,

@@ -7,10 +7,11 @@ Conventions follow the reference's ``models/layers.py``:
   ``(in, out)`` layout and are applied as ``x @ W``;
 * masks are boolean, True = attend; masked scores are ``-1e30``.
 
-Only what the dense family and the hybrid's shared attention block run is
-here: the contiguous-cache path and the paged-pool path of continuous
-serving, with bf16 (or float32) pages or int8 pages and their per-page,
-per-head scales.  Large matmuls go to ``torch.matmul``; decode and chunk
+Only what the attention families (dense, MoE, VLM, the hybrid's shared
+block and whisper) run is here: the contiguous-cache path and the
+paged-pool path of continuous serving, with bf16 (or float32) pages or int8
+pages and their per-page, per-head scales, and whisper's LayerNorm and
+GELU MLP.  Large matmuls go to ``torch.matmul``; decode and chunk
 attention and the copy-on-write page copies go through ``kernels/ops.py``.
 """
 from __future__ import annotations
@@ -441,3 +442,25 @@ def quant_scatter_prefill_pages(pool: torch.Tensor, scale: torch.Tensor,
 
 def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ params["wg"]) * (x @ params["wi"])) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# the enc-dec family's pieces (whisper): LayerNorm and the GELU MLP
+# ---------------------------------------------------------------------------
+
+def layernorm(params: Params, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Computed in float32 (biased variance, as ``jnp.var``), cast back to
+    x's dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def gelu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """GELU in its tanh form, ``jax.nn.gelu``'s default."""
+    return F.gelu(x @ params["wi"] + params["bi"],
+                  approximate="tanh") @ params["wo"] + params["bo"]

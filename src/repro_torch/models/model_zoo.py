@@ -1,12 +1,19 @@
-"""Uniform model API of the port.  The dense decoder, SSM (mamba2) and
-hybrid (zamba2) families are ported; the MoE, enc-dec and VLM families
-raise ``NotImplementedError`` naming their ROADMAP items.
+"""Uniform model API of the port over every family of the reference: the
+dense decoder (and the VLM's, with its patch prefix), MoE, SSM (mamba2),
+hybrid (zamba2) and enc-dec (whisper).
 
   init_params(gen, cfg)                        -> float32 params dict
-  forward(params, cfg, tokens)                 -> logits (B, S, V) float32
+  forward(params, cfg, tokens, patches=None, frames=None)
+                                               -> logits (B, S, V) float32
+                                                  (VLM: (B, P + S, V))
   init_cache(cfg, batch, seq_len, dtype, device) -> decode cache dict
   prefill(params, cfg, tokens, cache)          -> (logits (B, V), cache)
   decode_step(params, cfg, token, cache)       -> (logits (B, V), cache)
+
+The enc-dec family runs ``forward``, ``init_cache`` and ``decode_step``
+(after ``whisper.precompute_cross``); ``prefill`` and the paged API refuse
+it with the reference's ``ValueError``, as the reference serves no enc-dec
+model.  The MoE forward's aux loss is ``moe.forward``'s second output.
 
 The paged API of continuous serving (bf16, float32 or int8 pages; an int8
 pool carries ``ks``/``vs`` scale rows, one per physical page and kv head):
@@ -25,7 +32,7 @@ pool carries ``ks``/``vs`` scale rows, one per physical page and kv head):
 and the recurrent-state hooks the scheduler calls for every family
 (``gather_chunk_slots`` ... ``snapshot_restore``, and ``draft_stage`` for
 the speculative lane's rollback).  They pass through for
-the dense family, whose state is the pages; for the SSM and hybrid
+the attention families (dense, VLM, MoE), whose state is the pages; for the SSM and hybrid
 families they move per-slot state rows.  Every hook updates the caches IN
 PLACE, as the pages are: the scheduler's tick uses no return value but
 the chunk lane's gathered rows.  Recurrent leaves carry a padding row past
@@ -43,42 +50,51 @@ import torch
 from repro_torch.configs.base import (DENSE, ENCDEC, HYBRID, MOE, SSM, VLM,
                                       ModelConfig)
 from repro_torch.kernels import ops
-from repro_torch.models import hybrid, mamba2, transformer
+from repro_torch.models import hybrid, mamba2, moe, transformer, whisper
 
 Params = Dict[str, Any]
 
-_NOT_PORTED = {
-    MOE: "ROADMAP Queue A item 11 (MoE)",
-    ENCDEC: "ROADMAP Queue A item 12 (the paper's own applications: "
-            "enc-dec)",
-    VLM: "ROADMAP Queue A item 12 (the paper's own applications: VLM)",
-}
-_MODULES = {DENSE: transformer, SSM: mamba2, HYBRID: hybrid}
+_MODULES = {DENSE: transformer, VLM: transformer, MOE: moe, SSM: mamba2,
+            HYBRID: hybrid, ENCDEC: whisper}
 # slot axis of the recurrent leaves
 _SLOT_AXIS = {SSM: 1, HYBRID: hybrid.AXIS}
 
 
 def _module(cfg: ModelConfig):
-    mod = _MODULES.get(cfg.family)
-    if mod is None:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: "
-            f"{_NOT_PORTED.get(cfg.family, 'unknown family')}")
-    return mod
+    if cfg.family not in _MODULES:
+        raise ValueError(cfg.family)
+    return _MODULES[cfg.family]
+
+
+def _served(cfg: ModelConfig, what: str):
+    """The module of a family the serving API takes: not enc-dec, as in
+    the reference."""
+    if cfg.family == ENCDEC:
+        raise ValueError(f"{what} not supported for family {cfg.family!r}")
+    return _module(cfg)
 
 
 def _recurrent(cfg: ModelConfig) -> bool:
-    return _module(cfg) is not transformer
+    return cfg.family in _SLOT_AXIS
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    if cfg.family == DENSE:
-        return transformer.init_decoder(gen, cfg)
-    return _module(cfg).init_model(gen, cfg)
+    mod = _module(cfg)
+    if mod in (transformer, moe):
+        return mod.init_decoder(gen, cfg)
+    return mod.init_model(gen, cfg)
 
 
-def forward(params: Params, cfg: ModelConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            patches=None, frames=None) -> torch.Tensor:
+    """Logits (B, S, V) float32: (B, P + S, V) for the VLM with ``patches``
+    (B, P, D); the enc-dec family takes ``frames`` (B, F, D)."""
+    if cfg.family == VLM:
+        return transformer.forward(params, cfg, tokens, patch_embeds=patches)
+    if cfg.family == MOE:
+        return moe.forward(params, cfg, tokens)[0]
+    if cfg.family == ENCDEC:
+        return whisper.forward(params, cfg, frames, tokens)
     return _module(cfg).forward(params, cfg, tokens)
 
 
@@ -89,7 +105,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Params):
-    return _module(cfg).prefill(params, cfg, tokens, cache)
+    return _served(cfg, "prefill").prefill(params, cfg, tokens, cache)
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
@@ -103,25 +119,25 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
 
 def init_paged_cache(cfg: ModelConfig, num_slots: int, num_pages: int,
                      page_size: int, dtype=torch.bfloat16, device="cuda"):
-    return _module(cfg).init_paged_cache(cfg, num_slots, num_pages,
-                                         page_size, dtype, device)
+    return _served(cfg, "paged cache").init_paged_cache(
+        cfg, num_slots, num_pages, page_size, dtype, device)
 
 
 def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   lengths: torch.Tensor, slots: torch.Tensor,
                   block_rows: torch.Tensor, cache, *, start=None):
-    """Admit a batch of requests in one pass.  ``start`` (A,): the dense
-    family splices cached prefix K/V below it; the recurrent families share
-    whole prompts only (see each module)."""
-    return _module(cfg).prefill_paged(params, cfg, tokens, lengths, slots,
-                                      block_rows, cache, start=start)
+    """Admit a batch of requests in one pass.  ``start`` (A,): the
+    attention families splice cached prefix K/V below it; the recurrent
+    families share whole prompts only (see each module)."""
+    return _served(cfg, "prefill_paged").prefill_paged(
+        params, cfg, tokens, lengths, slots, block_rows, cache, start=start)
 
 
 def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
                       pos: torch.Tensor, block: torch.Tensor, cache, *,
                       write_block=None):
-    return _module(cfg).decode_step_paged(params, cfg, token, pos, block,
-                                          cache, write_block=write_block)
+    return _served(cfg, "decode_step_paged").decode_step_paged(
+        params, cfg, token, pos, block, cache, write_block=write_block)
 
 
 def forward_chunk_paged(params: Params, cfg: ModelConfig,
@@ -129,18 +145,17 @@ def forward_chunk_paged(params: Params, cfg: ModelConfig,
                         block: torch.Tensor, cache, *, write_block=None,
                         keep=None):
     """One multi-token paged pass: token i of slot b at ``pos[b] + i``.
-    The dense family's ``staged`` is {}; the recurrent families' chunk is
+    The attention families' ``staged`` is {}; the recurrent families' chunk is
     C per-token steps (bitwise the per-token path) and ``staged`` their
     boundary snapshots: all C of them, or with ``keep`` ((B,) host ints)
     only each row's snapshot after exactly ``keep`` inputs, which is
     ``select_stage(staged, keep)``."""
-    if cfg.family == DENSE:
-        return transformer.forward_chunk_paged(params, cfg, tokens, pos,
-                                               block, cache,
-                                               write_block=write_block)
-    return _module(cfg).forward_chunk_paged(params, cfg, tokens, pos, block,
-                                            cache, write_block=write_block,
-                                            keep=keep)
+    mod = _served(cfg, "forward_chunk_paged")
+    if not _recurrent(cfg):
+        return mod.forward_chunk_paged(params, cfg, tokens, pos, block,
+                                       cache, write_block=write_block)
+    return mod.forward_chunk_paged(params, cfg, tokens, pos, block, cache,
+                                   write_block=write_block, keep=keep)
 
 
 def gather_chunk_slots(cfg: ModelConfig, cache, slots: torch.Tensor,
@@ -219,10 +234,10 @@ def init_prefix_cache(cfg: ModelConfig, entries: int, device="cuda",
     ``entries`` is the drop row: the scheduler's sentinel saves (index
     ``entries``, the reference's ``mode="drop"``) land there and nothing
     reads it."""
-    mod = _module(cfg)
+    mod = _served(cfg, "prefix cache")
     base = {"logits": torch.zeros((entries + 1, cfg.vocab_size),
                                   dtype=torch.float32, device=device)}
-    if mod is not transformer:
+    if _recurrent(cfg):
         base.update(mod.init_prefix_cache(cfg, entries, dtype, device))
     return base
 
@@ -250,7 +265,7 @@ def cow_pages(cfg: ModelConfig, cache, src: np.ndarray, dst: np.ndarray):
     ``src`` (host int arrays, padded with (0, 0) pairs).  K and V pools, and
     an int8 pool's scale rows, which move with their pages, go through one
     ``ops.copy_pages`` call.  The SSM family has no pages."""
-    if _module(cfg) is mamba2:
+    if _served(cfg, "cow_pages") is mamba2:
         return cache
     ops.copy_pages(transformer.page_tensors(cache), src, dst)
     return cache

@@ -1,0 +1,243 @@
+"""Mixture-of-Experts decoder (deepseek-moe fine-grained, arctic
+dense-residual), a copy of the reference's ``models/moe.py``.
+
+Dispatch is the reference's capacity-bounded scatter: each token picks its
+top-k experts, each expert owns a static ``capacity`` slot buffer, and
+overflowing (token, choice) pairs are dropped.  The drop policy is the
+reference's: slot positions from a count in token order within each of the
+k choices plus the running per-expert ``base`` of the choices before (the
+reference's loop over the choices, here one count, :func:`route`),
+positions clamped to ``cap - 1`` with dropped rows adding zeros, and the
+top-k gates renormalised.  Ties in the router's probabilities go to the
+lower expert index, as ``lax.top_k`` breaks them.
+
+The routed FFN is three batched products over the (E, cap, D) buffers
+(``torch.bmm``, as the reference's ``einsum``): the reference has no Pallas
+kernel here.  Everything else (attention, the caches, the page pools and
+their int8 write side) is the dense family's: the serving functions are
+``models/transformer.py``'s with this module's FFN, as the reference's
+MoE scans reuse its ``layers``.  The capacity factors are the reference's:
+1.25 in :func:`forward`, 2.0 on every serving path.  The expert-parallel
+``moe_ffn_sharded`` is not ported (ROADMAP Queue A item 14).
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import transformer
+from repro_torch.models.transformer import layer_params
+
+Params = Dict[str, Any]
+
+FORWARD_CAPACITY = 1.25
+SERVE_CAPACITY = 2.0
+
+
+def moe_capacity(num_tokens: int, num_experts: int, k: int,
+                 factor: float = 1.25) -> int:
+    """Static per-expert slot count."""
+    return max(1, int(math.ceil(num_tokens * k / num_experts * factor)))
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _ffn_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    n, d, e = cfg.num_layers, cfg.d_model, cfg.num_experts
+    p = {"router": transformer._dense(gen, (n, d, e)),
+         "experts": transformer.swiglu_params(gen, (n, e), d,
+                                              cfg.d_ff_expert)}
+    if cfg.num_shared_experts:
+        p["shared"] = transformer.swiglu_params(
+            gen, (n,), d, cfg.num_shared_experts * cfg.d_ff_expert)
+    if cfg.moe_dense_residual:
+        p["dense"] = transformer.swiglu_params(gen, (n,), d, cfg.d_ff)
+    return p
+
+
+def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Random float32 params in the reference's layout: per layer ``ln1``,
+    ``attn``, ``ln2``, the float32 ``router`` (D, E), the stacked experts
+    ``{"wi", "wg"}`` (L, E, D, F) and ``"wo"`` (L, E, F, D), ``"shared"``
+    one SwiGLU of ``num_shared_experts * d_ff_expert`` and, for arctic,
+    the dense residual ``"dense"``.  Each weight is drawn and scaled in
+    place, so no stacked expert tensor is ever held twice."""
+    return transformer.init_decoder(
+        gen, cfg, functools.partial(_ffn_params, cfg=cfg))
+
+
+# ---------------------------------------------------------------------------
+# routed FFN
+# ---------------------------------------------------------------------------
+
+def route(lp: Params, cfg: ModelConfig, xf: torch.Tensor, cap: int):
+    """The router and the drop policy over tokens ``xf`` (T, D).
+
+    The reference walks the k choices in turn: a pair's slot is its count
+    among the choice's earlier tokens of the same expert, plus the running
+    per-expert ``base`` of the choices before.  That is one count over the
+    (choice, token) pairs taken choice by choice, which is how it is
+    computed here, with no host sync and a handful of launches.
+
+    Returns (gate (T, k) renormalised, idx (T, k) expert ids, pos (T, k)
+    slots clamped to ``cap - 1``, keep (T, k) bool: the pair got a slot,
+    probs (T, E))."""
+    e, k = cfg.num_experts, cfg.experts_per_token
+    t = xf.shape[0]
+    logits = xf.float() @ lp["router"]                        # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    # lax.top_k's order: descending, ties to the lower index
+    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = gate[:, :k], idx[:, :k]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    flat = idx.t().reshape(-1)                                # choice-major
+    onehot = flat[:, None] == torch.arange(e, device=xf.device)
+    pos = torch.gather(onehot.long().cumsum(0), 1, flat[:, None])[:, 0] - 1
+    pos = pos.reshape(k, t).t()
+    return gate, idx, torch.clamp(pos, max=cap - 1), pos < cap, probs
+
+
+def moe_ffn(lp: Params, cfg: ModelConfig, x: torch.Tensor,
+            capacity_factor: float = 1.25
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y (B, S, D), aux_loss).
+
+    Scatter dispatch into (E, cap, D) expert buffers; no (T, E, cap)
+    one-hot is formed.  Every kept pair owns its slot and a dropped pair
+    adds a zero row at ``cap - 1``, so the buffers are exact in any order
+    of the scatter's sums.  The outputs combine choice by choice, in the
+    reference's order."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    t = b * s
+    cap = moe_capacity(t, e, k, capacity_factor)
+    xf = x.reshape(t, d)
+    gate, idx, pos, keep, probs = route(lp, cfg, xf, cap)
+
+    buf = x.new_zeros((e, cap, d))
+    buf.index_put_((idx, pos), xf[:, None, :] * keep[..., None].to(x.dtype),
+                   accumulate=True)
+
+    ex = lp["experts"]
+    h = F.silu(torch.bmm(buf, ex["wg"])) * torch.bmm(buf, ex["wi"])
+    out = torch.bmm(h, ex["wo"])                              # (E, cap, D)
+
+    w = (gate * keep).to(x.dtype)
+    y = x.new_zeros((t, d))
+    for j in range(k):
+        y = y + out[idx[:, j], pos[:, j]] * w[:, j, None]
+    y = y.reshape(b, s, d)
+
+    # load-balancing aux loss (Switch-style)
+    first = idx[:, :1] == torch.arange(e, device=x.device)
+    aux = e * torch.sum(first.float().mean(0) * probs.mean(0))
+    return y, aux
+
+
+def _ffn(lp: Params, cfg: ModelConfig, xn: torch.Tensor,
+         capacity_factor: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer's FFN: routed experts, plus the shared experts and
+    arctic's dense residual where the layer has them."""
+    y, aux = moe_ffn(lp, cfg, xn, capacity_factor)
+    if "shared" in lp:
+        y = y + L.swiglu(lp["shared"], xn)
+    if "dense" in lp:
+        y = y + L.swiglu(lp["dense"], xn)
+    return y, aux
+
+
+def serving_ffn(lp: Params, cfg: ModelConfig,
+                xn: torch.Tensor) -> torch.Tensor:
+    """The FFN hook of ``transformer``'s serving functions, at the serving
+    capacity factor."""
+    return _ffn(lp, cfg, xn, SERVE_CAPACITY)[0]
+
+
+def _block(lp: Params, cfg: ModelConfig, x: torch.Tensor, win: int,
+           capacity_factor: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    x = x + L.attention_forward(
+        lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps),
+        num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        window=win)
+    y, aux = _ffn(lp, cfg, L.rmsnorm(lp["ln2"], x, cfg.norm_eps),
+                  capacity_factor)
+    return x + y, aux
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            capacity_factor: float = FORWARD_CAPACITY
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (logits (B, S, V) float32, mean aux loss)."""
+    h = params["embed"][tokens]
+    win = tokens.shape[1]
+    auxs = []
+    for i in range(cfg.num_layers):
+        h, aux = _block(layer_params(params["layers"], i), cfg, h, win,
+                        capacity_factor)
+        auxs.append(aux)
+    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return (h @ params["lm_head"]).float(), torch.stack(auxs).mean()
+
+
+# ---------------------------------------------------------------------------
+# contiguous cache (the drain path) and the paged pool (continuous serving):
+# the dense family's functions with the routed FFN at SERVE_CAPACITY
+# ---------------------------------------------------------------------------
+
+init_cache = transformer.init_cache
+init_paged_cache = transformer.init_paged_cache
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            cache: Params):
+    """The whole (B, S) prompt in one pass (routed dispatch over all B x S
+    tokens together); returns (last-position logits (B, V), cache)."""
+    return transformer.prefill(params, cfg, tokens, cache, ffn=serving_ffn)
+
+
+def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
+                cache: Params):
+    return transformer.decode_step(params, cfg, token, cache,
+                                   ffn=serving_ffn)
+
+
+def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  lengths: torch.Tensor, slots: torch.Tensor,
+                  block_rows: torch.Tensor, cache: Params, *,
+                  start: Optional[torch.Tensor] = None):
+    """Paged batched admission.  Routed dispatch runs over all padded
+    (A, S_max) rows together, so the padded tails take expert capacity
+    ahead of later rows' real tokens in token order, as in the reference;
+    with ``start`` (prefix sharing) dispatch still runs over every position,
+    so the batch, and its drops, are those of the unshared pass."""
+    return transformer.prefill_paged(params, cfg, tokens, lengths, slots,
+                                     block_rows, cache, start=start,
+                                     ffn=serving_ffn)
+
+
+def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
+                      pos: torch.Tensor, block: torch.Tensor, cache: Params,
+                      *, write_block: Optional[torch.Tensor] = None):
+    return transformer.decode_step_paged(params, cfg, token, pos, block,
+                                         cache, write_block=write_block,
+                                         ffn=serving_ffn)
+
+
+def forward_chunk_paged(params: Params, cfg: ModelConfig,
+                        tokens: torch.Tensor, pos: torch.Tensor,
+                        block: torch.Tensor, cache: Params, *,
+                        write_block: Optional[torch.Tensor] = None):
+    """The chunk lane: the routed FFN dispatches all (B, C) chunk tokens
+    together.  Returns (logits (B, C, V), cache, {})."""
+    return transformer.forward_chunk_paged(params, cfg, tokens, pos, block,
+                                           cache, write_block=write_block,
+                                           ffn=serving_ffn)

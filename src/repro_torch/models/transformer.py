@@ -1,10 +1,13 @@
-"""Dense decoder-only transformer (qwen2 / gemma3) on a contiguous KV cache
-and on the paged KV pool of continuous serving.
+"""Dense decoder-only transformer (qwen2 / gemma3 / granite / danube, and
+llava's LM) on a contiguous KV cache and on the paged KV pool of continuous
+serving.
 
 The reference scans one layer body over ``(L, ...)``-stacked params; here a
 python loop walks the same stacked params layer by layer.  Per-layer
 heterogeneity (gemma3's 5:1 local:global attention) is a per-layer window
-size, as in the reference.
+size, as in the reference.  The serving functions take the layer's FFN as
+``ffn(lp, cfg, x)`` (default: the dense SwiGLU), so the MoE family runs the
+same attention and page code with its routed FFN (``models/moe.py``).
 
 The cache dict holds ``k``/``v`` of shape (L, B, S, K, Dh) and ``pos``, the
 number of filled rows, kept as a python int: in the drained batch every row
@@ -20,7 +23,7 @@ head.  It is updated in place, where the reference donates it.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -35,7 +38,9 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 def _normal(gen: torch.Generator, shape, std: float) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=gen.device) * std
+    """Scaled in place: one copy of the tensor at a time (a stacked expert
+    weight of deepseek-moe-16b is 20.7 GB in float32)."""
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(std)
 
 
 def _dense(gen, shape) -> torch.Tensor:
@@ -43,36 +48,57 @@ def _dense(gen, shape) -> torch.Tensor:
     return _normal(gen, shape, 1.0 / math.sqrt(shape[-2]))
 
 
-def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """Random float32 params with the reference's shapes, layout and
-    scales, on the generator's device.  (The numbers differ from the
-    reference's: torch's generator is not jax's.  Parity tests bridge the
-    reference's params.)"""
-    n, d, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
-    hq, hk, ff = cfg.num_heads * hd, cfg.num_kv_heads * hd, cfg.d_ff
+def attention_params(gen: torch.Generator, cfg: ModelConfig, n: int,
+                     d: int) -> Params:
+    """``n`` stacked attention blocks of width ``d`` (biases zero)."""
+    hd = cfg.resolved_head_dim
+    hq, hk = cfg.num_heads * hd, cfg.num_kv_heads * hd
     dev = gen.device
-
-    def ones(*shape):
-        return torch.ones(shape, device=dev)
-
-    def zeros(*shape):
-        return torch.zeros(shape, device=dev)
-
     attn = {"wq": _dense(gen, (n, d, hq)),
             "wk": _dense(gen, (n, d, hk)),
             "wv": _dense(gen, (n, d, hk)),
             "wo": _dense(gen, (n, hq, d))}
     if cfg.qkv_bias:
-        attn.update(bq=zeros(n, hq), bk=zeros(n, hk), bv=zeros(n, hk))
-    layers = {"ln1": {"scale": ones(n, d)}, "attn": attn,
-              "ln2": {"scale": ones(n, d)},
-              "mlp": {"wi": _dense(gen, (n, d, ff)),
-                      "wg": _dense(gen, (n, d, ff)),
-                      "wo": _dense(gen, (n, ff, d))}}
+        attn.update(bq=torch.zeros(n, hq, device=dev),
+                    bk=torch.zeros(n, hk, device=dev),
+                    bv=torch.zeros(n, hk, device=dev))
+    return attn
+
+
+def swiglu_params(gen: torch.Generator, lead, d: int, ff: int) -> Params:
+    """SwiGLU weights stacked over the ``lead`` axes."""
+    lead = tuple(lead)
+    return {"wi": _dense(gen, lead + (d, ff)),
+            "wg": _dense(gen, lead + (d, ff)),
+            "wo": _dense(gen, lead + (ff, d))}
+
+
+def init_decoder(gen: torch.Generator, cfg: ModelConfig,
+                 ffn_params=None) -> Params:
+    """Random float32 params with the reference's shapes, layout and
+    scales, on the generator's device.  (The numbers differ from the
+    reference's: torch's generator is not jax's.  Parity tests bridge the
+    reference's params.)  ``ffn_params(gen)`` makes the layers' FFN
+    entries (default: the dense ``"mlp"``)."""
+    n, d = cfg.num_layers, cfg.d_model
+    dev = gen.device
+    layers = {"ln1": {"scale": torch.ones(n, d, device=dev)},
+              "attn": attention_params(gen, cfg, n, d),
+              "ln2": {"scale": torch.ones(n, d, device=dev)}}
+    layers.update(ffn_params(gen) if ffn_params is not None else
+                  {"mlp": swiglu_params(gen, (n,), d, cfg.d_ff)})
     return {"embed": _normal(gen, (cfg.vocab_size, d), 0.02),
             "layers": layers,
-            "final_norm": {"scale": ones(d)},
+            "final_norm": {"scale": torch.ones(d, device=dev)},
             "lm_head": _dense(gen, (d, cfg.vocab_size))}
+
+
+def dense_ffn(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The dense family's FFN: the layer's SwiGLU."""
+    return L.swiglu(lp["mlp"], x)
+
+
+FFN = Callable[[Params, ModelConfig, torch.Tensor], torch.Tensor]
 
 
 def layer_params(layers: Params, i: int) -> Params:
@@ -96,11 +122,16 @@ def layer_windows(cfg: ModelConfig, seq_len: int) -> List[int]:
 # forward
 # ---------------------------------------------------------------------------
 
-def forward(params: Params, cfg: ModelConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V) float32."""
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens: (B, S) -> logits (B, S_total, V) float32.
+
+    For VLM configs, ``patch_embeds`` (B, P, D) is prepended to the token
+    embeddings (the stubbed vision tower's output): S_total = P + S."""
     h = params["embed"][tokens]
-    windows = layer_windows(cfg, tokens.shape[1])
+    if patch_embeds is not None:
+        h = torch.cat([patch_embeds.to(h.dtype), h], dim=1)
+    windows = layer_windows(cfg, h.shape[1])
     for i, win in enumerate(windows):
         lp = layer_params(params["layers"], i)
         h = h + L.attention_forward(
@@ -108,7 +139,7 @@ def forward(params: Params, cfg: ModelConfig,
             num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
             window=win)
-        h = h + L.swiglu(lp["mlp"], L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+        h = h + dense_ffn(lp, cfg, L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return (h @ params["lm_head"]).float()
 
@@ -128,9 +159,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 def _prefill_layer(lp: Params, cfg: ModelConfig, h: torch.Tensor,
                    win: int, kv_dtype, pos: torch.Tensor,
-                   splice=None, page: int = 0) -> Tuple[torch.Tensor,
-                                                        torch.Tensor,
-                                                        torch.Tensor]:
+                   splice=None, page: int = 0,
+                   ffn: FFN = dense_ffn) -> Tuple[torch.Tensor, torch.Tensor,
+                                                  torch.Tensor]:
     """One layer of the batched prefill shared by :func:`prefill` and
     :func:`prefill_paged` (the reference's ``_prefill_body``).  K/V are
     rounded to the cache dtype before the in-pass attention, so logits and
@@ -171,14 +202,15 @@ def _prefill_layer(lp: Params, cfg: ModelConfig, h: torch.Tensor,
         a = L._sdpa(q, k, v, L.causal_window_mask(s, s, window=win,
                                                   device=h.device))
     h = h + a.reshape(b, s, cfg.num_heads * hd) @ lp["attn"]["wo"]
-    h = h + L.swiglu(lp["mlp"], L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+    h = h + ffn(lp, cfg, L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
     if kv_dtype == torch.int8:
         return h, k_raw, v_raw
     return h, k, v
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: Params) -> Tuple[torch.Tensor, Params]:
+            cache: Params, *, ffn: FFN = dense_ffn
+            ) -> Tuple[torch.Tensor, Params]:
     """Fill the KV cache from a (B, S) prompt in one batched pass.
 
     The prompt's K/V are written into rows [0, S) of ``cache`` IN PLACE (the
@@ -194,7 +226,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     pos = torch.arange(s, device=h.device)
     for i, win in enumerate(layer_windows(cfg, s)):
         h, k, v = _prefill_layer(layer_params(params["layers"], i), cfg, h,
-                                 win, kv_dtype, pos)
+                                 win, kv_dtype, pos, ffn=ffn)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
@@ -203,7 +235,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
-                cache: Params) -> Tuple[torch.Tensor, Params]:
+                cache: Params, *, ffn: FFN = dense_ffn
+                ) -> Tuple[torch.Tensor, Params]:
     """token: (B, 1) -> (logits (B, V) float32, cache advanced by one row).
     The new K/V rows are written into ``cache`` in place."""
     h = params["embed"][token]
@@ -216,7 +249,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
             cache["k"][i], cache["v"][i], pos, num_heads=cfg.num_heads,
             num_kv=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
             rope_theta=cfg.rope_theta, window=win)
-        h = h + L.swiglu(lp["mlp"], L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+        h = h + ffn(lp, cfg, L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = (h[:, 0, :] @ params["lm_head"]).float()
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
@@ -273,7 +306,7 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, num_pages: int,
 def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   lengths: torch.Tensor, slots: torch.Tensor,
                   block_rows: torch.Tensor, cache: Params, *,
-                  start: Optional[torch.Tensor] = None
+                  start: Optional[torch.Tensor] = None, ffn: FFN = dense_ffn
                   ) -> Tuple[torch.Tensor, Params]:
     """Prefill a batch of admitted requests into their pages in one pass.
 
@@ -300,7 +333,7 @@ def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         splice = None if start is None else (
             pk, pv, sc["scale_k"], sc["scale_v"], block_rows, start)
         h, k, v = _prefill_layer(layer_params(params["layers"], i), cfg, h,
-                                 win, pk.dtype, pos, splice, page)
+                                 win, pk.dtype, pos, splice, page, ffn)
         store_prefill_pages(pk, pv, sc, k, v, wrows)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     last = (lengths.long() - 1)[:, None, None].expand(-1, 1, h.shape[-1])
@@ -325,8 +358,8 @@ def store_prefill_pages(pk: torch.Tensor, pv: torch.Tensor,
 
 def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
                       pos: torch.Tensor, block: torch.Tensor, cache: Params,
-                      *, write_block: Optional[torch.Tensor] = None
-                      ) -> Tuple[torch.Tensor, Params]:
+                      *, write_block: Optional[torch.Tensor] = None,
+                      ffn: FFN = dense_ffn) -> Tuple[torch.Tensor, Params]:
     """One decode step for all slots at per-slot positions.
     token: (B, 1); pos: (B,); block: (B, n_pages) int32.  Returns
     (logits (B, V) float32, cache), the pools written in place."""
@@ -340,7 +373,7 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
             num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
             window=win, write_block=write_block, **scales(cache, i))
-        h = h + L.swiglu(lp["mlp"], L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+        h = h + ffn(lp, cfg, L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return (h[:, 0, :] @ params["lm_head"]).float(), cache
 
@@ -348,7 +381,8 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
 def forward_chunk_paged(params: Params, cfg: ModelConfig,
                         tokens: torch.Tensor, pos: torch.Tensor,
                         block: torch.Tensor, cache: Params, *,
-                        write_block: Optional[torch.Tensor] = None
+                        write_block: Optional[torch.Tensor] = None,
+                        ffn: FFN = dense_ffn
                         ) -> Tuple[torch.Tensor, Params, dict]:
     """The chunked token lane: tokens (B, C) for all slots at per-slot start
     positions in one multi-token paged pass.  Attention state is positional,
@@ -364,6 +398,6 @@ def forward_chunk_paged(params: Params, cfg: ModelConfig,
             num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
             window=win, write_block=write_block, **scales(cache, i))
-        h = h + L.swiglu(lp["mlp"], L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+        h = h + ffn(lp, cfg, L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return (h @ params["lm_head"]).float(), cache, {}

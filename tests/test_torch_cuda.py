@@ -935,12 +935,22 @@ def test_stream_tick_synchronises_only_in_host_fetch(gen, monkeypatch):
     """Inside a tick nothing reads the card on the host: every tick of a
     reduced ``serve_stream`` runs under the sync debugger set to raise,
     which ``_host_fetch`` alone lifts for its one copy."""
+    _ticks_under_the_sync_debugger(monkeypatch, "qwen2-1.5b")
+
+
+def test_moe_stream_tick_synchronises_only_in_host_fetch(gen, monkeypatch):
+    """The same for the MoE family: the routing, its drop policy and the
+    expert scatter read nothing back on the host."""
+    _ticks_under_the_sync_debugger(monkeypatch, "deepseek-moe-16b")
+
+
+def _ticks_under_the_sync_debugger(monkeypatch, name):
     from repro_torch.configs.base import HIConfig
     from repro_torch.kernels import build
     from repro_torch.serving import engine as engine_mod
     from repro_torch.serving.engine import HIEngine
 
-    _, gpu = _reduced_tiers()
+    _, gpu = _reduced_tiers(name)
     reqs = _stream_requests(gpu[0].cfg.vocab_size, seed=1)
     eng = HIEngine(*gpu, HIConfig(theta=0.02, capacity_factor=1.0),
                    max_new_tokens=6)
@@ -1576,3 +1586,118 @@ def test_sampler_bits_on_card_equal_the_cpus(gen):
     tc = sampler.sample(kc, logits.cpu(), 0.7)
     tg = sampler.sample(kg, logits, 0.7)
     assert (tg.cpu() == tc).sum() >= 7
+
+
+# ---------------------------------------------------------------------------
+# the MoE family's shapes (deepseek-moe-16b: 16 / 16 heads of 128, S tier
+# 4 / 4, vocab 102,400) and llava-next-34b's group of 7 (56 over 8 heads)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,h,k", [(4, 16, 16), (8, 4, 4), (4, 56, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, "int8"])
+def test_paged_decode_kernel_at_the_moe_and_llava_shapes(gen, b, h, k,
+                                                         dtype):
+    if dtype == "int8":
+        q, (pk, pv), scales, clean, block, valid = _int8_inputs(
+            gen, b, h, k, 128, 16, 34, 1)
+        ref = da.decode_attention_paged_plain(q, pk, pv, block, valid[:, 0],
+                                              *clean)
+    else:
+        q, pk, pv, block, valid, ck, cv = _paged_inputs(
+            gen, b, h, k, 128, 16, 34, 1, dtype)
+        scales = ()
+        ref = da.decode_attention_paged_plain(q, ck, cv, block, valid[:, 0])
+    out = da.decode_attention_paged_cuda(q, pk, pv, block, valid[:, 0],
+                                         *scales)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=ATT_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("c,b,h,k", [(256, 2, 16, 16), (256, 2, 4, 4),
+                                     (4, 8, 16, 16), (256, 2, 56, 8),
+                                     (4, 8, 56, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, "int8"])
+def test_chunk_kernel_at_the_moe_and_llava_shapes(gen, c, b, h, k, dtype):
+    """The chunk lane's q (2, 256, H, 128) and the verify lane's
+    (8, 4, H, 128) at group 1 (deepseek) and group 7 (llava)."""
+    npg = max(12, c // 16 + 4)
+    if dtype == "int8":
+        q, (pk, pv), scales, clean, block, valid = _int8_inputs(
+            gen, b, h, k, 128, 16, npg, c)
+        ref = da.decode_attention_chunk_paged_plain(q, pk, pv, block, valid,
+                                                    *clean)
+    else:
+        q, pk, pv, block, valid, ck, cv = _paged_inputs(
+            gen, b, h, k, 128, 16, npg, c, dtype)
+        scales = ()
+        ref = da.decode_attention_chunk_paged_plain(q, ck, cv, block, valid)
+    out = da.decode_attention_chunk_paged_cuda(q, pk, pv, block, valid,
+                                               *scales)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=ATT_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,h,k", [(4, 16, 16), (8, 4, 4)])
+def test_drain_kernel_at_the_moe_shapes(gen, b, h, k):
+    s = 1024
+    q = torch.randn((b, 1, h, 128), generator=gen, device="cuda")
+    ck = torch.randn((b, s, k, 128), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    cv = torch.randn((b, s, k, 128), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    valid = torch.arange(s, device="cuda") <= 520
+    out = da.decode_attention_cuda(q, ck, cv, valid)
+    ref = da.decode_attention_plain(q, ck, cv, valid)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=ATT_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("metric", ["max_prob", "entropy"])
+def test_hi_gate_at_the_moe_vocab(gen, n, metric):
+    x = _gate_rows(gen, n, 102_400, torch.float32)
+    theta = torch.tensor(0.3, device="cuda")
+    conf_p, pred_p, _ = hg.hi_gate_plain(x, theta, metric)
+    conf_k, pred_k, off_k = hg.hi_gate_cuda(x, theta, metric)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(conf_k, conf_p, atol=CONF_ATOL, rtol=CONF_RTOL)
+    assert torch.equal(pred_k, pred_p)
+    assert torch.equal(off_k, (conf_k < theta).to(torch.int32))
+
+
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "arctic-480b"])
+def test_reduced_moe_decode_step_gives_the_same_bits_twice(gen, name):
+    """One paged decode step of a reduced MoE model on the card, twice on
+    the same pool: the routed scatter sums a row and zeros per slot, so
+    the logits (and the appended pages) are the same bits."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import model_zoo
+    cfg = ARCHS[name].reduced()
+    params = model_zoo.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    block = torch.arange(1, 9, dtype=torch.int32,
+                         device="cuda").reshape(2, 4)
+    cache = model_zoo.init_paged_cache(cfg, 2, 9, 8, device="cuda")
+    toks = torch.randint(1, cfg.vocab_size, (2, 16), generator=gen,
+                         device="cuda")
+    lg, cache = model_zoo.prefill_paged(
+        params, cfg, toks, torch.tensor([16, 11], device="cuda"),
+        torch.arange(2, device="cuda"), block, cache)
+    tok = lg.argmax(-1)[:, None]
+    pos = torch.tensor([16, 11], device="cuda")
+    runs = []
+    for _ in range(2):
+        pools = {k: v.clone() for k, v in cache.items()}
+        before = da.decode_attention_paged_cuda.launches
+        out, pools = model_zoo.decode_step_paged(params, cfg, tok, pos,
+                                                 block, pools)
+        torch.cuda.synchronize()
+        assert da.decode_attention_paged_cuda.launches == \
+            before + cfg.num_layers
+        runs.append((out, pools))
+    (a, pa), (b, pb) = runs
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for key in pa:
+        assert torch.equal(_bits(pa[key]), _bits(pb[key]))

@@ -161,8 +161,11 @@ def test_prefill_chunked_attention_matches_reference():
     _close_bf16(np.asarray(jc["k"].astype(jnp.float32)), tc["k"].float().numpy())
 
 
-def test_other_families_raise_naming_roadmap():
-    import dataclasses
-    cfg = dataclasses.replace(ARCHS["qwen2-1.5b"].reduced(), family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 11"):
-        tzoo.init_cache(cfg, 1, 8, device="cpu")
+def test_encdec_prefill_raises_the_reference_error():
+    """Every family is ported; the serving entry refuses the enc-dec
+    family as the reference's ``model_zoo.prefill`` does."""
+    cfg = ARCHS["whisper-large-v3"].reduced()
+    cache = tzoo.init_cache(cfg, 1, 8, device="cpu")
+    with pytest.raises(ValueError,
+                       match="prefill not supported for family 'encdec'"):
+        tzoo.prefill({}, cfg, torch.zeros((1, 8), dtype=torch.int64), cache)

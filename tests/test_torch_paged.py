@@ -31,7 +31,7 @@ from repro.kernels import ops as jops
 from repro.models import model_zoo as jzoo
 from repro.serving.batcher import prompt_hashes as jax_prompt_hashes
 from repro_torch.bridge import params_from_numpy
-from repro_torch.configs.base import MOE
+from repro_torch.configs.base import ENCDEC
 from repro_torch.configs.registry import ARCHS
 from repro_torch.kernels import copy_pages as cp
 from repro_torch.kernels import decode_attention as da
@@ -391,9 +391,12 @@ def test_prefix_cache_has_a_drop_row():
     assert prefix["logits"].shape == (4, cfg.vocab_size)
 
 
-def test_paged_api_refuses_unported_families():
-    cfg = dataclasses.replace(ARCHS["qwen2-1.5b"].reduced(), family=MOE)
-    with pytest.raises(NotImplementedError, match="item 11"):
+def test_paged_api_refuses_encdec_and_float16_pools():
+    """The enc-dec family has no paged API (the reference's ValueError);
+    a pool dtype other than bf16, float32 or int8 is refused."""
+    cfg = dataclasses.replace(ARCHS["qwen2-1.5b"].reduced(), family=ENCDEC)
+    with pytest.raises(ValueError,
+                       match="paged cache not supported for family 'encdec'"):
         tzoo.init_paged_cache(cfg, 2, 8, PAGE, dtype=torch.int8,
                               device="cpu")
     with pytest.raises(ValueError, match="int8"):
