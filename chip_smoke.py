@@ -150,7 +150,25 @@ Phases (any failure exits non-zero before the last line):
    FFN on the card against the CPU on a 4 x 512 admission and 4 decode
    tokens: the same choices, the same dropped (token, choice) pairs,
    outputs within ``MOE_LAYER_TOL``, with the drops the padded tails cause.
-12. the ``{"kernels": [...]}`` line (launches summed over every main-path
+12. danube  — h2o-danube-3-4b, head dim 120: the drain, paged
+   decode and chunk kernels at D = 120 against their plain versions with
+   phase 3's (danube's L shape, 32 heads over 8 kv heads, and its S tier's
+   8 over 8; bf16 and int8 with garbage planted; the same bits twice),
+   nested as ``danube`` in each kernel's entry; then, after the MoE
+   phases, the published config (L 24 layers, 15.9 GB float32 params; S 6)
+   through phase 4's drain, the stream trace's first 16 requests at theta
+   0.6 and the median, and over int8 pools, asserting one host fetch per
+   serve or tick and the launches the lane flags predict.
+13. training — last: one reduced train step per arch of the registry,
+   card against CPU on the same params (loss, grad norm, updated params);
+   ``launch/train.run`` at full width on qwen2-1.5b and mamba2-370m (the
+   loss falls; step ms, tokens/s, peak memory; ssd_chunk once a mamba
+   layer a step, under autograd), and one full-width mamba2 layer's grads
+   through the kernel against the plain path's; the paper's SML_CIFAR /
+   LML_CIFAR trained on the card to ``tests/test_system.py``'s ordering,
+   ``HICascade`` through hi_gate, a checkpoint round trip of both tiers;
+   the three training examples at their ``--fast`` settings.
+14. the ``{"kernels": [...]}`` line (launches summed over every main-path
    run, each run's counts set to 0 just before it; the int8 bodies listed
    apart as ``name[int8]``), the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
@@ -277,6 +295,24 @@ MOE_ADMISSION = (141, 236, 391, 323)
 # card vs CPU on one full-width routed FFN (float32, TF32 off: sums of 2,048
 # and 1,408 terms in another order)
 MOE_LAYER_TOL = 1e-4
+
+# h2o-danube-3-4b at its published widths and depth: head dim 120 in the
+# three attention kernels; the stream trace's first DANUBE_REQUESTS requests
+DANUBE_ARCH, DANUBE_REQUESTS = "h2o-danube-3-4b", 16
+
+# training on the card.  Reduced, one step per arch, card vs CPU (float32
+# with TF32 off: sums in another order): loss and grad norm within
+# TRAIN_RTOL, updated params within lr, all but TRAIN_OFF_SHARE of them
+# within TRAIN_RTOL.  Full width (``launch/train.run``): TRAIN_STEPS steps
+# of TRAIN_BATCH x TRAIN_SEQ tokens at TRAIN_LR (``run``'s default 1e-3,
+# with one warmup step, made full-width qwen2-1.5b's loss climb from its
+# second step: 12.38 -> 9.60 -> 11.58 ... 19.14 on the card).  ssd_chunk's grads through the kernel
+# vs the plain path on one full-width layer, as a share of each grad's
+# largest magnitude (the kernel's three TF32 passes move the forward's
+# activations by ~1e-6 of their scale)
+TRAIN_RTOL, TRAIN_OFF_SHARE = 1e-4, 1e-3
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 4, 512, 1e-4
+SSD_GRAD_TOL = 1e-4
 
 # the reference's byte contract for int8 pools against bf16 on qwen2
 # (benchmarks/bench_serving.py, asserted <= 0.55x)
@@ -1173,8 +1209,8 @@ def check_small_int8_reference(arch=ARCH):
 
 
 def _to(tree, dev):
-    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
-            for k, v in tree.items()}
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
 
 
 def _drain_expected(eng):
@@ -3179,6 +3215,405 @@ def _check_outputs(out, batch, cfg, theta):
         raise AssertionError("local rows lost their S answer")
 
 
+# ---------------------------------------------------------------------------
+# head dim 120: h2o-danube-3-4b (d_model 3,840 over 32 heads of 120, 8 kv
+# heads; its S tier 8 over 8)
+# ---------------------------------------------------------------------------
+
+def check_d120_kernels(gen):
+    """The drain, paged decode and chunk kernels at D = 120 against their
+    plain versions, at danube's L and S shapes: the drain's q (B, 1, H, 120)
+    over a (B, 1024, 8, 120) bf16 cache, the paged decode kernel and the
+    C = 256 chunk over bf16 and int8 pools with garbage planted where no
+    query looks; then each kernel twice on the same inputs, the same bits.
+    Returns {kernel name: [entry, ...]} for the kernels line."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    pos_l, pos_s, _ = _decode_positions()
+    c = STREAM_KW["chunk_size"]
+    lt, st = f"L tier {DANUBE_ARCH}", f"S tier {DANUBE_ARCH}-s4"
+    paged, chunked = "decode_attention_paged", "decode_attention_chunk_paged"
+    out = {}
+
+    def put(entry):
+        out.setdefault(entry["name"], []).append(entry)
+
+    for shape in ((lt, 4, 32, 8, 120), (st, 8, 8, 8, 120)):
+        put(check_decode_attention(gen, (shape,)))
+    for quant in (False, True):
+        for case in ((lt, 4, 32, 8, 120, L_PAGES, pos_l, NPG, True),
+                     (st, 8, 8, 8, 120, S_PAGES, pos_s, NPG, True)):
+            put(check_paged(gen, paged, 1, [case], quant=quant))
+        for case in ((lt, 2, 32, 8, 120, L_PAGES, [0, 512 - c], NPG, True),
+                     (st, 2, 8, 8, 120, S_PAGES, [0, 512 - c], NPG, True)):
+            put(check_paged(gen, chunked, c, [case], quant=quant))
+    # the same bits twice: the drain and paged decode kernels merge their
+    # splits in a fixed order, the chunk kernel has one block per row tile
+    kpos = torch.arange(CACHE_LEN, device="cuda")
+    drain = _attn_case(gen, 4, 32, 8, 120, CACHE_LEN, kpos <= DECODE_POS,
+                       torch.bfloat16)
+    runs = [("decode_attention", da.decode_attention_cuda, drain)]
+    for quant in (False, True):
+        for cc, kern in ((1, da.decode_attention_paged_cuda),
+                         (c, da.decode_attention_chunk_paged_cuda)):
+            q, pk, pv, block, valid, scales = _paged_case(
+                gen, 4 if cc == 1 else 2, 32, 8, L_PAGES,
+                pos_l if cc == 1 else [0, 512 - c], cc, 120, NPG, True,
+                quant)
+            runs.append((kern.__name__ + ("[int8]" if quant else ""), kern,
+                         (q, pk, pv, block, valid[:, 0] if cc == 1 else valid,
+                          *scales)))
+    for name, kern, args in runs:
+        one, two = kern(*args), kern(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(one.view(torch.int32), two.view(torch.int32)):
+            raise AssertionError(f"{name} at D 120: two calls differ")
+    log(f"  D 120: {', '.join(n for n, _, _ in runs)}: the same bits twice")
+    return out
+
+
+def danube_full_width_phase():
+    """h2o-danube-3-4b at its published widths and depth (L 24 layers,
+    d_model 3,840, 32 heads over 8 kv heads of 120, sliding window 4,096;
+    S ``s_variant(4)``: 6 layers, 8 over 8 heads of 120), random float32
+    params from seed 0: the drain as ARCH's, then the stream trace's first
+    ``DANUBE_REQUESTS`` requests through ``serve_stream`` at theta 0.6 and
+    the median, then over int8 pools; each run one host fetch per serve or
+    tick and every kernel's launches as the lane flags predict.  Returns the
+    launches of the drain and of the bf16 and int8 streams."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.reset_peak_memory_stats()
+    launches, eng, _ = serve_full_width(DANUBE_ARCH)
+    for t, tier in (("L", eng.l), ("S", eng.s)):
+        log(f"  {t} tier {tier.cfg.name}: {_param_bytes(tier.params) / 1e9:.2f}"
+            f" GB of float32 params, {tier.cfg.num_layers} layers, "
+            f"{tier.cfg.num_heads} heads over {tier.cfg.num_kv_heads} of "
+            f"{tier.cfg.resolved_head_dim}")
+    reqs = _stream_trace(eng.l.cfg)[:DANUBE_REQUESTS]
+    ticks0 = eng.stats["stream_ticks"]
+    stream, _, out = serve_stream_full_width(eng, STREAM_KW, reqs)
+    ticks = eng.stats["stream_ticks"] - ticks0
+    log(f"  stream launches per tick (hand-written kernels, both runs): "
+        f"{sum(stream.values()) / ticks:.1f} over {ticks} ticks")
+    log(f"== serve_stream ({DANUBE_ARCH}, int8 pools)")
+    int8 = int8_stream_phase(eng, STREAM_KW, reqs, out,
+                             ("cow", "saved", "chunk"),
+                             max_ratio=INT8_MAX_RATIO)
+    log(f"  peak max_memory_allocated over the {DANUBE_ARCH} phases "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del eng
+    ops.reset_launch_counts()
+    return launches, stream, int8
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+def _lm_batch(cfg, b, s, seed=0):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)))
+             for k in ("tokens", "labels")}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.as_tensor(rng.normal(
+            size=(b, cfg.num_patches, cfg.d_model)), dtype=torch.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(rng.normal(
+            size=(b, cfg.num_audio_frames, cfg.d_model)), dtype=torch.float32)
+    return batch
+
+
+def train_reduced_phase():
+    """One train step per arch of the registry, reduced, on the card and on
+    the CPU from the same params and batch (TF32 off): the loss and the
+    grad norm within ``TRAIN_RTOL``; the updated params within lr of each
+    other and all but ``TRAIN_OFF_SHARE`` of them within ``TRAIN_RTOL``
+    (Adam's update takes either sign where a gradient is at rounding
+    noise).  Returns the card steps' launches (ssd_chunk, once per mamba
+    layer of the SSM and hybrid steps)."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import adamw
+    from repro_torch.training import trainer
+    from repro_torch.tree import leaves
+    tcfg = TrainConfig(bf16_state=False, remat=False, lr=1e-3,
+                       warmup_steps=1)
+    total = dict.fromkeys(_kernel_names(), 0)
+    for arch in sorted(ARCHS):
+        cfg = ARCHS[arch].reduced()
+        init = model_zoo.init_params(torch.Generator().manual_seed(0), cfg)
+        batch = _lm_batch(cfg, 2, 32)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            params = _to(init, dev)
+            opt = adamw.init_state(params, tcfg)
+            ops.reset_launch_counts()
+            params, _, m = trainer.train_step(
+                params, opt, {k: v.to(dev) for k, v in batch.items()},
+                mcfg=cfg, tcfg=tcfg)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                _add(total, ops.launch_counts())
+                n_ssd = ops.launch_counts()["ssd_chunk"]
+            res[dev] = (m, [p.cpu() for p in leaves(params)])
+        (mc, pc), (mh, ph) = res["cuda"], res["cpu"]
+        errs = {k: abs(float(mc[k]) / float(mh[k]) - 1)
+                for k in ("loss", "grad_norm")}
+        off = n = 0
+        worst = 0.0
+        for a, b in zip(pc, ph):
+            d = (a - b).abs()
+            worst = max(worst, float(d.max()))
+            off += int((d > 1e-6 + TRAIN_RTOL * b.abs()).sum())
+            n += d.numel()
+        msg = (f"  train step {arch} ({cfg.family}, reduced), card vs CPU: "
+               f"loss {float(mc['loss']):.5f} rel err {errs['loss']:.1e}, "
+               f"grad norm {float(mc['grad_norm']):.4f} rel err "
+               f"{errs['grad_norm']:.1e} (tol {TRAIN_RTOL:g}); params off by"
+               f" > {TRAIN_RTOL:g} rel: {off} of {n}, worst {worst:.1e} "
+               f"(lr {tcfg.lr:g}); ssd_chunk launches {n_ssd}")
+        recurrent = cfg.family in ("ssm", "hybrid")
+        if not (max(errs.values()) <= TRAIN_RTOL and off <= TRAIN_OFF_SHARE * n
+                and worst <= tcfg.lr + 1e-6 and (n_ssd > 0) == recurrent):
+            raise AssertionError(msg)
+        log(msg)
+    return total
+
+
+def train_full_width_phase():
+    """``launch/train.run`` at full width on the card: qwen2-1.5b (28
+    layers; the dense training forward launches no hand-written kernel:
+    the reference's is plain jnp too) and mamba2-370m (48 layers; its
+    forward launches ``ssd_chunk`` once a layer a step, under autograd),
+    ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens at
+    ``TRAIN_LR``, float32 params and moments (the reference's ``run``): the
+    loss falls; step ms,
+    tokens/s and peak memory logged.  Then mamba2's layer 0 at full width:
+    its grads through the kernel against the plain path's.  Returns the
+    launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run
+    total = dict.fromkeys(_kernel_names(), 0)
+    for arch, layers in ((ARCH, 28), (SSM_ARCH, 48)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses = run(arch, reduced=False, steps=TRAIN_STEPS,
+                     batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                     log_every=TRAIN_STEPS, device="cuda")
+        counts = ops.launch_counts()
+        _add(total, counts)
+        st = run.stats
+        peak = torch.cuda.max_memory_allocated()
+        want = TRAIN_STEPS * layers if arch == SSM_ARCH else 0
+        msg = (f"  train {arch} full width ({layers} layers), {TRAIN_STEPS} "
+               f"steps of {TRAIN_BATCH} x {TRAIN_SEQ}: loss "
+               f"{' '.join(f'{x:.4f}' for x in losses)}; "
+               f"{st['seconds'] / TRAIN_STEPS * 1e3:.1f} ms a step, "
+               f"{st['tokens_per_s']:.0f} tokens/s; peak "
+               f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; ssd_chunk "
+               f"launches {counts['ssd_chunk']} (want {want})")
+        if not (losses[-1] < losses[0] and counts["ssd_chunk"] == want
+                and sum(counts.values()) == want):
+            raise AssertionError(msg)
+        log(msg)
+    _ssd_layer_grads()
+    return total
+
+
+def _ssd_layer_grads():
+    """mamba2-370m's layer 0 at full width (d_model 1,024, 32 heads of 64,
+    state 128) on 2 x 512 tokens: the input's and every layer param's grads
+    with ``ssd_chunk`` through the kernel (``SSDChunk``) against the same
+    block with the plain ``ssd_chunk_ref``, each within ``SSD_GRAD_TOL`` of
+    its largest magnitude."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import ops, ssd_scan
+    from repro_torch.models import mamba2, model_zoo
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.tree import leaves, unflatten
+    cfg = dataclasses.replace(ARCHS[SSM_ARCH], num_layers=1, vocab_size=512)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lp0 = layer_params(model_zoo.init_params(gen, cfg)["layers"], 0)
+    x = torch.randn((2, 512, cfg.d_model), generator=gen, device="cuda")
+    cot = torch.randn((2, 512, cfg.d_model), generator=gen, device="cuda")
+    grads = {}
+    real = ops.ssd_chunk
+    for path in ("kernel", "plain"):
+        wrt = [t.detach().requires_grad_() for t in leaves(lp0)] + \
+            [x.clone().requires_grad_()]
+        if path == "plain":
+            ops.ssd_chunk = ssd_scan.ssd_chunk_ref
+        try:
+            before = ssd_scan.ssd_chunk_cuda.launches
+            y = mamba2.mamba_block(unflatten(lp0, wrt[:-1]), cfg, wrt[-1])
+            n = ssd_scan.ssd_chunk_cuda.launches - before
+            torch.autograd.backward(y, cot)
+        finally:
+            ops.ssd_chunk = real
+        if n != (1 if path == "kernel" else 0):
+            raise AssertionError(f"{path} path launched ssd_chunk {n} times")
+        # the layer's pre-norm scale is applied outside the block
+        grads[path] = [w.grad for w in wrt if w.grad is not None]
+    torch.cuda.synchronize()
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                for a, b in zip(grads["kernel"], grads["plain"]))
+    msg = (f"  {SSM_ARCH} layer 0 at full width, 2 x 512 tokens: grads of "
+           f"the input and {len(grads['kernel']) - 1} params through the "
+           f"ssd_chunk kernel vs the plain path: worst error {worst:.2e} of"
+           f" each grad's largest magnitude (tol {SSD_GRAD_TOL:g})")
+    if not worst <= SSD_GRAD_TOL:
+        raise AssertionError(msg)
+    log(msg)
+
+
+def cnn_train_phase():
+    """The paper's two CIFAR tiers trained on the card by ``train_cnn``, at
+    ``tests/test_system.py``'s sizes (5,000 images, SML_CIFAR 2 epochs,
+    LML_CIFAR 4, batch 128): S worse than L by 0.03 or more and better than
+    0.4; theta* by brute force on the S tier's test confidences, then
+    ``HICascade`` over the 1,200 test images through the hi_gate kernel
+    (one launch), its offload mask and served set equal to the plain
+    metric's run; then a checkpoint round trip of both tiers' trained
+    params (``checkpoint/io``: bit for bit, the same predictions).  Returns
+    the kernel run's launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.core.calibrate import brute_force_theta
+    from repro_torch.core.cascade import classifier_cascade
+    from repro_torch.data import images
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+    from repro_torch.training.cnn_trainer import (accuracy, predict_logits,
+                                                  train_cnn)
+    from repro_torch.tree import leaves, tree_map
+    x_tr, y_tr = images.make_dataset(5000, seed=0, patch_amp=0.7)
+    x_te, y_te = images.make_dataset(1200, seed=5, patch_amp=0.7)
+    t = {}
+    tiers = {}
+    for name, cfg, epochs in (("S", cnn.SML_CIFAR, 2), ("L", cnn.LML_CIFAR, 4)):
+        t0 = time.perf_counter()
+        tiers[name] = train_cnn(cfg, x_tr, y_tr, epochs=epochs, batch=128,
+                                device="cuda")
+        torch.cuda.synchronize()
+        t[name] = time.perf_counter() - t0
+    s_acc = accuracy(tiers["S"], cnn.SML_CIFAR, x_te, y_te)
+    l_acc = accuracy(tiers["L"], cnn.LML_CIFAR, x_te, y_te)
+    msg = (f"  trained SML_CIFAR (2 epochs) in {t['S']:.2f} s, LML_CIFAR (4 "
+           f"epochs) in {t['L']:.2f} s on 5,000 images: test accuracy S "
+           f"{s_acc:.4f}, L {l_acc:.4f} (S worse than L by >= 0.03, S > 0.4)")
+    if not (l_acc > s_acc + 0.03 and s_acc > 0.4):
+        raise AssertionError(msg)
+    log(msg)
+    s_logits = predict_logits(tiers["S"], cnn.SML_CIFAR, x_te)
+    e = np.exp(s_logits - s_logits.max(-1, keepdims=True))
+    conf = (e / e.sum(-1, keepdims=True)).max(-1)
+    l_ok = predict_logits(tiers["L"], cnn.LML_CIFAR, x_te).argmax(-1) == y_te
+    theta, _ = brute_force_theta(conf, s_logits.argmax(-1) == y_te, 0.5,
+                                 l_correct=l_ok)
+    hi = HIConfig(theta=float(theta), capacity_factor=1.0)
+    xs = torch.as_tensor(x_te).cuda()
+    outs = {}
+    for use_kernel in (True, False):
+        casc = classifier_cascade(
+            lambda p, x: cnn.apply_cnn(p, cnn.SML_CIFAR, x),
+            lambda p, x: cnn.apply_cnn(p, cnn.LML_CIFAR, x), hi,
+            use_kernel=use_kernel)
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            out = casc.infer(tiers["S"], tiers["L"], xs)
+        torch.cuda.synchronize()
+        outs[use_kernel] = ({k: v.cpu().numpy() for k, v in out.items()},
+                            ops.launch_counts())
+    (ok, launches), (op, plain) = outs[True], outs[False]
+    pred = ok["pred"]
+    msg = (f"  HICascade (theta* {float(theta):.4f}) over the 1,200 test "
+           f"images through hi_gate: {launches['hi_gate']} launch, served "
+           f"remote {int(ok['served_remote'].sum())}, accuracy "
+           f"{float((pred == y_te).mean()):.4f} (S {s_acc:.4f}, L "
+           f"{l_acc:.4f}); offload mask and served set equal to the plain "
+           f"metric's")
+    if not (launches["hi_gate"] == 1 and sum(plain.values()) == 0
+            and np.array_equal(ok["offload_mask"], op["offload_mask"])
+            and np.array_equal(ok["served_remote"], op["served_remote"])):
+        raise AssertionError(msg)
+    log(msg)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ckpt_io.save(tmp, tiers, step=6)
+        like = tree_map(torch.zeros_like, tiers)
+        back, step = ckpt_io.restore(tmp, like)
+        dt = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(leaves(tiers), leaves(back)))
+    preds = np.array_equal(predict_logits(back["L"], cnn.LML_CIFAR, x_te),
+                           predict_logits(tiers["L"], cnn.LML_CIFAR, x_te))
+    n = sum(p.numel() for p in leaves(tiers))
+    msg = (f"  checkpoint round trip of both tiers ({n} params, "
+           f"{len(leaves(tiers))} leaves) in {dt * 1e3:.1f} ms: step {step}, "
+           f"bit for bit {same}, L predictions equal {preds}")
+    if not (same and preds and step == 6):
+        raise AssertionError(msg)
+    log(msg)
+    return launches
+
+
+def examples_phase():
+    """The paper's three training applications (``examples/*_torch.py``) on
+    the card at their ``--fast`` settings: fault detection (the threshold
+    S-ML separates normal from faults, 100%), image classification (the
+    Table 1 study: theta*, the cascade through hi_gate, one launch) and the
+    dog filter (Table 3).  Returns the launches."""
+    import importlib.util
+    from repro_torch.kernels import ops
+    total = dict.fromkeys(_kernel_names(), 0)
+    for name, kw in (("fault_detection", dict(windows_per_state=30,
+                                              epochs=6)),
+                     ("image_classification_hi", dict(fast=True)),
+                     ("dog_filter_hi", dict(fast=True))):
+        spec = importlib.util.spec_from_file_location(
+            f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = mod.main(device="cuda", **kw)
+        dt = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        _add(total, counts)
+        if name == "fault_detection":
+            ok = out["sml_acc"] == 1.0
+            what = (f"CNN accuracy {out['cnn_acc']:.4f}, threshold S-ML "
+                    f"{out['sml_acc']:.4f}, offload {out['offload_frac']:.4f}")
+        elif name == "image_classification_hi":
+            ok = counts["hi_gate"] == 1 and 0.0 <= out["theta"] <= 1.0
+            rep = out["reports"][2]
+            what = (f"S {out['s_acc']:.4f}, L {out['l_acc']:.4f}, theta* "
+                    f"{out['theta']:.4f}, HI offloaded {rep.offloaded} of "
+                    f"{rep.n}, cost {rep.cost:.1f}; hi_gate launches "
+                    f"{counts['hi_gate']}")
+        else:
+            ok = out["n_dogs"] > 0 and out["tp"] + out["fn"] == out["n_dogs"]
+            what = (f"dogs {out['n_dogs']}, offloaded "
+                    f"{out['tp'] + out['fp']}, recall {out['accuracy']:.4f}")
+        msg = f"  example {name}_torch ({kw}): {dt:.1f} s; {what}"
+        if not ok:
+            raise AssertionError(msg)
+        log(msg)
+    return total
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -3219,6 +3654,8 @@ def main(argv=None) -> int:
     verify_cases = check_verify_chunk(gen)
     log(f"== kernels at the MoE shapes ({MOE_ARCH}; {LLAVA_GROUP7})")
     moe_cases = check_moe_kernels(gen)
+    log(f"== kernels at head dim 120 ({DANUBE_ARCH})")
+    d120_cases = check_d120_kernels(gen)
     total = dict.fromkeys(_kernel_names(), 0)   # launches over every path
 
     def add(counts):
@@ -3245,6 +3682,13 @@ def main(argv=None) -> int:
     moe_launches, moe_stream, moe_int8, moe_spec, moe_verify = \
         moe_full_width_phase()
     for counts in (moe_launches, moe_stream, moe_int8, moe_spec):
+        add(counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"== serve (the drain path, {DANUBE_ARCH} at full width: head dim "
+        "120)")
+    dan_launches, dan_stream, dan_int8 = danube_full_width_phase()
+    for counts in (dan_launches, dan_stream, dan_int8):
         add(counts)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3323,6 +3767,21 @@ def main(argv=None) -> int:
     add(hybrid_int8)
     log(f"== int8 fidelity gate (reduced {HYBRID_ARCH})")
     int8_gate_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== training (a reduced step per arch, card vs CPU)")
+    train_reduced = train_reduced_phase()
+    add(train_reduced)
+    log(f"== training at full width ({ARCH}, {SSM_ARCH})")
+    train_full = train_full_width_phase()
+    add(train_full)
+    log("== training the paper's CIFAR tiers (SML_CIFAR, LML_CIFAR), their "
+        "cascade and a checkpoint")
+    cnn_launches = cnn_train_phase()
+    add(cnn_launches)
+    log("== the paper's training examples (--fast)")
+    example_launches = examples_phase()
+    add(example_launches)
     for path, counts, names in (
             (SSM_ARCH, ssm_launches, ("ssd_chunk",)),
             (f"{SSM_ARCH} stream", ssm_stream, ("ssd_chunk",)),
@@ -3355,7 +3814,18 @@ def main(argv=None) -> int:
               "decode_attention_chunk_paged[int8]", "copy_pages[int8]")),
             (f"{MOE_ARCH} speculative", moe_spec,
              ("hi_gate", "decode_attention_paged",
-              "decode_attention_chunk_paged"))):
+              "decode_attention_chunk_paged")),
+            (DANUBE_ARCH, dan_launches, ("hi_gate", "decode_attention")),
+            (f"{DANUBE_ARCH} stream", dan_stream,
+             ("hi_gate", "decode_attention_paged",
+              "decode_attention_chunk_paged", "copy_pages")),
+            (f"{DANUBE_ARCH} int8", dan_int8,
+             ("hi_gate", "decode_attention_paged[int8]",
+              "decode_attention_chunk_paged[int8]", "copy_pages[int8]")),
+            ("reduced training", train_reduced, ("ssd_chunk",)),
+            (f"{SSM_ARCH} training", train_full, ("ssd_chunk",)),
+            ("CIFAR cascade after training", cnn_launches, ("hi_gate",)),
+            ("training examples", example_launches, ("hi_gate",))):
         for n in names:
             if counts[n] == 0:
                 raise AssertionError(f"{n} never launched on the {path} path")
@@ -3397,6 +3867,18 @@ def main(argv=None) -> int:
                                     "L verify")
                                 else moe_total[k["name"]])
             k.setdefault("moe", []).append(
+                {key: v for key, v in case.items()
+                 if key not in ("name", "route", "source", "replaces")})
+            k["max_abs_err"] = max(k["max_abs_err"], case["max_abs_err"])
+
+    # and its cases at head dim 120, with the launches of the danube runs
+    dan_total = {}
+    for counts in (dan_launches, dan_stream, dan_int8):
+        _add(dan_total, counts)
+    for k in kernels:
+        for case in d120_cases.get(k["name"], []):
+            case["launches"] = dan_total[k["name"]]
+            k.setdefault("danube", []).append(
                 {key: v for key, v in case.items()
                  if key not in ("name", "route", "source", "replaces")})
             k["max_abs_err"] = max(k["max_abs_err"], case["max_abs_err"])

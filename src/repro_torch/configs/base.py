@@ -169,3 +169,23 @@ class HIConfig:
     capacity_factor: float = 0.5    # static offload capacity / batch
     s_scale: int = 4                # S-variant reduction factor
     binary_relevance: bool = False  # dog-breed rule: offload iff p >= theta
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    grad_accum: int = 1            # microbatch accumulation
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    adam_eps: float = 1e-8
+    bf16_state: bool = True        # keep Adam moments in bf16 (memory)
+    factored_v: bool = False       # Adafactor-style factored second moment
+                                   # (row+col stats for matrices — kills the
+                                   # per-param v buffer on 100B+ models)
+    accum_dtype: str = "float32"   # grad-accumulation buffer dtype
+    remat: bool = True
+    seed: int = 0

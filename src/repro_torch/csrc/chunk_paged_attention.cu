@@ -51,13 +51,18 @@
 //     tile's mask bytes into one bit per (chunk token, key) by warp ballots,
 //     find the keys some query row of the block sees, read their block-table
 //     entries and int8 scales, and copy their K/V rows with cp.async, 16
-//     bytes a lane, into two stages of shared memory, while the consumers
+//     bytes a lane (8 for an int8 row of D 120), into two stages of shared
+//     memory, while the consumers
 //     compute the tile before.  The consumers are two row groups of 16 rows
 //     times two halves of each key tile; each keeps its online softmax (m,
 //     l, acc) in registers, on exp2 with log2(e) folded into the scale; the
 //     two key halves merge once, in a fixed order, at the end.  They load
 //     the q terms' fragments, and a bf16 tile's K and V fragments, with
-//     ldmatrix (V transposed): one instruction for four 8 x 8 blocks;
+//     ldmatrix (V transposed): one instruction for four 8 x 8 blocks.  A
+//     head dim that is not whole k-steps of 16 (D 120) runs at the depth
+//     rounded up (128): the staged q and K/V rows carry zero columns past
+//     D, written once per block, which the copies never touch, so the
+//     pool is read only to D and the pad adds exact zeros;
 //   * a key row that no query row of the block sees is never loaded, and
 //     its shared-memory slot is zero-filled by the copy itself (src-size 0):
 //     an MMA multiplies every staged element, and 0 x NaN is NaN.  Its int8
@@ -96,11 +101,17 @@ struct Cfg {
   static constexpr int kTile = D * (int)sizeof(T) <= 256 ? 64 : 32;
   static constexpr int kWarpKeys = kTile / 2;
   static constexpr int kWords = kTile / 32;        // mask words per token
-  static constexpr int kVec = 16 / (int)sizeof(T);   // elements per copy
+  // the MMAs' depth: D padded to whole k-steps of 16 (D 120 -> 128); the
+  // staged q and K/V columns D .. kDp - 1 are zeros, set once per block
+  static constexpr int kDp = (D + 15) / 16 * 16;
+  // bytes per copy: 16, or 8 where a row is not whole 16-byte units (int8
+  // at D 120); no copy reads past the head's D elements
+  static constexpr int kCopy = D * (int)sizeof(T) % 16 == 0 ? 16 : 8;
+  static constexpr int kVec = kCopy / (int)sizeof(T);  // elements per copy
   static constexpr int kVecPerRow = D / kVec;
   // staged rows padded by 16 bytes: conflict-free fragment reads
-  static constexpr int kLd = D + kVec;
-  static constexpr int kQld = D + 8;               // bf16 q rows
+  static constexpr int kLd = kDp + 16 / (int)sizeof(T);
+  static constexpr int kQld = kDp + 8;             // bf16 q rows
   static constexpr int kKvBytes = 2 * 2 * kTile * kLd * (int)sizeof(T);
   static constexpr int kMergeBytes = kRowGroups * 16 * (D + 2) * 4;
   static constexpr int kArea = kKvBytes > kMergeBytes ? kKvBytes : kMergeBytes;
@@ -113,7 +124,7 @@ struct Cfg {
   static constexpr int kSmem = kBarOff + 6 * 8;  // full, meta, empty: x 2
   // separate Q.K^T accumulators per term where registers allow
   static constexpr bool kSepAcc = D <= 128 && sizeof(T) != 1;
-  static_assert(D % 16 == 0 && D % kVec == 0, "unsupported head dim");
+  static_assert(D % 8 == 0 && D % kVec == 0, "unsupported head dim");
   static_assert(kWarpKeys % 16 == 0, "a warp's keys are whole MMA steps");
   static_assert(kArea % 16 == 0 && kBitsOff % 16 == 0 && kRowOff % 8 == 0 &&
                 kBarOff % 8 == 0, "alignment");
@@ -123,11 +134,17 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes from global to shared; src_size 0 reads nothing and zero-fills
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_size) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_size) : "memory");
+// kBytes (16 or 8) from global to shared; src_size 0 reads nothing and
+// zero-fills
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_size) {
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(src_size) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(src_size) : "memory");
 }
 
 // mbarriers: the producer warps hand stages to the consumers and back
@@ -261,7 +278,9 @@ chunk_paged_attention_kernel(const float* __restrict__ q,
   constexpr int kWords = C::kWords;
   constexpr int kWarpKeys = C::kWarpKeys;
   constexpr int kNt = kWarpKeys / 8;       // n-tiles of 8 keys per warp
+  constexpr int kDp = C::kDp;
   constexpr int kDn = D / 8;               // n-tiles of 8 output columns
+  constexpr int kDnp = kDp / 8;            // the same over the padded depth
   constexpr bool kQuant = std::is_same<T, int8_t>::value;
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
@@ -323,6 +342,19 @@ chunk_paged_attention_kernel(const float* __restrict__ q,
       for (int m = 0; m < kTerms; ++m)
         *reinterpret_cast<uint32_t*>(qs + (m * kRows + r) * kQld + c2) = t[m];
     }
+  }
+  if constexpr (kDp > D) {
+    // columns D .. kDp - 1 of the q terms and of every staged K/V row: an
+    // MMA multiplies them, the copies never write them, and shared memory
+    // starts as anything (0 x NaN is NaN)
+    constexpr int kQw = (kDp - D) / 2;                   // words per q row
+    for (int i = tid; i < kTerms * kRows * kQw; i += C::kThreads)
+      *reinterpret_cast<uint32_t*>(qs + (i / kQw) * kQld + D +
+                                   2 * (i % kQw)) = 0u;
+    constexpr int kKw = (kDp - D) * (int)sizeof(T) / 4;  // words per row
+    for (int i = tid; i < 2 * 2 * kTile * kKw; i += C::kThreads)
+      *reinterpret_cast<uint32_t*>(kv_tiles + (i / kKw) * kLd + D +
+                                   (i % kKw) * 4 / (int)sizeof(T)) = 0u;
   }
   __syncthreads();                       // q terms and barriers initialised
 
@@ -413,9 +445,9 @@ chunk_paged_attention_kernel(const float* __restrict__ q,
           const int r = rem / C::kVecPerRow, c = rem % C::kVecPerRow;
           const int64_t off = row_off[st * kTile + r];
           const T* pool = which ? pool_v : pool_k;
-          cp_async16(kt + (which * kTile + r) * kLd + c * C::kVec,
-                     off >= 0 ? pool + off + c * C::kVec : pool,
-                     off >= 0 ? 16 : 0);
+          cp_async<C::kCopy>(kt + (which * kTile + r) * kLd + c * C::kVec,
+                             off >= 0 ? pool + off + c * C::kVec : pool,
+                             off >= 0 ? C::kCopy : 0);
         }
       }
       mbar_arrive_on_copies(&full[st]);
@@ -433,9 +465,10 @@ chunk_paged_attention_kernel(const float* __restrict__ q,
   const int key0 = kq * kWarpKeys;               // first key of the half
   const int word = key0 / 32, bit0 = key0 % 32;
 
-  float acc[kDn][4];
+  // over the padded depth: a pad column's sums stay 0 and are not written
+  float acc[kDnp][4];
 #pragma unroll
-  for (int n = 0; n < kDn; ++n)
+  for (int n = 0; n < kDnp; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float ma = kNeg, mb = kNeg, la = 0.f, lb = 0.f;   // l: this thread's part
 
@@ -463,7 +496,7 @@ chunk_paged_attention_kernel(const float* __restrict__ q,
     const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;
     const int kr8 = (lane & 7) + (lane >> 4) * 8, kc8 = ((lane >> 3) & 1) * 8;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < kDp / 16; ++kk) {
       const int c0 = kk * 16 + 2 * tig;
       uint32_t a[kTerms][4];
 #pragma unroll
@@ -554,7 +587,7 @@ chunk_paged_attention_kernel(const float* __restrict__ q,
     la = la * ca + pa;
     lb = lb * cb + pb;
 #pragma unroll
-    for (int n = 0; n < kDn; ++n) {
+    for (int n = 0; n < kDnp; ++n) {
       acc[n][0] *= ca;
       acc[n][1] *= ca;
       acc[n][2] *= cb;
@@ -590,7 +623,7 @@ chunk_paged_attention_kernel(const float* __restrict__ q,
         // 8 ((l >> 3) & 1), column 8 (l >> 4) of two 8-column n-tiles
         const T* v0 = vt + (key0 + ks * 16 + lr) * kLd + lc;
 #pragma unroll
-        for (int n = 0; n < kDn; n += 2) {
+        for (int n = 0; n < kDnp; n += 2) {
           uint32_t bb[4];       // b0, b1 of n-tile n, then of n-tile n + 1
           ldsm4_trans(bb, v0 + n * 8);
 #pragma unroll
@@ -602,7 +635,7 @@ chunk_paged_attention_kernel(const float* __restrict__ q,
       } else {
         const T* v0 = vt + (key0 + ks * 16 + 2 * tig) * kLd + g;
 #pragma unroll
-        for (int n = 0; n < kDn; ++n) {
+        for (int n = 0; n < kDnp; ++n) {
           const T* vp = v0 + n * 8;
           uint32_t b0, b1, b0l = 0, b1l = 0;
           column_pair<T>(vp, vp + kLd, b0, b0l);
@@ -723,6 +756,7 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
     CHUNK_CASE(32)
     CHUNK_CASE(64)
     CHUNK_CASE(80)
+    CHUNK_CASE(120)
     CHUNK_CASE(128)
     CHUNK_CASE(256)
     default:
@@ -737,7 +771,7 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 // float32, 1 = bfloat16, 2 = int8); scale_k/v: (P, K) float32 for int8
 // pools, null otherwise; block: (B, n_pages) int32; valid: (B, C,
 // n_pages * page) bytes; out: (B, C, H, D) float32.  All contiguous;
-// H = K * group; D in {32, 64, 80, 128, 256}; C > 1.  A bad count, an
+// H = K * group; D in {32, 64, 80, 120, 128, 256}; C > 1.  A bad count, an
 // unknown dtype code, or scales that do not match the dtype, is
 // cudaErrorInvalidValue and launches nothing.  Returns the error of
 // cudaFuncSetAttribute, else cudaGetLastError() after the launch.

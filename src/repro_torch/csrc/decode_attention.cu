@@ -83,7 +83,7 @@ decode_attention_split_kernel(const float* __restrict__ q,
                               float* __restrict__ ws, int s_len, int kv_heads,
                               int group, int split_len, float scale) {
   // lane l owns elements [l * kEpl, l * kEpl + kEpl) below D; where D is
-  // not a multiple of 32 (80) the last lanes own fewer or none
+  // not a multiple of 32 (80, 120) the last lanes own fewer or none
   constexpr int kLanes = D >= 32 ? 32 : D;       // lanes that own elements
   constexpr int kEpl = (D + kLanes - 1) / kLanes;  // elements per lane
   // 8 KB per tile and operand: two stages of K and V stay under 48 KB
@@ -389,6 +389,7 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
     SPLIT_CASE(32)
     SPLIT_CASE(64)
     SPLIT_CASE(80)
+    SPLIT_CASE(120)
     SPLIT_CASE(128)
     SPLIT_CASE(256)
     default:
@@ -403,8 +404,8 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 // q: (B, 1, H, D) float32; cache_k/v: (B, S, K, D) of `dtype` (0 = float32,
 // 1 = bfloat16); valid: (S,) bytes; ws: float32 workspace of
 // B * K * ceil(S / split_len) * group * (D + 2); out: (B, 1, H, D) float32.
-// All contiguous; H = K * group with group <= 8; D in {16, 32, 64, 80, 128,
-// 256}; at most 256 splits.  Two launches: the splits, then their merge.
+// All contiguous; H = K * group with group <= 8; D in {16, 32, 64, 80, 120,
+// 128, 256}; at most 256 splits.  Two launches: the splits, then their merge.
 // Returns the first cudaGetLastError() that is not 0, else 0.
 extern "C" int decode_attention_launch(const void* q, const void* cache_k,
                                        const void* cache_v, const void* valid,

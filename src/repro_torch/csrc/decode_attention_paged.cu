@@ -39,7 +39,8 @@
 //     dependent round trip before its rows' copies start.  Rows, pages and
 //     scales no query sees are never loaded: page 0, unallocated pages and
 //     stale tails may hold NaN;
-//   * rows are staged with cp.async, 16 bytes a thread, in two stages: the
+//   * rows are staged with cp.async, 16 bytes a thread (8 for an int8 row
+//     of D 120, 7.5 16-byte units), in two stages: the
 //     next tile's copies are in flight while this tile is computed.  A row
 //     no query sees is zero-filled by the copy itself (src-size 0, no read):
 //     its weight is 0 by a select, and 0 * 0 stays 0;
@@ -76,27 +77,39 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T, int D>
 struct Cfg {
-  static constexpr int kVec = 16 / (int)sizeof(T);   // elements per copy
+  // bytes per copy: 16, or 8 where a row is not whole 16-byte units (int8
+  // at D 120: a 120-byte row is 15 copies of 8, none past the head's bytes)
+  static constexpr int kCopy = D * (int)sizeof(T) % 16 == 0 ? 16 : 8;
+  static constexpr int kVec = kCopy / (int)sizeof(T);  // elements per copy
   static constexpr int kVecPerRow = D / kVec;
   // keys per tile: about 8 KB per tile and operand, a multiple of 8
   static constexpr int kTileRaw = 8192 / (D * (int)sizeof(T));
   static constexpr int kTile = (kTileRaw < 64 ? kTileRaw : 64) / 8 * 8;
-  // staged row stride: an odd number of 16-byte units
+  // staged row stride: an odd number of copy units
   static constexpr int kLd = (kVecPerRow | 1) * kVec;
   static constexpr int kStage = kTile * kLd * (int)sizeof(T);  // bytes
   static constexpr int kCols = D / 4;                // 4-column output units
   static constexpr int kUnits = (kMaxGroup * kCols + kThreads - 1) / kThreads;
-  static_assert(D % kVec == 0 && D % 16 == 0, "unsupported head dim");
+  static_assert(D % kVec == 0 && D % 8 == 0 && kStage % 16 == 0,
+                "unsupported head dim");
   static_assert(kTile >= 8, "a tile holds at least 8 keys");
   static_assert(2 * 2 * kStage >= kMaxSplits * kMaxGroup * 4,
                 "the merge's weights fit the stages");
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_size) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-                  "l"(src), "r"(src_size) : "memory");
+// kBytes (16 or 8) from global to shared; src_size 0 reads nothing and
+// zero-fills
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_size) {
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                    "l"(src), "r"(src_size) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                    "l"(src), "r"(src_size) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -140,6 +153,17 @@ __device__ __forceinline__ void unpack16(const int8_t* p, float* f) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * i + j] = static_cast<float>(static_cast<int8_t>(w[i] >> (8 * j)));
+}
+
+// 8 staged int8 elements (one 8-byte copy unit) as floats
+__device__ __forceinline__ void unpack8(const int8_t* p, float* f) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const uint32_t w[2] = {v.x, v.y};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       f[4 * i + j] = static_cast<float>(static_cast<int8_t>(w[i] >> (8 * j)));
@@ -248,8 +272,10 @@ paged_attention_split_kernel(const float* __restrict__ q,
       if (live)
         off = (static_cast<int64_t>(blk_s[s / page]) * page + s % page) *
                   row_stride + static_cast<int64_t>(kh) * D + c * kVec;
-      cp_async16(kt + r * kLd + c * kVec, pool_k + off, live ? 16 : 0);
-      cp_async16(vt + r * kLd + c * kVec, pool_v + off, live ? 16 : 0);
+      cp_async<C::kCopy>(kt + r * kLd + c * kVec, pool_k + off,
+                         live ? C::kCopy : 0);
+      cp_async<C::kCopy>(vt + r * kLd + c * kVec, pool_v + off,
+                         live ? C::kCopy : 0);
     }
     cp_async_commit();
   };
@@ -287,7 +313,10 @@ paged_attention_split_kernel(const float* __restrict__ q,
 #pragma unroll
           for (int c = 0; c < C::kVecPerRow; ++c) {
             float kf[kVec];
-            unpack16(kr + c * kVec, kf);
+            if constexpr (C::kCopy == 16)
+              unpack16(kr + c * kVec, kf);
+            else
+              unpack8(kr + c * kVec, kf);
 #pragma unroll
             for (int e = 0; e < kVec; e += 4) {
               const float4 qv =
@@ -482,6 +511,7 @@ int dispatch_d(int d, const Args& a, cudaStream_t st) {
     case 32: return launch<T, 32>(a, st);
     case 64: return launch<T, 64>(a, st);
     case 80: return launch<T, 80>(a, st);
+    case 120: return launch<T, 120>(a, st);
     case 128: return launch<T, 128>(a, st);
     case 256: return launch<T, 256>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -494,7 +524,7 @@ int dispatch_d(int d, const Args& a, cudaStream_t st) {
 // float32, 1 = bfloat16, 2 = int8); scale_k/v: (P, K) float32 for int8
 // pools, null otherwise; block: (B, n_pages) int32; valid: (B, C,
 // n_pages * page) bytes; out: (B, C, H, D) float32.  All contiguous;
-// H = K * group, group <= 8; D in {32, 64, 80, 128, 256}.  The keys split
+// H = K * group, group <= 8; D in {32, 64, 80, 120, 128, 256}.  The keys split
 // into ceil(n_pages / split_pages) ranges of split_pages pages (at most 64
 // pages and 1,024 positions each, at most 256 ranges); with more than one,
 // ws is a float32 workspace of B * K * n_split * group * (D + 4) and

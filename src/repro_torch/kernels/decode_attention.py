@@ -41,7 +41,7 @@ from repro_torch.kernels import build
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 120, 128, 256)
 MAX_GROUP = 8
 
 
@@ -197,7 +197,7 @@ decode_attention_cuda.launches = 0
 # chunk's queries see them, so only keys visible to no query of the slot
 # may hold such garbage.
 
-PAGED_HEAD_DIMS = (32, 64, 80, 128, 256)
+PAGED_HEAD_DIMS = (32, 64, 80, 120, 128, 256)
 _PAGED_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 

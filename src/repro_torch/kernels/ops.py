@@ -108,9 +108,15 @@ def copy_pages(pools: Sequence[torch.Tensor], src, dst) -> None:
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
               B: torch.Tensor, C: torch.Tensor):
     """The SSD intra-chunk terms (see ``ssd_scan.py``).  x: (b, nc, Q, H, P);
-    dt: (b, nc, Q, H); A: (H,); B/C: (b, nc, Q, N), float32."""
+    dt: (b, nc, Q, H); A: (H,); B/C: (b, nc, Q, N), float32.  On the card
+    a call that autograd records (a training forward) goes through
+    ``SSDChunk``, the kernel with the plain version's VJP; serving, under
+    ``inference_mode``, launches the kernel alone."""
     if _on_cpu(x):
         return _ssd.ssd_chunk_ref(x, dt, A, B, C)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B, C)):
+        return _ssd.SSDChunk.apply(x, dt, A, B, C)
     return _ssd.ssd_chunk_cuda(x, dt, A, B, C)
 
 

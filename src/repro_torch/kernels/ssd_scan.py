@@ -15,13 +15,20 @@ The inter-chunk recurrence that consumes S and g stays in plain torch
 
 * :func:`ssd_chunk_ref` — the plain PyTorch version, the Pallas kernel's
   arithmetic: the (Q, Q) decay keeps i >= j by ``where`` (a select, never a
-  multiply by a mask), so the ``exp`` of a positive difference above the
-  diagonal, which may overflow, is never used.
+  multiply by a mask) on the difference and on its ``exp``, so the ``exp``
+  of a positive difference above the diagonal, which may overflow, is
+  never computed, and its backward stays finite.
 * :func:`ssd_chunk_cuda` — launches ``csrc/ssd_scan.cu``, the three
   products on the tensor cores in three TF32 passes each, one block per
   (group of heads, chunk, batch row) with :func:`ssd_heads_per_block` heads
   sharing the block's C.B^T.  ``ssd_chunk_cuda.launches`` counts its
   launches.
+* :class:`SSDChunk` — the kernel under autograd, for a training forward on
+  the card: its forward launches the kernel; its backward recomputes
+  :func:`ssd_chunk_ref` from the saved inputs and returns that VJP.  The
+  reference has no backward kernel (its trainer differentiates the plain
+  maths outside any Pallas call), so the backward is the same maths here;
+  a hand-written backward kernel is queued (ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -65,9 +72,16 @@ def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     q = x.shape[2]
     a_cs = torch.cumsum(dt * A, dim=2)                         # (b,nc,Q,H)
     dx = x * dt[..., None]
-    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    diff = a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :]     # (b,nc,i,j,H)
-    decay = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                device=x.device))[None, None, :, :, None]
+    # above the diagonal the difference is zeroed before the exp, not only
+    # after: the exp of a positive difference may overflow, and a select's
+    # backward multiplies the inf by a zero cotangent (NaN).  The values
+    # are the reference's; its ssd_chunked, which selects after the exp
+    # only, gives NaN grads there (ROADMAP Queue C)
+    diff = torch.where(tri, a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :],
+                       0.0)                                    # (b,nc,i,j,H)
+    decay = torch.where(tri, torch.exp(diff), 0.0)
     cb = torch.einsum("bcin,bcjn->bcij", C, B)
     y = torch.einsum("bcij,bcijh,bcjhp->bcihp", cb, decay, dx)
     to_end = torch.exp(a_cs[:, :, -1:, :] - a_cs)              # (b,nc,Q,H)
@@ -124,3 +138,22 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 ssd_chunk_cuda.launches = 0
+
+
+class SSDChunk(torch.autograd.Function):
+    """:func:`ssd_chunk_cuda` with the VJP of :func:`ssd_chunk_ref`."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C):
+        ctx.save_for_backward(x, dt, A, B, C)
+        return ssd_chunk_cuda(x, dt, A, B, C)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wrt = [t for t in ins if t.requires_grad]
+        with torch.enable_grad():
+            outs = ssd_chunk_ref(*ins)
+        got = iter(torch.autograd.grad(outs, wrt, grads, allow_unused=True))
+        return tuple(next(got) if t.requires_grad else None for t in ins)

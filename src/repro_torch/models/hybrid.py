@@ -27,7 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models.transformer import (_dense, _normal, layer_params,
-                                            paged_kv, scales,
+                                            maybe_remat, paged_kv, scales,
                                             store_prefill_pages)
 
 Params = Dict[str, Any]
@@ -82,19 +82,27 @@ def _layers(params: Params, cfg: ModelConfig):
             yield gi, kk, layer_params(gp, kk)
 
 
-def forward(params: Params, cfg: ModelConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V) float32."""
-    h = params["embed"][tokens]
-    sp = params["shared_attn"]
-    k = cfg.shared_attn_every
-    for _, kk, lp in _layers(params, cfg):
+def _group(gp: Params, sp: Params, cfg: ModelConfig,
+           h: torch.Tensor) -> torch.Tensor:
+    """One group: its ``shared_attn_every`` mamba layers, then the shared
+    attention block."""
+    for kk in range(cfg.shared_attn_every):
+        lp = layer_params(gp, kk)
         h = h + M.mamba_block(lp, cfg, L.rmsnorm(lp["ln"], h, cfg.norm_eps))
-        if kk == k - 1:
-            h = h + L.attention_forward(
-                sp["attn"], L.rmsnorm(sp["ln1"], h, cfg.norm_eps),
-                **_attn_kw(cfg))
-            h = _mlp(sp, cfg, h)
+    h = h + L.attention_forward(
+        sp["attn"], L.rmsnorm(sp["ln1"], h, cfg.norm_eps), **_attn_kw(cfg))
+    return _mlp(sp, cfg, h)
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            remat: bool = False) -> torch.Tensor:
+    """tokens: (B, S) -> logits (B, S, V) float32; ``remat`` checkpoints
+    each group, as the reference does."""
+    h = params["embed"][tokens]
+    group = maybe_remat(_group, remat)
+    for gi in range(_num_groups(cfg)):
+        h = group(layer_params(params["layers"], gi), params["shared_attn"],
+                  cfg, h)
     return M._head(params, cfg, h)
 
 

@@ -31,7 +31,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _dense, _normal, layer_params
+from repro_torch.models.transformer import (_dense, _normal, layer_params,
+                                            maybe_remat)
 
 Params = Dict[str, Any]
 
@@ -267,13 +268,18 @@ def _last(h: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return torch.gather(h, 1, idx)[:, 0]
 
 
-def forward(params: Params, cfg: ModelConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V) float32."""
+def _layer(lp: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    return h + mamba_block(lp, cfg, L.rmsnorm(lp["ln"], h, cfg.norm_eps))
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            remat: bool = False) -> torch.Tensor:
+    """tokens: (B, S) -> logits (B, S, V) float32; ``remat`` checkpoints
+    each layer."""
     h = params["embed"][tokens]
+    layer = maybe_remat(_layer, remat)
     for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
-        h = h + mamba_block(lp, cfg, L.rmsnorm(lp["ln"], h, cfg.norm_eps))
+        h = layer(layer_params(params["layers"], i), cfg, h)
     return _head(params, cfg, h)
 
 

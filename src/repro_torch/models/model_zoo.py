@@ -3,12 +3,18 @@ dense decoder (and the VLM's, with its patch prefix), MoE, SSM (mamba2),
 hybrid (zamba2) and enc-dec (whisper).
 
   init_params(gen, cfg)                        -> float32 params dict
-  forward(params, cfg, tokens, patches=None, frames=None)
+  forward(params, cfg, tokens, patches=None, frames=None, remat=False)
                                                -> logits (B, S, V) float32
                                                   (VLM: (B, P + S, V))
+  loss(params, cfg, batch, remat=False)        -> (scalar, {"nll", "aux"})
   init_cache(cfg, batch, seq_len, dtype, device) -> decode cache dict
   prefill(params, cfg, tokens, cache)          -> (logits (B, V), cache)
   decode_step(params, cfg, token, cache)       -> (logits (B, V), cache)
+
+``batch`` is the reference's dict: ``tokens`` and ``labels`` (B, S), and
+``patches`` (B, P, D) for the VLM or ``frames`` (B, F, D) for the enc-dec
+family.  ``remat`` checkpoints the activations at the reference's
+granularity: each layer, each hybrid group.
 
 The enc-dec family runs ``forward``, ``init_cache`` and ``decode_step``
 (after ``whisper.precompute_cross``); ``prefill`` and the paged API refuse
@@ -85,17 +91,51 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return mod.init_model(gen, cfg)
 
 
+def forward_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                patches=None, frames=None, remat: bool = False):
+    """(logits, aux loss): the MoE family's mean router loss, a float32 0
+    for every other family."""
+    if cfg.family == MOE:
+        return moe.forward(params, cfg, tokens, remat=remat)
+    if cfg.family == VLM:
+        logits = transformer.forward(params, cfg, tokens,
+                                     patch_embeds=patches, remat=remat)
+    elif cfg.family == ENCDEC:
+        logits = whisper.forward(params, cfg, frames, tokens, remat=remat)
+    else:
+        logits = _module(cfg).forward(params, cfg, tokens, remat=remat)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            patches=None, frames=None) -> torch.Tensor:
+            patches=None, frames=None, remat: bool = False) -> torch.Tensor:
     """Logits (B, S, V) float32: (B, P + S, V) for the VLM with ``patches``
     (B, P, D); the enc-dec family takes ``frames`` (B, F, D)."""
+    return forward_aux(params, cfg, tokens, patches=patches, frames=frames,
+                       remat=remat)[0]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits (B, S, V) float32, labels (B, S) -> mean NLL."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+         remat: bool = False):
+    """(nll + ``router_aux_coef`` x aux, {"nll", "aux"}); the VLM's loss
+    covers the text positions only."""
+    logits, aux = forward_aux(params, cfg, batch["tokens"],
+                              patches=batch.get("patches"),
+                              frames=batch.get("frames"), remat=remat)
+    labels = batch["labels"]
     if cfg.family == VLM:
-        return transformer.forward(params, cfg, tokens, patch_embeds=patches)
-    if cfg.family == MOE:
-        return moe.forward(params, cfg, tokens)[0]
-    if cfg.family == ENCDEC:
-        return whisper.forward(params, cfg, frames, tokens)
-    return _module(cfg).forward(params, cfg, tokens)
+        # logits cover [patches | text]; loss only on the text positions
+        logits = logits[:, -labels.shape[1]:, :]
+    nll = cross_entropy(logits, labels)
+    total = nll + cfg.router_aux_coef * aux
+    return total, {"nll": nll, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,

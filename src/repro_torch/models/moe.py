@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import layer_params, maybe_remat
 
 Params = Dict[str, Any]
 
@@ -174,15 +174,17 @@ def _block(lp: Params, cfg: ModelConfig, x: torch.Tensor, win: int,
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            capacity_factor: float = FORWARD_CAPACITY
+            capacity_factor: float = FORWARD_CAPACITY, remat: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (logits (B, S, V) float32, mean aux loss)."""
+    """tokens (B, S) -> (logits (B, S, V) float32, mean aux loss);
+    ``remat`` checkpoints each layer."""
     h = params["embed"][tokens]
     win = tokens.shape[1]
+    block = maybe_remat(_block, remat)
     auxs = []
     for i in range(cfg.num_layers):
-        h, aux = _block(layer_params(params["layers"], i), cfg, h, win,
-                        capacity_factor)
+        h, aux = block(layer_params(params["layers"], i), cfg, h, win,
+                       capacity_factor)
         auxs.append(aux)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return (h @ params["lm_head"]).float(), torch.stack(auxs).mean()

@@ -22,10 +22,12 @@ head.  It is updated in place, where the reference donates it.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -107,6 +109,16 @@ def layer_params(layers: Params, i: int) -> Params:
             for k, v in layers.items()}
 
 
+def maybe_remat(fn: Callable, remat: bool) -> Callable:
+    """``fn`` under activation checkpointing where ``remat`` (the
+    reference's ``jax.checkpoint`` of a layer's body): its activations are
+    recomputed in the backward pass instead of kept."""
+    if not remat:
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
+
+
 def layer_windows(cfg: ModelConfig, seq_len: int) -> List[int]:
     """Per-layer sliding-window sizes; ``seq_len`` means full causal."""
     if cfg.local_global_ratio:
@@ -122,24 +134,30 @@ def layer_windows(cfg: ModelConfig, seq_len: int) -> List[int]:
 # forward
 # ---------------------------------------------------------------------------
 
+def _layer(lp: Params, cfg: ModelConfig, h: torch.Tensor,
+           win: int) -> torch.Tensor:
+    h = h + L.attention_forward(
+        lp["attn"], L.rmsnorm(lp["ln1"], h, cfg.norm_eps),
+        num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        window=win)
+    return h + dense_ffn(lp, cfg, L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+            patch_embeds: Optional[torch.Tensor] = None,
+            remat: bool = False) -> torch.Tensor:
     """tokens: (B, S) -> logits (B, S_total, V) float32.
 
     For VLM configs, ``patch_embeds`` (B, P, D) is prepended to the token
-    embeddings (the stubbed vision tower's output): S_total = P + S."""
+    embeddings (the stubbed vision tower's output): S_total = P + S.
+    ``remat`` checkpoints each layer."""
     h = params["embed"][tokens]
     if patch_embeds is not None:
         h = torch.cat([patch_embeds.to(h.dtype), h], dim=1)
-    windows = layer_windows(cfg, h.shape[1])
-    for i, win in enumerate(windows):
-        lp = layer_params(params["layers"], i)
-        h = h + L.attention_forward(
-            lp["attn"], L.rmsnorm(lp["ln1"], h, cfg.norm_eps),
-            num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
-            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-            window=win)
-        h = h + dense_ffn(lp, cfg, L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+    layer = maybe_remat(_layer, remat)
+    for i, win in enumerate(layer_windows(cfg, h.shape[1])):
+        h = layer(layer_params(params["layers"], i), cfg, h, win)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return (h @ params["lm_head"]).float()
 

@@ -18,7 +18,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (_dense, _normal,
-                                            attention_params, layer_params)
+                                            attention_params, layer_params,
+                                            maybe_remat)
 
 Params = Dict[str, Any]
 
@@ -70,16 +71,22 @@ def _attn_kw(cfg: ModelConfig) -> Dict[str, Any]:
                 head_dim=cfg.resolved_head_dim, rope_theta=0.0)
 
 
-def encode(params: Params, cfg: ModelConfig,
-           frames: torch.Tensor) -> torch.Tensor:
-    """frames: (B, F, D) stubbed frontend embeddings -> encoder states."""
+def _enc_layer(lp: Params, cfg: ModelConfig,
+               h: torch.Tensor) -> torch.Tensor:
+    h = h + L.attention_forward(
+        lp["attn"], L.layernorm(lp["ln1"], h, cfg.norm_eps),
+        causal=False, **_attn_kw(cfg))
+    return h + L.gelu_mlp(lp["mlp"], L.layernorm(lp["ln2"], h, cfg.norm_eps))
+
+
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
+    """frames: (B, F, D) stubbed frontend embeddings -> encoder states;
+    ``remat`` checkpoints each layer."""
     h = frames + params["enc_pos"][None, : frames.shape[1], :].to(frames.dtype)
+    layer = maybe_remat(_enc_layer, remat)
     for i in range(cfg.encoder_layers):
-        lp = layer_params(params["enc_layers"], i)
-        h = h + L.attention_forward(
-            lp["attn"], L.layernorm(lp["ln1"], h, cfg.norm_eps),
-            causal=False, **_attn_kw(cfg))
-        h = h + L.gelu_mlp(lp["mlp"], L.layernorm(lp["ln2"], h, cfg.norm_eps))
+        h = layer(layer_params(params["enc_layers"], i), cfg, h)
     return L.layernorm(params["enc_norm"], h, cfg.norm_eps)
 
 
@@ -104,21 +111,27 @@ def _cross_attend(lp: Params, cfg: ModelConfig, x: torch.Tensor,
     return out.reshape(b, s, cfg.num_heads * hd) @ lp["wo"]
 
 
+def _dec_layer(lp: Params, cfg: ModelConfig, h: torch.Tensor,
+               enc: torch.Tensor) -> torch.Tensor:
+    h = h + L.attention_forward(
+        lp["self_attn"], L.layernorm(lp["ln1"], h, cfg.norm_eps),
+        causal=True, **_attn_kw(cfg))
+    h = h + _cross_attend(lp["cross_attn"], cfg,
+                          L.layernorm(lp["ln2"], h, cfg.norm_eps), enc)
+    return h + L.gelu_mlp(lp["mlp"], L.layernorm(lp["ln3"], h, cfg.norm_eps))
+
+
 def forward(params: Params, cfg: ModelConfig, frames: torch.Tensor,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """Teacher-forced enc-dec forward -> logits (B, S, V) float32."""
-    enc = encode(params, cfg, frames)
+            tokens: torch.Tensor, *, remat: bool = False) -> torch.Tensor:
+    """Teacher-forced enc-dec forward -> logits (B, S, V) float32;
+    ``remat`` checkpoints each encoder and decoder layer."""
+    enc = encode(params, cfg, frames, remat)
     s = tokens.shape[1]
     h = params["embed"][tokens] + \
         params["dec_pos"][None, :s, :].to(params["embed"].dtype)
+    layer = maybe_remat(_dec_layer, remat)
     for i in range(cfg.num_layers):
-        lp = layer_params(params["dec_layers"], i)
-        h = h + L.attention_forward(
-            lp["self_attn"], L.layernorm(lp["ln1"], h, cfg.norm_eps),
-            causal=True, **_attn_kw(cfg))
-        h = h + _cross_attend(lp["cross_attn"], cfg,
-                              L.layernorm(lp["ln2"], h, cfg.norm_eps), enc)
-        h = h + L.gelu_mlp(lp["mlp"], L.layernorm(lp["ln3"], h, cfg.norm_eps))
+        h = layer(layer_params(params["dec_layers"], i), cfg, h, enc)
     h = L.layernorm(params["dec_norm"], h, cfg.norm_eps)
     return (h @ params["lm_head"]).float()
 

@@ -432,7 +432,7 @@ CHUNK_SHAPES = [(64, 12, 2), (64, 3, 1), (4, 8, 2), (7, 6, 1), (1, 4, 4),
 
 
 @pytest.mark.parametrize("c,h,k", CHUNK_SHAPES)
-@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 120, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [None, 24])
 def test_paged_chunk_kernel_matches_plain(gen, c, h, k, d, dtype, window):
@@ -499,6 +499,8 @@ def _int8_inputs(gen, b, h, k, d, page, npg, c, window=None):
 @pytest.mark.parametrize("d,b,h,k,page,npg", [(128, 4, 12, 2, 16, 34),
                                               (128, 8, 3, 1, 16, 34),
                                               (80, 4, 32, 32, 16, 18),
+                                              (120, 4, 32, 8, 16, 34),
+                                              (120, 8, 8, 8, 8, 68),
                                               (64, 3, 8, 1, 8, 5),
                                               (32, 2, 4, 2, 4, 9),
                                               (256, 2, 8, 2, 16, 6)])
@@ -526,7 +528,7 @@ def test_paged_int8_decode_kernel_matches_plain(gen, d, b, h, k, page, npg,
 
 @pytest.mark.parametrize("c,h,k", [(256, 12, 2), (64, 3, 1), (7, 32, 32),
                                    (4, 8, 2), (1, 6, 1), (17, 8, 1)])
-@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 120, 128, 256])
 @pytest.mark.parametrize("window", [None, 40])
 def test_paged_int8_chunk_kernel_matches_plain(gen, c, h, k, d, window):
     """The int8 chunk body (``_chunk_paged_kernel_quant``): arbitrary bytes
@@ -547,7 +549,8 @@ def test_paged_int8_chunk_kernel_matches_plain(gen, c, h, k, d, window):
 
 
 @pytest.mark.parametrize("page", [4, 8])
-@pytest.mark.parametrize("c,h,k,d", [(17, 8, 1, 64), (64, 12, 2, 128)])
+@pytest.mark.parametrize("c,h,k,d", [(17, 8, 1, 64), (64, 12, 2, 128),
+                                     (40, 32, 8, 120)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("window", [None, 24])
 def test_paged_chunk_kernel_at_small_pages(gen, page, c, h, k, d, dtype,
@@ -617,7 +620,7 @@ def test_paged_launch_refuses_unknown_dtype_codes(gen):
 
 
 @pytest.mark.parametrize("page", [4, 8, 16])
-@pytest.mark.parametrize("d", [80, 128])
+@pytest.mark.parametrize("d", [80, 120, 128])
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
 def test_paged_decode_split_kernel_matches_plain(gen, page, d, dtype):
     """The split decode kernel at qwen2's L decode widths (B 4, H 12, K 2,
@@ -703,7 +706,8 @@ def test_paged_decode_split_kernel_with_one_split_seen(gen, dtype):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
 @pytest.mark.parametrize("b,h,k,d,npg", [(4, 12, 2, 128, 34),
-                                         (4, 32, 32, 80, 18)])
+                                         (4, 32, 32, 80, 18),
+                                         (4, 32, 8, 120, 34)])
 def test_paged_decode_split_kernel_gives_the_same_bits_twice(gen, dtype, b,
                                                               h, k, d, npg):
     """The splits merge in a fixed order, whichever block finishes last:
@@ -1701,3 +1705,180 @@ def test_reduced_moe_decode_step_gives_the_same_bits_twice(gen, name):
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     for key in pa:
         assert torch.equal(_bits(pa[key]), _bits(pb[key]))
+
+
+# ---------------------------------------------------------------------------
+# h2o-danube-3-4b's head dim 120 (d_model 3,840 over 32 heads): the L tier
+# 32 query heads over 8 kv heads, the S tier (``s_variant(4)``) 8 over 8
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,h,k", [(4, 32, 8), (8, 8, 8)])
+@pytest.mark.parametrize("page", [4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, "int8"])
+def test_paged_kernels_at_danube_shapes(gen, b, h, k, page, dtype):
+    """Decode and the C = 256 chunk at D 120 with garbage planted where no
+    query looks (NaN / inf rows, int8 NaN / inf scales), against the plain
+    versions; each kernel gives the same bits twice."""
+    for c in (1, 256):
+        npg = max(544 // page, (c + 64) // page + 4)
+        if dtype == "int8":
+            q, (pk, pv), scales, clean, block, valid = _int8_inputs(
+                gen, b if c == 1 else 2, h, k, 120, page, npg, c)
+            ref = da.decode_attention_chunk_paged_plain(q, pk, pv, block,
+                                                        valid, *clean)
+        else:
+            q, pk, pv, block, valid, ck, cv = _paged_inputs(
+                gen, b if c == 1 else 2, h, k, 120, page, npg, c, dtype)
+            scales = ()
+            ref = da.decode_attention_chunk_paged_plain(q, ck, cv, block,
+                                                        valid)
+        if c == 1:
+            outs = [da.decode_attention_paged_cuda(q, pk, pv, block,
+                                                   valid[:, 0], *scales)
+                    for _ in range(2)]
+        else:
+            outs = [da.decode_attention_chunk_paged_cuda(q, pk, pv, block,
+                                                         valid, *scales)
+                    for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.isfinite(outs[0]).all()
+        torch.testing.assert_close(outs[0], ref, atol=ATT_ATOL, rtol=0)
+        assert torch.equal(outs[0].view(torch.int32),
+                           outs[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("b,h,k", [(4, 32, 8), (8, 8, 8)])
+def test_drain_kernel_at_danube_shapes(gen, b, h, k):
+    s = 1024
+    q = torch.randn((b, 1, h, 120), generator=gen, device="cuda")
+    ck = torch.randn((b, s, k, 120), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    cv = torch.randn((b, s, k, 120), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    valid = torch.arange(s, device="cuda") <= 520
+    ck[:, 521:], cv[:, 521:] = float("nan"), float("inf")
+    one = da.decode_attention_cuda(q, ck, cv, valid)
+    two = da.decode_attention_cuda(q, ck, cv, valid)
+    ref = da.decode_attention_plain(q, ck[:, :521], cv[:, :521],
+                                    valid[:521])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(one, ref, atol=ATT_ATOL, rtol=0)
+    assert torch.equal(one.view(torch.int32), two.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# training on the card: ssd_chunk under autograd, a reduced step per family
+# against the CPU, the CNN trainer's step
+# ---------------------------------------------------------------------------
+
+def test_ssd_chunk_backward_on_the_card_matches_plain(gen):
+    """A recorded call launches the kernel once (the backward recomputes
+    the plain version); grads of every input against autograd through
+    ``ssd_chunk_ref`` on the same inputs, at mamba2-370m's L shape."""
+    args = _ssd_inputs(gen, 2, 4, 128, 32, 64, 128)
+    cots = [torch.randn(o.shape, generator=gen, device="cuda")
+            for o in ssd_scan.ssd_chunk_ref(*args)]
+
+    def vjp(fn):
+        xs = [a.clone().requires_grad_() for a in args]
+        torch.autograd.backward(fn(*xs), cots)
+        return [x.grad for x in xs]
+
+    before = ssd_scan.ssd_chunk_cuda.launches
+    got = vjp(ops.ssd_chunk)
+    assert ssd_scan.ssd_chunk_cuda.launches == before + 1
+    want = vjp(ssd_scan.ssd_chunk_ref)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):       # the same plain maths, recomputed
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+
+
+def _train_step_on(device, name, seed=0):
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import adamw
+    from repro_torch.training import trainer
+    cfg = ARCHS[name].reduced()
+    params = _tree_to(model_zoo.init_params(
+        torch.Generator().manual_seed(seed), cfg), device)
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 32)))
+             .to(device) for k in ("tokens", "labels")}
+    tcfg = TrainConfig(bf16_state=False, remat=False, lr=1e-3,
+                       warmup_steps=1)
+    opt = adamw.init_state(params, tcfg)
+    grads, metrics = trainer.grads_and_metrics(params, cfg, tcfg, batch)
+    params, opt, m = adamw.apply_updates(params, grads, opt, tcfg)
+    return grads, params, {**metrics, **m}
+
+
+def _tree_to(t, device):
+    if isinstance(t, dict):
+        return {k: _tree_to(v, device) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_tree_to(v, device) for v in t]
+    return t.to(device)
+
+
+def _leaves(t):
+    from repro_torch import tree
+    return tree.leaves(t)
+
+
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "deepseek-moe-16b",
+                                  "mamba2-370m", "zamba2-2.7b",
+                                  "granite-3-2b", "h2o-danube-3-4b",
+                                  "gemma3-1b", "arctic-480b"])
+def test_reduced_train_step_on_card_matches_cpu(gen, name):
+    """One step on bridged params, TF32 off: loss and grad norm within
+    1e-4, every grad within 1e-3 of the CPU's (float32 in both, sums in
+    another order; the SSM and hybrid forwards through the ``ssd_chunk``
+    kernel's three TF32 passes), and the updated params within lr of each
+    other, all but 1 in 1,000 within 1e-4 (Adam's update takes either sign
+    where a gradient is at rounding noise)."""
+    before = ssd_scan.ssd_chunk_cuda.launches
+    g_card, p_card, m_card = _train_step_on("cuda", name)
+    recurrent = name in ("mamba2-370m", "zamba2-2.7b")
+    assert (ssd_scan.ssd_chunk_cuda.launches > before) == recurrent
+    g_cpu, p_cpu, m_cpu = _train_step_on("cpu", name)
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(m_card[k].cpu(), m_cpu[k], rtol=1e-4,
+                                   atol=0)
+    for a, b in zip(_leaves(g_card), _leaves(g_cpu)):
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-5 * scale)
+    off = total = 0
+    for a, b in zip(_leaves(p_card), _leaves(p_cpu)):
+        diff = (a.cpu() - b).abs()
+        assert float(diff.max()) <= 1e-3 + 1e-6
+        off += int((diff > 1e-6 + 1e-4 * b.abs()).sum())
+        total += diff.numel()
+    assert off <= 1e-3 * total, (off, total)
+
+
+def test_cnn_train_step_on_card_matches_cpu(gen):
+    """``cnn_trainer``'s step (cuDNN convolutions, TF32 off) from the same
+    init on both devices: the loss and the updated params."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import images
+    from repro_torch.models import cnn
+    from repro_torch.optim import adamw
+    from repro_torch.training import cnn_trainer
+    x, y = images.make_dataset(128, seed=0)
+    init = cnn.init_cnn(torch.Generator().manual_seed(0), cnn.SML_CIFAR,
+                        device="cpu")
+    tcfg = TrainConfig(lr=2e-3, warmup_steps=1, total_steps=10,
+                       weight_decay=0.01, bf16_state=False)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = _tree_to(init, dev)
+        opt = adamw.init_state(params, tcfg)
+        loss = cnn_trainer._step(params, opt, cnn.SML_CIFAR, tcfg,
+                                 torch.as_tensor(x).to(dev),
+                                 torch.as_tensor(y).to(dev))
+        out[dev] = (loss.cpu(), _tree_to(params, "cpu"))
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=0)
+    for a, b in zip(_leaves(out["cuda"][1]), _leaves(out["cpu"][1])):
+        assert float((a - b).abs().max()) <= 2 * 2e-3

@@ -34,7 +34,11 @@ def test_importing_every_module_leaves_jax_out():
             "repro_torch.core.calibrate", "repro_torch.core.metrics",
             "repro_torch.core.replay", "repro_torch.models.cnn",
             "repro_torch.data.images",
-            "repro_torch.data.vibration"} <= set(mods)
+            "repro_torch.data.vibration", "repro_torch.data.tokens",
+            "repro_torch.optim.adamw", "repro_torch.training.trainer",
+            "repro_torch.training.cnn_trainer",
+            "repro_torch.checkpoint.io", "repro_torch.launch.train",
+            "repro_torch.tree"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -57,7 +61,8 @@ def _imported_roots(path: Path):
 
 def test_no_source_imports_jax_or_the_reference():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "kernel_times.py"]
+                                         ROOT / "kernel_times.py"] + \
+        sorted((ROOT / "examples").glob("*_torch.py"))
     assert len(files) >= 20
     for f in files:
         roots = set(_imported_roots(f))

@@ -216,8 +216,9 @@ def _t(*xs):
 
 
 @pytest.mark.parametrize("c", [1, 4])
-def test_int8_plain_kernels_match_pallas(c):
-    clean, dirty = _int8_case(10 + c, c=c)
+@pytest.mark.parametrize("d", [16, 120])
+def test_int8_plain_kernels_match_pallas(c, d):
+    clean, dirty = _int8_case(10 + c, c=c, d=d)
     q, pk, pv, sk, sv, block, valid = clean
     if c == 1:
         ref = jda.decode_attention_paged_pallas(

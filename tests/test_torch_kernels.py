@@ -63,7 +63,9 @@ def test_hi_gate_threshold_semantics():
     assert int(off_j[2]) == 0 and float(conf_j[2]) == 0.5
 
 
-SHAPES = [(1, 128, 4, 1, 16), (2, 256, 8, 2, 32), (2, 192, 6, 6, 16)]
+# the last is h2o-danube-3-4b's head dim 120 (its group of 4)
+SHAPES = [(1, 128, 4, 1, 16), (2, 256, 8, 2, 32), (2, 192, 6, 6, 16),
+          (2, 128, 8, 2, 120)]
 
 
 @pytest.mark.parametrize("b,s,h,k,d", SHAPES)

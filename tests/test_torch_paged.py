@@ -87,8 +87,9 @@ def _torch_pools(pool_k, pool_v, dtype):
 
 @pytest.mark.parametrize("window", [None, 6])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_decode_plain_matches_pallas(window, dtype):
-    q, pk, pv, block, valid = _paged_case(0, window=window,
+@pytest.mark.parametrize("d", [16, 120])
+def test_paged_decode_plain_matches_pallas(window, dtype, d):
+    q, pk, pv, block, valid = _paged_case(0, d=d, window=window,
                                           dtype=jnp.bfloat16
                                           if dtype == torch.bfloat16
                                           else np.float32)
@@ -106,8 +107,9 @@ def test_paged_decode_plain_matches_pallas(window, dtype):
 
 @pytest.mark.parametrize("window", [None, 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_chunk_plain_matches_pallas(window, dtype):
-    q, pk, pv, block, valid = _paged_case(1, c=4, window=window,
+@pytest.mark.parametrize("d", [16, 120])
+def test_paged_chunk_plain_matches_pallas(window, dtype, d):
+    q, pk, pv, block, valid = _paged_case(1, d=d, c=4, window=window,
                                           dtype=jnp.bfloat16
                                           if dtype == torch.bfloat16
                                           else np.float32)
