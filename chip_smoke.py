@@ -105,6 +105,17 @@ Phases (any failure exits non-zero before the last line):
    sampling step's time at (8, 151,936); the stream trace at temperature
    0.7, theta 0: ``serve`` by bucket and ``serve_stream`` twice, the two
    stream runs equal and equal to the drain on decisive draws.
+   mesh — the stream trace's first 16 requests at their median S
+   confidence through ``serve_stream(mesh=make_serving_mesh(1, 1))``, a
+   world-size-1 NCCL group (one H100 holds one rank), and with
+   ``mesh=None`` on the same engine, over bf16 and int8 pools with sharing
+   and the chunk lane on: tokens, statuses and offloads bitwise, one host
+   fetch per tick, the launches the lane flags predict, every pool's
+   invariants after the run, req/s with and without the mesh.  The MoE
+   phase also holds ``moe_ffn_sharded`` on that mesh against ``moe_ffn``
+   bit for bit, with the same dropped pairs, at the full-width layer's
+   decode and admission inputs, and the training phase one reduced
+   qwen2-1.5b train step on the mesh against the unmeshed step.
 7. mamba2  — the SSM family at full size (L mamba2-370m, 48 layers; S 12):
    phases 4 to 6 again (drain with ssd_chunk launched once per layer per
    prefill; the 32-request stream trace at vocab 50,280 with the chunk lane
@@ -237,6 +248,10 @@ N_MIXED, N_REPEAT, N_LONG = 12, 12, 8
 NPG = 34
 L_PAGES = 4 * NPG + 1 + 8 * 32
 S_PAGES = 8 * NPG + 1 + 16 * 32
+
+# the mesh phase: the stream trace's first MESH_REQUESTS requests through
+# the (1, 1) mesh and without it, bf16 and int8
+MESH_REQUESTS = 16
 
 # the fault phase: the stream trace under a seeded schedule (20% of
 # escalation transits lost, an L outage over ticks 8..19 that opens the
@@ -398,23 +413,28 @@ def timed(fn, args_list, iters, warmup=5):
 
 
 def device_ms(fn, args_list, pattern, launches=1, iters=50, attempts=3):
-    """Device time per call, in ms: the summed durations of the kernels
-    whose name matches ``pattern`` over ``iters`` calls under
-    ``torch.profiler``, divided by ``iters`` (CUPTI's kernel durations from
-    the Chrome trace: what the card spent, without the host's submission
-    time that back-to-back CUDA-event timing also sees when the host is the
-    slower side).  ``launches`` is the kernel launches one call makes (the
-    drain kernel's two: its splits and their merge).  A window with any
-    other number of matched records is not used, so a record CUPTI dropped
-    cannot shorten the time: it is profiled again, up to ``attempts``
-    windows in all, and then this raises."""
+    """Device time per call, in ms, from ``iters`` calls under
+    ``torch.profiler`` (CUPTI's kernel durations from the Chrome trace: what
+    the card spent, without the host's submission time that back-to-back
+    CUDA-event timing also sees when the host is the slower side).
+    ``launches`` is the kernel launches one call makes (the drain kernel's
+    two: its splits and their merge).  The records whose name matches
+    ``pattern`` are grouped by kernel name, and the time is the sum over
+    the names of the mean duration of one record times that kernel's
+    launches per call: so a record that CUPTI dropped (it loses one now and
+    then, in some runs in every window) neither shortens nor lengthens the
+    time.  A window is used when its names make up ``launches`` per call
+    and at most a tenth of the records are missing; else it is profiled
+    again, up to ``attempts`` windows in all, and then this raises."""
     import re
     import tempfile
+    from statistics import fmean
     import torch
     from torch.profiler import ProfilerActivity, profile
     for i in range(3):
         fn(*args_list[i % len(args_list)])
     torch.cuda.synchronize()
+    want = iters * launches
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -425,14 +445,26 @@ def device_ms(fn, args_list, pattern, launches=1, iters=50, attempts=3):
             path = Path(tmp) / "t.json"
             prof.export_chrome_trace(str(path))
             events = json.loads(path.read_text())["traceEvents"]
-        durs = [float(e["dur"]) for e in events
-                if e.get("cat") == "kernel" and re.search(pattern, e["name"])]
-        if len(durs) == iters * launches:
-            return sum(durs) / iters / 1e3
-        log(f"  (profiler window {attempt}: {len(durs)} records of "
-            f"{pattern!r}, not {iters} calls x {launches}; not used)")
-    raise AssertionError(f"profiler saw {len(durs)} launches of {pattern!r},"
-                         f" not {iters} calls x {launches}, in each of "
+        durs = {}
+        for e in events:
+            if e.get("cat") == "kernel" and re.search(pattern, e["name"]):
+                durs.setdefault(e["name"], []).append(float(e["dur"]))
+        seen = sum(len(d) for d in durs.values())
+        per_call = {name: round(len(d) / iters) for name, d in durs.items()}
+        if (sum(per_call.values()) == launches
+                and all(per_call.values())
+                and want - iters // 10 <= seen <= want):
+            if seen < want:
+                log(f"  (profiler window {attempt}: {seen} records of "
+                    f"{pattern!r} for {iters} calls x {launches}; each "
+                    f"kernel's mean record used)")
+            return sum(fmean(d) * per_call[name]
+                       for name, d in durs.items()) / 1e3
+        log(f"  (profiler window {attempt}: {seen} records of {pattern!r} "
+            f"in {sorted(per_call.items())}, not {iters} calls x "
+            f"{launches}; not used)")
+    raise AssertionError(f"profiler saw {seen} launches of {pattern!r}, not "
+                         f"{iters} calls x {launches}, in each of "
                          f"{attempts} windows")
 
 
@@ -1454,7 +1486,7 @@ def _expected_launches(sched, before, kb, chunk):
     nothing and run one ``kb``-token chunk pass (dense: the chunk kernel
     once per layer; the hybrid's ``kb`` per-token steps as its decode)."""
     exp = dict.fromkeys(_kernel_names(), 0)
-    for rt in (sched.srt, sched.lrt):
+    for rt in (sched.local_srt, sched.lrt):
         d = {k: rt.lane_ticks[k] - before[rt.name][k] for k in rt.lane_ticks}
         cfg = rt.pool.cfg
         n_layers = cfg.num_layers
@@ -1927,7 +1959,7 @@ def _counted_run(eng, reqs, kw, **extra):
     sched = eng._stream[1]
     ticks = eng.stats["stream_ticks"] - ticks0
     zero = {rt.name: dict.fromkeys(rt.lane_ticks, 0)
-            for rt in (sched.srt, sched.lrt)}
+            for rt in (sched.local_srt, sched.lrt)}
     chunk = kw["chunk_size"] if kw.get("chunk_prefill") else 0
     want = _expected_launches(sched, zero, kw["decode_block"], chunk)
     if len(fetches) != ticks or ticks == 0:
@@ -1944,6 +1976,68 @@ def _counted_run(eng, reqs, kw, **extra):
 def _add(total, counts):
     for k, v in counts.items():
         total[k] = total.get(k, 0) + v
+
+
+def mesh_phase(eng, reqs, ref):
+    """The (1, 1) mesh on the card: the first ``MESH_REQUESTS`` of the
+    stream trace at their median S confidence in ``ref`` (the stream
+    phase's records), each pool dtype served without the mesh, through
+    it twice, and without it again (each run on a fresh scheduler,
+    ``_counted_run``: one fetch per tick, the launches the lane flags
+    predict): every run's tokens, statuses and offloads bitwise the
+    first's, every pool's invariants after each run; ms per tick and
+    req/s of each run.  Returns the mesh runs' launches."""
+    import numpy as np
+    from repro_torch.launch.mesh import make_serving_mesh
+    reqs = reqs[:MESH_REQUESTS]
+    theta = float(np.float32(np.median([ref[r.request_id]["confidence"]
+                                        for r in reqs])))
+    mesh = make_serving_mesh(1, 1)
+    total = {}
+    eng.hi = dataclasses.replace(eng.hi, theta=theta)
+    try:
+        for kv in ("bf16", "int8"):
+            kw = dict(STREAM_KW, kv_dtype=kv)
+            runs = []
+            for on in (False, True, True, False):
+                out, sched, counts, ticks, wall = _counted_run(
+                    eng, reqs, kw, **({"mesh": mesh} if on else {}))
+                for rt in (*sched.srts, sched.lrt):
+                    rt.pool.check_invariants()
+                runs.append((on, out, ticks, wall))
+                if on:
+                    _add(total, counts)
+                    report, mesh_counts = sched.mesh_report, counts
+            first = runs[0][1]
+            same = all(np.array_equal(first[rid]["tokens"], o[rid]["tokens"])
+                       and first[rid]["status"] == o[rid]["status"]
+                       and first[rid]["offloaded"] == o[rid]["offloaded"]
+                       for _, o, _, _ in runs for rid in first)
+            n_off = sum(r["offloaded"] for r in first.values())
+            side = {flag: [(t, w) for on, _, t, w in runs if on == flag]
+                    for flag in (False, True)}
+            ms = {flag: float(np.mean([w / t for t, w in v])) * 1e3
+                  for flag, v in side.items()}
+            rps = {flag: float(np.mean([len(reqs) / w for _, w in v]))
+                   for flag, v in side.items()}
+            log(f"  mesh (1, 1), {kv} pools, theta {theta:.6f}, runs off, "
+                f"on, on, off: {', '.join(f'{t} ticks {w * 1e3:.1f} ms' for _, _, t, w in runs)}"
+                f"; records of every run equal to the first (tokens, "
+                f"status, offload): {same}; offloaded {n_off} of "
+                f"{len(first)}; without the mesh {rps[False]:.2f} req/s, "
+                f"{ms[False]:.1f} ms a tick; with it {rps[True]:.2f} req/s,"
+                f" {ms[True]:.1f} ms a tick ({rps[True] / rps[False]:.3f}x "
+                f"req/s); one host fetch per tick; L tier cut "
+                f"{report['kinds']}, replicated {report['replicated']}; "
+                f"launches of a mesh run {mesh_counts} as the lane flags "
+                "predict")
+            if not same or not 0 < n_off < len(first):
+                raise AssertionError(f"mesh (1, 1) {kv}: records differ from "
+                                     "mesh=None, or one branch never ran")
+    finally:
+        eng.hi = dataclasses.replace(eng.hi, theta=THETA)
+        eng._stream = None
+    return total
 
 
 def fault_stream_phase(eng, reqs, ref):
@@ -3131,11 +3225,13 @@ def moe_layer_phase(eng):
     ahead of later rows' tokens in token order) took their slots."""
     import numpy as np
     import torch
+    from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.models import layers as L
     from repro_torch.models import moe
     from repro_torch.models.transformer import layer_params
     cfg = eng.l.cfg
     lp = layer_params(eng.l.params["layers"], 0)
+    mesh = make_serving_mesh(1, 1)
     lens = MOE_ADMISSION
     rng = np.random.default_rng(9)
     toks = np.zeros((len(lens), 512), np.int64)
@@ -3181,11 +3277,21 @@ def moe_layer_phase(eng):
             msg += (f"; real tokens' pairs dropped {int((~kg[real]).sum())}"
                     f", of which dropped only because the padded tails took "
                     f"their slots: {by_tails}")
+        # the expert-parallel dispatch on the (1, 1) mesh: moe_ffn's bits
+        ys, auxs = moe.moe_ffn_sharded(lp, cfg, xx, moe.SERVE_CAPACITY, mesh)
+        ks = moe.route_local(lp, cfg, xx.reshape(t, -1), cap, 0,
+                             cfg.num_experts)[3].cpu()
+        sharded_same = (torch.equal(ys.cpu(), yg) and float(auxs) == ag
+                        and torch.equal(ks, kg))
+        msg += (f"; moe_ffn_sharded on the (1, 1) mesh equals moe_ffn bit "
+                f"for bit, the same dropped pairs: {sharded_same}")
         log(msg)
         if not (torch.equal(ig, ic) and torch.equal(kg, kc)
-                and err <= MOE_LAYER_TOL) or (name == "decode" and not drops):
+                and err <= MOE_LAYER_TOL and sharded_same) \
+                or (name == "decode" and not drops):
             raise AssertionError("the full-width MoE layer: card and CPU "
-                                 "disagree, or nothing dropped")
+                                 "disagree, the (1, 1) mesh's dispatch "
+                                 "differs, or nothing dropped")
 
 
 def _leaves(tree):
@@ -3332,8 +3438,10 @@ def train_reduced_phase():
     grad norm within ``TRAIN_RTOL``; the updated params within lr of each
     other and all but ``TRAIN_OFF_SHARE`` of them within ``TRAIN_RTOL``
     (Adam's update takes either sign where a gradient is at rounding
-    noise).  Returns the card steps' launches (ssd_chunk, once per mamba
-    layer of the SSM and hybrid steps)."""
+    noise).  Then reduced qwen2-1.5b's step on the (1, 1) mesh (data
+    parallel over one NCCL rank) against the unmeshed step on the card,
+    bit for bit.  Returns the card steps' launches (ssd_chunk, once per
+    mamba layer of the SSM and hybrid steps)."""
     import torch
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import ARCHS
@@ -3383,6 +3491,25 @@ def train_reduced_phase():
                 and worst <= tcfg.lr + 1e-6 and (n_ssd > 0) == recurrent):
             raise AssertionError(msg)
         log(msg)
+    from repro_torch.launch.mesh import make_serving_mesh
+    cfg = ARCHS[ARCH].reduced()
+    init = model_zoo.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = {k: v.to("cuda") for k, v in _lm_batch(cfg, 2, 32).items()}
+    steps = []
+    for mesh in (None, make_serving_mesh(1, 1), None):
+        params = _to(init, "cuda")
+        opt = adamw.init_state(params, tcfg)
+        params, opt, m = trainer.make_train_step(cfg, tcfg, mesh)(
+            params, opt, batch)
+        steps.append(leaves((params, opt, m)))
+    same = [all(torch.equal(a, b) for a, b in zip(steps[0], s))
+            for s in steps[1:]]
+    log(f"  train step {ARCH} (reduced) on the (1, 1) mesh against the "
+        f"unmeshed step: params, moments and metrics equal bit for bit: "
+        f"{same[0]} (the unmeshed step twice: {same[1]})")
+    if not all(same):
+        raise AssertionError("the (1, 1) mesh's train step differs from the "
+                             "unmeshed one")
     return total
 
 
@@ -3729,6 +3856,9 @@ def main(argv=None) -> int:
     sampler_step_times()
     temp_launches = temperature_phase(eng, stream_reqs, stream_out)
     add(temp_launches)
+    log(f"== mesh ({ARCH}: serve_stream on the (1, 1) mesh, NCCL)")
+    mesh_launches = mesh_phase(eng, stream_reqs, stream_out)
+    add(mesh_launches)
     del eng
     torch.cuda.empty_cache()
 
@@ -3802,6 +3932,11 @@ def main(argv=None) -> int:
             (f"{SSM_ARCH} speculative", ssm_spec, ("hi_gate", "ssd_chunk")),
             ("SML_CIFAR cascade", cascade_launches, ("hi_gate",)),
             (f"{ARCH} legacy", legacy_launches, ("decode_attention",)),
+            (f"{ARCH} mesh", mesh_launches,
+             ("hi_gate", "decode_attention_paged",
+              "decode_attention_chunk_paged", "copy_pages",
+              "decode_attention_paged[int8]",
+              "decode_attention_chunk_paged[int8]", "copy_pages[int8]")),
             (f"{ARCH} sampled", temp_launches,
              ("hi_gate", "decode_attention", "decode_attention_paged",
               "decode_attention_chunk_paged")),
@@ -3840,6 +3975,9 @@ def main(argv=None) -> int:
         case["launches"] = (cascade_launches["hi_gate"]
                             if case["shape"].endswith("max_prob") else 0)
     kernels[1]["legacy_launches"] = legacy_launches["decode_attention"]
+    # the mesh path's share of each kernel's launches
+    for k in kernels:
+        k["mesh_launches"] = mesh_launches.get(k["name"], 0)
     # the chunk kernel's entries carry the verify shape's case beside their
     # own: its launches are one per L layer and verify tick
     for case, n in zip(verify_cases, verify_launches):
@@ -3883,6 +4021,9 @@ def main(argv=None) -> int:
                  if key not in ("name", "route", "source", "replaces")})
             k["max_abs_err"] = max(k["max_abs_err"], case["max_abs_err"])
 
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

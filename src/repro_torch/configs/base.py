@@ -2,8 +2,9 @@
 
 A copy of the reference's ``configs/base.py``: :class:`ModelConfig` of every
 family (dense, MoE, SSM, hybrid, enc-dec, VLM) with its ``reduced`` and
-``s_variant`` derivations, field for field, and :class:`HIConfig`.  The
-shape and training configs join with the modules that read them.
+``s_variant`` derivations, field for field, :class:`HIConfig`,
+:class:`TrainConfig` and the assigned input shapes :class:`ShapeConfig`
+(``SHAPES``), which the partition rules of ``sharding/specs.py`` read.
 """
 from __future__ import annotations
 
@@ -157,6 +158,28 @@ class ModelConfig:
         if self.family == ENCDEC:
             changes.update(encoder_layers=max(2, self.encoder_layers // scale))
         return dataclasses.replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                     # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.mode == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 @dataclass(frozen=True)

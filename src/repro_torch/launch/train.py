@@ -1,5 +1,6 @@
-"""Training driver: the reference's ``launch/train.py`` (its single-device
-path; the mesh is ROADMAP A14).
+"""Training entry point: the reference's ``launch/train.py``, on one device or,
+with ``mesh=`` (a ``launch/mesh.Mesh``), data parallel over its ``data``
+axis (``trainer.make_train_step``), every rank feeding the same batches.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
       --steps 50 --batch 8 --seq 64
@@ -29,10 +30,13 @@ from repro_torch.training import trainer
 def run(arch: str, *, reduced: bool = True, steps: int = 50, batch: int = 8,
         seq: int = 64, lr: float = 1e-3, grad_accum: int = 1,
         ckpt_dir: str = "", log_every: int = 10, seed: int = 0,
-        device: str = "cuda"):
+        device: str = "cuda", mesh=None):
     """Train ``steps`` steps and return the losses.  ``run.stats`` then
     holds the step loop's ``seconds`` and ``tokens_per_s`` (set-up and the
-    checkpoint excluded, as in the reference's report)."""
+    checkpoint excluded, as in the reference's report).  On ``mesh`` the
+    run uses the mesh's device."""
+    if mesh is not None:
+        device = mesh.device
     cfg = ARCHS[arch]
     if reduced:
         cfg = cfg.reduced()
@@ -41,7 +45,7 @@ def run(arch: str, *, reduced: bool = True, steps: int = 50, batch: int = 8,
     gen = torch.Generator(device=device).manual_seed(seed)
     params = model_zoo.init_params(gen, cfg)
     opt = adamw.init_state(params, tcfg)
-    step_fn = trainer.make_train_step(cfg, tcfg)
+    step_fn = trainer.make_train_step(cfg, tcfg, mesh)
 
     losses = []
     t0 = time.time()

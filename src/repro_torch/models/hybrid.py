@@ -29,6 +29,7 @@ from repro_torch.models import mamba2 as M
 from repro_torch.models.transformer import (_dense, _normal, layer_params,
                                             maybe_remat, paged_kv, scales,
                                             store_prefill_pages)
+from repro_torch.sharding import act
 
 Params = Dict[str, Any]
 # slot axis of the recurrent leaves (G, k, B, ...): the rollback stages,
@@ -155,7 +156,8 @@ def _prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             k_in, v_in = kt, vt
         a = L._sdpa(q, k_in, v_in, L.causal_window_mask(s, s,
                                                         device=h.device))
-        h = h + a.reshape(b, s, cfg.num_heads * hd) @ sp["attn"]["wo"]
+        h = h + act.reduce_model(
+            a.reshape(b, s, cfg.num_heads * hd) @ sp["attn"]["wo"], "attn")
         h = _mlp(sp, cfg, h)
         store_kv(gi, kt, vt)
     return h

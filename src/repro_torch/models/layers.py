@@ -13,6 +13,14 @@ paged-pool path of continuous serving, with bf16 (or float32) pages or int8
 pages and their per-page, per-head scales, and whisper's LayerNorm and
 GELU MLP.  Large matmuls go to ``torch.matmul``; decode and chunk
 attention and the copy-on-write page copies go through ``kernels/ops.py``.
+
+Tensor parallelism.  Under an ambient mesh (``sharding/act.py``) whose
+``model`` axis cuts a module, its params are this rank's shards
+(``sharding/specs.shard_params``): the row-parallel products (attention's
+and the MLPs' ``wo``) are all-reduced over ``model``, GELU's ``bo`` is
+added once after the reduce, and :func:`lm_logits` all-gathers the
+vocab-sharded logits.  Outside a mesh, or at ``model = 1``, these are the
+single-device code path.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import act
 
 Params = Dict[str, Any]
 _NEG = -1e30
@@ -141,7 +150,8 @@ def attention_forward(params: Params, x: torch.Tensor, *, num_heads: int,
         mask = (causal_window_mask(s, s, window=window, device=x.device)
                 if causal else None)
         out = _sdpa(q, k, v, mask)
-    return out.reshape(b, s, num_heads * head_dim) @ params["wo"]
+    return act.reduce_model(
+        out.reshape(b, s, num_heads * head_dim) @ params["wo"], "attn")
 
 
 def decode_valid(seq: int, pos: int, window: Optional[int],
@@ -174,7 +184,8 @@ def attention_decode(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
     cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
     valid = decode_valid(cache_k.shape[1], pos, window, x.device)
     out = ops.decode_attention(q, cache_k, cache_v, valid)
-    return out.reshape(b, 1, num_heads * head_dim) @ params["wo"]
+    return act.reduce_model(
+        out.reshape(b, 1, num_heads * head_dim) @ params["wo"], "attn")
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +269,8 @@ def attention_decode_paged(params: Params, x: torch.Tensor,
     valid = _positional_valid(pos, n_pages * page, window)
     out = ops.decode_attention_paged(q, pool_k, pool_v, block, valid,
                                      scale_k, scale_v)
-    return out.reshape(b, 1, num_heads * head_dim) @ params["wo"]
+    return act.reduce_model(
+        out.reshape(b, 1, num_heads * head_dim) @ params["wo"], "attn")
 
 
 def attention_chunk_paged(params: Params, x: torch.Tensor,
@@ -299,7 +311,8 @@ def attention_chunk_paged(params: Params, x: torch.Tensor,
     valid = _positional_valid(positions, n_pages * page, window)
     out = ops.decode_attention_chunk_paged(q, pool_k, pool_v, block, valid,
                                            scale_k, scale_v)
-    return out.reshape(b, c, num_heads * head_dim) @ params["wo"]
+    return act.reduce_model(
+        out.reshape(b, c, num_heads * head_dim) @ params["wo"], "attn")
 
 
 def scatter_prefill_pages(pool: torch.Tensor, seq_kv: torch.Tensor,
@@ -440,8 +453,18 @@ def quant_scatter_prefill_pages(pool: torch.Tensor, scale: torch.Tensor,
     scale[rows] = sc
 
 
-def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ params["wg"]) * (x @ params["wi"])) @ params["wo"]
+def swiglu(params: Params, x: torch.Tensor, kind: str = "mlp"
+           ) -> torch.Tensor:
+    """``kind`` names the module for the tensor-parallel reduce: "mlp",
+    or the MoE layer's "shared" experts and "dense" residual."""
+    return act.reduce_model(
+        (F.silu(x @ params["wg"]) * (x @ params["wi"])) @ params["wo"], kind)
+
+
+def lm_logits(h: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
+    """``h @ lm_head`` as float32 logits, whole vocab rows under a mesh
+    that cuts the lm_head."""
+    return act.gather_vocab(h @ lm_head).float()
 
 
 # ---------------------------------------------------------------------------
@@ -462,5 +485,6 @@ def layernorm(params: Params, x: torch.Tensor,
 
 def gelu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
     """GELU in its tanh form, ``jax.nn.gelu``'s default."""
-    return F.gelu(x @ params["wi"] + params["bi"],
-                  approximate="tanh") @ params["wo"] + params["bo"]
+    return act.reduce_model(
+        F.gelu(x @ params["wi"] + params["bi"], approximate="tanh")
+        @ params["wo"], "mlp") + params["bo"]

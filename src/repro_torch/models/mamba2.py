@@ -259,7 +259,7 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def _head(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return (h @ params["lm_head"]).float()
+    return L.lm_logits(h, params["lm_head"])
 
 
 def _last(h: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

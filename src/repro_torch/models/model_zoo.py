@@ -3,6 +3,8 @@ dense decoder (and the VLM's, with its patch prefix), MoE, SSM (mamba2),
 hybrid (zamba2) and enc-dec (whisper).
 
   init_params(gen, cfg)                        -> float32 params dict
+  init_params_spec(cfg)                        -> the same tree on ``meta``
+  cache_spec(cfg, batch, seq_len)              -> init_cache's tree on ``meta``
   forward(params, cfg, tokens, patches=None, frames=None, remat=False)
                                                -> logits (B, S, V) float32
                                                   (VLM: (B, P + S, V))
@@ -89,6 +91,25 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     if mod in (transformer, moe):
         return mod.init_decoder(gen, cfg)
     return mod.init_model(gen, cfg)
+
+
+class _MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device (torch
+    has none): the init functions then build shapes without storage."""
+    device = torch.device("meta")
+
+
+def init_params_spec(cfg: ModelConfig) -> Params:
+    """``init_params``' tree with the same leaf paths, shapes and dtypes,
+    on the ``meta`` device: the partition rules can be checked on the
+    full-size configs without allocating them."""
+    return init_params(_MetaGenerator(), cfg)
+
+
+def cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
+               dtype=torch.bfloat16) -> Params:
+    """``init_cache``'s tree on the ``meta`` device."""
+    return init_cache(cfg, batch, seq_len, dtype, "meta")
 
 
 def forward_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,

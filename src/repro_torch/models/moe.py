@@ -17,8 +17,17 @@ kernel here.  Everything else (attention, the caches, the page pools and
 their int8 write side) is the dense family's: the serving functions are
 ``models/transformer.py``'s with this module's FFN, as the reference's
 MoE scans reuse its ``layers``.  The capacity factors are the reference's:
-1.25 in :func:`forward`, 2.0 on every serving path.  The expert-parallel
-``moe_ffn_sharded`` is not ported (ROADMAP Queue A item 14).
+1.25 in :func:`forward`, 2.0 on every serving path.
+
+Expert parallelism (:func:`moe_ffn_sharded`, the reference's shard_map
+dispatch) runs on each rank's local shards over ``torch.distributed``:
+routing stays replicated and rank-local, each rank dispatches its tokens
+to its own experts, and one all-reduce over ``model`` combines the expert
+partial outputs.  :func:`moe_ffn_auto` picks it under an ambient mesh
+(``sharding/act.py``) whose ``model`` axis divides the experts, when the
+layer's experts are this rank's block of that layout; the serving L tier runs under its ``model`` sub-mesh, where the capacity and
+slot positions are exactly :func:`moe_ffn`'s, so the same (token, choice)
+pairs drop.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.models.transformer import layer_params, maybe_remat
+from repro_torch.sharding import act
 
 Params = Dict[str, Any]
 
@@ -90,7 +100,7 @@ def route(lp: Params, cfg: ModelConfig, xf: torch.Tensor, cap: int):
     Returns (gate (T, k) renormalised, idx (T, k) expert ids, pos (T, k)
     slots clamped to ``cap - 1``, keep (T, k) bool: the pair got a slot,
     probs (T, E))."""
-    e, k = cfg.num_experts, cfg.experts_per_token
+    e, k = lp["router"].shape[-1], cfg.experts_per_token
     t = xf.shape[0]
     logits = xf.float() @ lp["router"]                        # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -142,15 +152,142 @@ def moe_ffn(lp: Params, cfg: ModelConfig, x: torch.Tensor,
     return y, aux
 
 
+# ---------------------------------------------------------------------------
+# expert parallelism over torch.distributed (the production dispatch)
+# ---------------------------------------------------------------------------
+#
+# The scatter dispatch above counts slot positions over the whole token
+# dim.  Here routing stays local to each rank: tokens stay on their
+# ``data`` shard (replicated across ``model``), every (data, model) rank
+# dispatches its local tokens to its local experts, and one all-reduce over
+# ``model`` combines the expert partial outputs.
+
+def route_local(lp: Params, cfg: ModelConfig, xf: torch.Tensor, cap: int,
+                lo: int, e_local: int):
+    """:func:`route` over all E experts, restricted to the local experts
+    ``[lo, lo + e_local)``: slot positions count the local pairs only,
+    which for a local expert is its whole count, so a local pair keeps
+    its slot exactly when :func:`route` keeps it.  Returns (gate, lid
+    (T, k) local expert ids, 0 for other ranks' pairs, pos, keep (T, k):
+    local and kept, probs, idx (T, k) global expert ids)."""
+    gate, idx, pos, keep, probs = route(lp, cfg, xf, cap)
+    local = (idx >= lo) & (idx < lo + e_local)
+    return (gate, torch.where(local, idx - lo, 0), pos, keep & local,
+            probs, idx)
+
+
+def _sharded_layout(lp: Params, cfg: ModelConfig, mesh) -> bool:
+    """Whether the layer's experts are one rank's block of the sharded
+    storage: E / model experts, each of d_ff_expert / data columns."""
+    e = lp["router"].shape[-1]
+    m, n = mesh.shape["model"], mesh.shape.get("data", 1)
+    wg = lp["experts"]["wg"]
+    return (e % m == 0 and wg.shape[0] * m == e
+            and wg.shape[-1] * n == cfg.d_ff_expert)
+
+
+def moe_ffn_sharded(lp: Params, cfg: ModelConfig, x: torch.Tensor,
+                    capacity_factor: float, mesh
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's block of the reference's shard_map'd routed FFN.
+
+    ``x`` (B_l, S, D) is this rank's ``data`` block of the tokens; the
+    router (D, E) is whole; the experts are this rank's
+    ``[m E/M, (m+1) E/M)`` with their hidden dim F sharded over ``data``
+    (the reference's storage: ``wi``/``wg`` (E_l, D, F/N), ``wo``
+    (E_l, F/N, D)).  Capacity comes from the local tokens.  The schedule
+    moves the smaller operand across ``data``: tokens-move all-gathers the
+    (E_l, cap, D) buffers, multiplies them by the F shards and
+    reduce-scatters the partial outputs; weights-move all-gathers F.
+    Returns (y (B_l, S, D), aux): ``y`` all-reduced over ``model``, the
+    aux loss averaged over ``data``.  On a ``model``-only mesh (no
+    ``data`` axis) with M = 1 this is :func:`moe_ffn` op for op."""
+    import torch.distributed as dist
+    if not _sharded_layout(lp, cfg, mesh):
+        raise ValueError(
+            f"experts {tuple(lp['experts']['wg'].shape)} are not one rank's "
+            f"block of {lp['router'].shape[-1]} experts x d_ff_expert "
+            f"{cfg.d_ff_expert} on mesh {dict(mesh.shape)}: expected "
+            "(E / model, D, d_ff_expert / data)")
+    b, s, d = x.shape
+    e, k = lp["router"].shape[-1], cfg.experts_per_token
+    n_model = mesh.shape["model"]
+    n_data = mesh.shape.get("data", 1)
+    e_local = e // n_model
+    t = b * s
+    cap = moe_capacity(t, e, k, capacity_factor)
+    # the schedule: move the smaller operand across ``data``
+    f = cfg.d_ff_expert
+    weights_bytes = 3 * e_local * d * f * 2
+    tokens_bytes = 2 * e_local * cap * n_data * d * 2
+    tokens_move = tokens_bytes < weights_bytes
+
+    xf = x.reshape(t, d)
+    gate, lid, pos, keep, probs, idx = route_local(
+        lp, cfg, xf, cap, mesh.coord("model") * e_local, e_local)
+    buf = x.new_zeros((e_local, cap, d))
+    buf.index_put_((lid, pos), xf[:, None, :] * keep[..., None].to(x.dtype),
+                   accumulate=True)
+
+    ex = lp["experts"]
+    if n_data == 1:
+        wg, wi, wo = ex["wg"], ex["wi"], ex["wo"]
+    elif tokens_move:
+        # the F-sharded weights stay; the token buffers travel
+        dgroup = mesh.group("data")
+        buf = act.all_gather_dim(buf, dgroup, 1)
+        wg, wi, wo = ex["wg"], ex["wi"], ex["wo"]
+    else:
+        # small experts: gather full-F weights, tokens stay put
+        dgroup = mesh.group("data")
+        wg = act.all_gather_dim(ex["wg"], dgroup, 2)
+        wi = act.all_gather_dim(ex["wi"], dgroup, 2)
+        wo = act.all_gather_dim(ex["wo"], dgroup, 1)
+    h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wi)
+    out = torch.bmm(h, wo)                                    # (E_l, ., D)
+    if n_data > 1 and tokens_move:
+        out = act.reduce_scatter_dim(out, dgroup, 1)          # (E_l, cap, D)
+
+    w = (gate * keep).to(x.dtype)
+    y = x.new_zeros((t, d))
+    for j in range(k):
+        y = y + out[lid[:, j], pos[:, j]] * w[:, j, None]
+    if n_model > 1:
+        dist.all_reduce(y, group=mesh.group("model"))
+    y = y.reshape(b, s, d)
+
+    first = idx[:, :1] == torch.arange(e, device=x.device)
+    aux = e * torch.sum(first.float().mean(0) * probs.mean(0))
+    if n_data > 1:
+        dist.all_reduce(aux, group=mesh.group("data"))
+        aux = aux / n_data
+    return y, aux
+
+
+def moe_ffn_auto(lp: Params, cfg: ModelConfig, x: torch.Tensor,
+                 capacity_factor: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel dispatch under an ambient mesh whose ``model``
+    axis divides the expert count, whose ``data`` size divides the batch,
+    and whose layout the layer's experts are stored in (whole experts on a
+    mesh of more than one rank are computed locally); else the local
+    scatter."""
+    mesh = act.current_mesh()
+    if (mesh is not None and "model" in mesh.shape
+            and x.shape[0] % mesh.shape.get("data", 1) == 0
+            and _sharded_layout(lp, cfg, mesh)):
+        return moe_ffn_sharded(lp, cfg, x, capacity_factor, mesh)
+    return moe_ffn(lp, cfg, x, capacity_factor)
+
+
 def _ffn(lp: Params, cfg: ModelConfig, xn: torch.Tensor,
          capacity_factor: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer's FFN: routed experts, plus the shared experts and
     arctic's dense residual where the layer has them."""
-    y, aux = moe_ffn(lp, cfg, xn, capacity_factor)
+    y, aux = moe_ffn_auto(lp, cfg, xn, capacity_factor)
     if "shared" in lp:
-        y = y + L.swiglu(lp["shared"], xn)
+        y = y + L.swiglu(lp["shared"], xn, "shared")
     if "dense" in lp:
-        y = y + L.swiglu(lp["dense"], xn)
+        y = y + L.swiglu(lp["dense"], xn, "dense")
     return y, aux
 
 
@@ -187,7 +324,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                        capacity_factor)
         auxs.append(aux)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return (h @ params["lm_head"]).float(), torch.stack(auxs).mean()
+    return L.lm_logits(h, params["lm_head"]), torch.stack(auxs).mean()
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding import act
 
 Params = Dict[str, Any]
 
@@ -41,7 +42,10 @@ Params = Dict[str, Any]
 
 def _normal(gen: torch.Generator, shape, std: float) -> torch.Tensor:
     """Scaled in place: one copy of the tensor at a time (a stacked expert
-    weight of deepseek-moe-16b is 20.7 GB in float32)."""
+    weight of deepseek-moe-16b is 20.7 GB in float32).  A generator on the
+    ``meta`` device (``model_zoo.init_params_spec``) gives shapes only."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, device="meta")
     return torch.randn(shape, generator=gen, device=gen.device).mul_(std)
 
 
@@ -159,7 +163,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     for i, win in enumerate(layer_windows(cfg, h.shape[1])):
         h = layer(layer_params(params["layers"], i), cfg, h, win)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return (h @ params["lm_head"]).float()
+    return L.lm_logits(h, params["lm_head"])
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +223,8 @@ def _prefill_layer(lp: Params, cfg: ModelConfig, h: torch.Tensor,
     else:
         a = L._sdpa(q, k, v, L.causal_window_mask(s, s, window=win,
                                                   device=h.device))
-    h = h + a.reshape(b, s, cfg.num_heads * hd) @ lp["attn"]["wo"]
+    h = h + act.reduce_model(
+        a.reshape(b, s, cfg.num_heads * hd) @ lp["attn"]["wo"], "attn")
     h = h + ffn(lp, cfg, L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
     if kv_dtype == torch.int8:
         return h, k_raw, v_raw
@@ -248,7 +253,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    logits = (h[:, -1, :] @ params["lm_head"]).float()
+    logits = L.lm_logits(h[:, -1, :], params["lm_head"])
     return logits, {"k": cache["k"], "v": cache["v"], "pos": s}
 
 
@@ -269,7 +274,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
             rope_theta=cfg.rope_theta, window=win)
         h = h + ffn(lp, cfg, L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    logits = (h[:, 0, :] @ params["lm_head"]).float()
+    logits = L.lm_logits(h[:, 0, :], params["lm_head"])
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
 
 
@@ -356,7 +361,7 @@ def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     last = (lengths.long() - 1)[:, None, None].expand(-1, 1, h.shape[-1])
     h = torch.gather(h, 1, last)
-    logits = (h[:, 0, :] @ params["lm_head"]).float()
+    logits = L.lm_logits(h[:, 0, :], params["lm_head"])
     return logits, cache
 
 
@@ -393,7 +398,7 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
             window=win, write_block=write_block, **scales(cache, i))
         h = h + ffn(lp, cfg, L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return (h[:, 0, :] @ params["lm_head"]).float(), cache
+    return L.lm_logits(h[:, 0, :], params["lm_head"]), cache
 
 
 def forward_chunk_paged(params: Params, cfg: ModelConfig,
@@ -418,4 +423,4 @@ def forward_chunk_paged(params: Params, cfg: ModelConfig,
             window=win, write_block=write_block, **scales(cache, i))
         h = h + ffn(lp, cfg, L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return (h @ params["lm_head"]).float(), cache, {}
+    return L.lm_logits(h, params["lm_head"]), cache, {}

@@ -74,13 +74,10 @@ def disable_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _host_fetch(tree: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """The engine's single device->host copy.
-
-    Every tensor of ``tree`` is packed into one int32 buffer on its device
-    (float32 bit-cast, bool and int converted), the buffer crosses once, and
-    the host unpacks it: float32 stays float32, bool stays bool, integers
-    become int32 (token ids fit), as the reference returns them."""
+def pack_int32(tree: Dict[str, torch.Tensor]):
+    """Every tensor of ``tree`` in one flat int32 tensor on its device
+    (float32 bit-cast, bool and int converted; token ids fit), and what
+    :func:`unpack_int32` needs to undo it on the host."""
     parts, metas = [], []
     for name, t in tree.items():
         if t.dtype == torch.float32:
@@ -89,7 +86,13 @@ def _host_fetch(tree: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             flat = t.to(torch.int32)
         parts.append(flat.reshape(-1))
         metas.append((name, t.dtype, tuple(t.shape)))
-    buf = torch.cat(parts).cpu().numpy()
+    return torch.cat(parts), metas
+
+
+def unpack_int32(buf: np.ndarray, metas) -> Dict[str, np.ndarray]:
+    """:func:`pack_int32`'s tree from its buffer on the host: float32
+    stays float32, bool stays bool, integers become int32, as the
+    reference returns them."""
     out, at = {}, 0
     for name, dtype, shape in metas:
         n = int(np.prod(shape, dtype=np.int64))
@@ -102,6 +105,14 @@ def _host_fetch(tree: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         else:
             out[name] = seg
     return out
+
+
+def _host_fetch(tree: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The engine's single device->host copy: ``tree`` packed into one
+    int32 buffer on its device (:func:`pack_int32`), the buffer crosses
+    once, and the host unpacks it."""
+    buf, metas = pack_int32(tree)
+    return unpack_int32(buf.cpu().numpy(), metas)
 
 
 @dataclass
@@ -397,8 +408,19 @@ class HIEngine:
         Requests sample at their own ``temperature`` or, where that is 0,
         the engine's, under per-request keys: sampled outputs equal
         ``serve``'s on the same bucketized traffic with the request ids as
-        seeds.  Not ported, and raising ``NotImplementedError``: ``mesh``
-        (Queue A item 14).
+        seeds.
+
+        ``mesh`` (a ``launch/mesh.Mesh`` with axes ``("data", "model")``)
+        serves on a device mesh, SPMD: every rank of the mesh calls
+        ``serve_stream`` with the same requests on an engine built from
+        the same seed.  The S tier runs ``mesh.shape["data"]`` replicas,
+        one per ``data`` row; the L tier runs tensor parallel over
+        ``model``; escalated prompts cross through the staging buffer, one
+        tick late (``scheduler.py``).  Every rank returns every record.
+        A (1, 1) mesh gives the single-device tokens, statuses and
+        offloads bitwise.  Latency budgets are read from each rank's own
+        clock, so a mesh of more than one rank refuses requests that set
+        one; ``speculative`` with a mesh raises, as in the reference.
 
         Returns per-request result records keyed by request_id."""
         from repro_torch.serving.batcher import AdmissionQueue
@@ -436,6 +458,14 @@ class HIEngine:
             self._stream = (key, sched)
             self.stats["stream_compiles"] += sched.stats["compiles"]
         sched = self._stream[1]
+        if sched.ranks > 1:
+            timed = [r.request_id for r in requests
+                     if r.latency_budget is not None]
+            if timed:
+                raise ValueError(
+                    f"requests {timed} set latency_budget: each rank of a "
+                    f"{sched.ranks}-rank mesh would read its own clock and "
+                    "the ranks' host decisions would part")
         # the engine's totals read this scheduler's counters live (a
         # replaced scheduler's totals fold into the base first)
         self.stats.attach(sched)

@@ -108,7 +108,7 @@ class KVPool:
     def __init__(self, cfg: ModelConfig, num_slots: int, max_context: int,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  dtype=torch.bfloat16, prefix_entries: int = 0,
-                 device="cuda"):
+                 device="cuda", alloc: bool = True):
         if max_context % page_size:
             raise ValueError(f"max_context {max_context} must be a multiple "
                              f"of page_size {page_size}")
@@ -126,6 +126,13 @@ class KVPool:
         if num_pages < 2:
             raise ValueError("need at least one non-null page")
         self.num_pages = num_pages
+        # ``alloc=False`` (mesh serving): this pool is the host-side
+        # allocator of an S replica that another rank runs (free list,
+        # block table, refcounts, prefix index); its buffers are ``meta``
+        # tensors, shapes and dtypes only, which every host-side reader
+        # (gauges, byte counts, check_invariants) is content with
+        if not alloc:
+            device = "meta"
         self.buffers = model_zoo.init_paged_cache(
             cfg, num_slots, num_pages, page_size, dtype, device)
         self.kv_dtype = str(dtype).replace("torch.", "")

@@ -68,7 +68,7 @@ request ends with one record whose ``status`` is in ``faults.STATUSES``;
 an outage releases busy L slots' pages through ``KVPool.free``, and
 ``validate=True`` checks both pools' invariants after every tick.
 Speculative mode has no L queue, so an active schedule there raises, as in
-the reference.  The mesh path is not ported yet (ROADMAP Queue A item 14).
+the reference.
 
 Observability.  :meth:`set_telemetry`, :meth:`set_audit`,
 :meth:`set_watchdog` and :meth:`set_flight_recorder` install the host-side
@@ -85,6 +85,46 @@ launches as the pages.
 
 ``counters.compiles`` counts scheduler builds (the reference counts its one
 AOT compile); the engine reports it as ``stream_compiles``.
+
+The mesh path (``mesh=``, a ``launch/mesh.Mesh`` with axes ``("data",
+"model")``) is the paper's topology at scale, SPMD over
+``torch.distributed``: one process per device, every rank running this
+host loop over the same requests, so that every host decision comes out
+the same on every rank.
+
+* **S tier: R = ``mesh.shape["data"]`` replicas** (the edge devices).
+  Every rank keeps the host runtimes ``S0..S{R-1}``; admission walks them
+  in turn.  Rank (d, m) holds replica d's pool on its device (the others'
+  pools are host-side allocators over ``meta`` buffers, ``alloc=False``)
+  and runs replica d's unchanged tier tick.  Its outputs are then
+  all-gathered over ``data``, so every rank absorbs every replica's.
+* **L tier: tensor parallel over ``model``** (the edge server), the same
+  on every ``data`` row.  It runs the unchanged tier tick on
+  ``sharding/specs.local_config`` with ``shard_params``' slices and a
+  pool of the local kv heads (``paged_cache_specs``' cut), under the
+  ``model`` sub-mesh (``sharding/act.use_mesh``): the row-parallel
+  products all-reduce, the logits all-gather and the MoE FFN takes the
+  expert-parallel dispatch.
+* **Escalation staging.**  Escalated prompts cross through a
+  ``(2, admit_width, S_max)`` int32 device buffer: the tick writes this
+  tick's head-of-queue escalations into one half (the
+  ``transfer_overlap`` phase), and the L admit lane gathers its rows from
+  the other half, written last tick.  The host's L ``admit_tokens`` are
+  zeroed, so the device copy is the one the lane reads.  The +1 tick is
+  the modelled ED->ES hop: an escalation admits only once its staged row
+  is readable (the ``ready`` gate).
+* Still one device->host copy per tick on each rank, through
+  ``engine._host_fetch``.  With ``validate=True`` the fetched tree also
+  carries every rank's checksum of its outputs (all-gathered), and a
+  divergence raises: ranks whose host decisions part would hang the next
+  collective.
+
+A (1, 1) mesh is semantics-free: tokens, statuses and offloads equal the
+single-device path's bitwise, in bf16 and int8.  Speculative mode with a
+mesh, and a mesh without both axes, raise with the reference's messages.
+The reference's third refusal, ``use_kernel`` with ``model > 1``, guards
+a GSPMD limit the port does not have: each rank launches the kernels on
+its own local heads.
 """
 from __future__ import annotations
 
@@ -108,6 +148,8 @@ from repro_torch.serving.faults import (FAIL_LOCAL_THETA, NO_FAULTS,
                                         RetryPolicy)
 from repro_torch.serving.kv_pool import AdmitPlan, KVPool
 from repro_torch.serving.telemetry import SchedCounters, StatsView, Telemetry
+from repro_torch.sharding import act
+from repro_torch.sharding import specs as sharding_specs
 
 # lanes whose ticks each tier counts from its host flags; "prefill" is the
 # admit lane's batched prefill, skipped on ticks whose admissions all
@@ -139,6 +181,14 @@ def _upload(arrays: Dict[str, np.ndarray],
         out[name] = (t.bool() if kind == "b" else
                      t.view(torch.float32) if kind == "f" else t)
     return out
+
+
+def _checksum(packed: torch.Tensor) -> torch.Tensor:
+    """A position-weighted sum of a packed tree's int32 words, on the
+    device (int64: the same wrap on every rank, were it to wrap)."""
+    flat = packed.to(torch.int64)
+    w = torch.arange(1, flat.numel() + 1, device=flat.device)
+    return (flat * w).sum() % (2 ** 31 - 1)
 
 
 def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
@@ -385,7 +435,7 @@ class _TierRuntime:
                  prefix_entries: int = 0, max_prompt_len: int = 0,
                  num_pages: Optional[int] = None, chunk_size: int = 0,
                  chunk_width: int = 2, spec: bool = False, name: str = "S",
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, alloc: bool = True):
         if num_pages is None:
             # sharing headroom: beyond every slot's full context, enough
             # pages to RETAIN prefix_entries full prompts without evicting
@@ -394,7 +444,8 @@ class _TierRuntime:
             num_pages += prefix_entries * (-(-max_prompt_len // page_size))
         self.pool = KVPool(cfg, num_slots, max_context, page_size,
                            num_pages=num_pages, dtype=dtype,
-                           prefix_entries=prefix_entries, device=device)
+                           prefix_entries=prefix_entries, device=device,
+                           alloc=alloc)
         self.sharing = prefix_entries > 0
         self.name = name               # tier label for telemetry tracks
         self.spec = spec
@@ -661,6 +712,10 @@ class ContinuousScheduler:
     the tick's one upload, so a request's tokens do not depend on its slot,
     tick or batch row.  A tier whose slots are all at temperature 0 picks
     greedily and builds no keys.
+
+    ``mesh`` runs the tiers on a ``("data", "model")`` mesh, one rank per
+    device (module docstring): ``srts`` holds the R S-tier replicas,
+    ``mesh_report`` the L tier's cut and replicated leaves.
     """
 
     def __init__(self, s_tier, l_tier, hi: HIConfig, *, max_prompt_len: int,
@@ -687,8 +742,11 @@ class ContinuousScheduler:
                     "pairs S and L slots 1:1, which a replicated S tier "
                     "breaks (the reference's refusal, same precedent as "
                     "speculative + faults)")
-            raise NotImplementedError(
-                "mesh= is not ported: ROADMAP Queue A item 14 (multi-device)")
+            for ax in ("data", "model"):
+                if ax not in mesh.shape:
+                    raise ValueError(
+                        f"serving mesh needs axes ('data', 'model'), got "
+                        f"{tuple(mesh.shape)}")
         if chunk_prefill and chunk_size < 1:
             raise ValueError(f"chunk_size {chunk_size} must be >= 1")
         self.kv_dtype = kv_dtype
@@ -699,6 +757,20 @@ class ContinuousScheduler:
         self.l = l_tier
         self.hi = hi
         self.device = s_tier.params["embed"].device
+        self._mesh = mesh
+        # the L tier as this rank runs it: whole, or its ``model`` shard
+        l_cfg, self._l_params = l_tier.cfg, l_tier.params
+        self._l_mesh, self._l_cut, self.mesh_report = None, frozenset(), None
+        n_rep, self._rep = 1, 0
+        if mesh is not None:
+            n_rep, self._rep = int(mesh.shape["data"]), mesh.coord("data")
+            self._l_mesh = mesh.sub("model")
+            self._l_cut = sharding_specs.cut_kinds(l_tier.cfg, mesh)
+            l_cfg = sharding_specs.local_config(l_tier.cfg, mesh)
+            self._l_params = sharding_specs.shard_params(l_tier.params,
+                                                         l_tier.cfg, mesh)
+            self.mesh_report = sharding_specs.mesh_report(l_tier.params,
+                                                          l_tier.cfg, mesh)
         self.max_prompt_len = max_prompt_len
         self.max_new_tokens = max_new_tokens
         self.decode_block = max(1, decode_block)
@@ -717,14 +789,16 @@ class ContinuousScheduler:
                      else 2 * num_slots) if prefix_sharing else 0
         l_entries = (prefix_entries if prefix_entries is not None
                      else 2 * l_slots) if prefix_sharing else 0
-        self.srt = _TierRuntime(s_tier.cfg, num_slots, max_context, page,
-                                admit_width, self.device,
-                                prefix_entries=s_entries,
-                                max_prompt_len=max_prompt_len,
-                                num_pages=num_pages, chunk_size=self.chunk,
-                                chunk_width=chunk_width, spec=speculative,
-                                name="S", dtype=pool_dtype)
-        self.lrt = _TierRuntime(l_tier.cfg, l_slots, max_context, page,
+        self.srts: List[_TierRuntime] = [
+            _TierRuntime(s_tier.cfg, num_slots, max_context, page,
+                         admit_width, self.device, prefix_entries=s_entries,
+                         max_prompt_len=max_prompt_len, num_pages=num_pages,
+                         chunk_size=self.chunk, chunk_width=chunk_width,
+                         spec=speculative,
+                         name="S" if mesh is None else f"S{r}",
+                         dtype=pool_dtype, alloc=r == self._rep)
+            for r in range(n_rep)]
+        self.lrt = _TierRuntime(l_cfg, l_slots, max_context, page,
                                 admit_width if speculative
                                 else min(admit_width, l_slots), self.device,
                                 prefix_entries=l_entries,
@@ -758,14 +832,39 @@ class ContinuousScheduler:
         self._esc_meta: Dict[int, Escalation] = {}
         self._probe: Optional[int] = None
         self._tick0 = 0
+        # escalation staging (mesh): rid -> row readable this tick (written
+        # last tick), the rows being written this tick, and the buffer
+        self._staged: Dict[int, int] = {}
+        self._staged_next: Dict[int, int] = {}
+        self._stage_wix = 0
+        if mesh is not None:
+            shape = (self.lrt.admit_width, self._admit_s_max)
+            self._stage_tokens = np.zeros(shape, np.int32)
+            self._stage = torch.zeros((2,) + shape, dtype=torch.int32,
+                                      device=self.device)
         roles = ("spec_s", "spec_l") if speculative else ("plain", "plain")
         self._ticks = {
-            key: _tier_tick_fn(tier.cfg, hi.metric, self.decode_block,
+            key: _tier_tick_fn(cfg, hi.metric, self.decode_block,
                                rt.sharing, chunk=self.chunk, role=role)
-            for key, tier, rt, role in (("s", s_tier, self.srt, roles[0]),
-                                        ("l", l_tier, self.lrt, roles[1]))}
+            for key, cfg, rt, role in (("s", s_tier.cfg, self.srt, roles[0]),
+                                       ("l", l_cfg, self.lrt, roles[1]))}
         self.set_default_temperature(temperature)
         self.counters.compiles += 1
+
+    @property
+    def srt(self) -> _TierRuntime:
+        """Replica 0's runtime: THE S runtime off a mesh."""
+        return self.srts[0]
+
+    @property
+    def local_srt(self) -> _TierRuntime:
+        """The S replica this rank runs on its device."""
+        return self.srts[self._rep]
+
+    @property
+    def ranks(self) -> int:
+        """Processes running this host loop together (1 off a mesh)."""
+        return 1 if self._mesh is None else self._mesh.world
 
     def set_faults(self, faults: Optional[FaultSchedule] = None,
                    policy: Optional[RetryPolicy] = None,
@@ -813,7 +912,7 @@ class ContinuousScheduler:
         not set their own (``Request.temperature > 0`` wins): keeps
         ``serve_stream`` consistent with ``serve``'s engine-wide
         temperature."""
-        for rt in (self.srt, self.lrt):
+        for rt in (*self.srts, self.lrt):
             rt.default_temp = float(temperature)
 
     def set_flight_recorder(self, fr) -> None:
@@ -828,32 +927,58 @@ class ContinuousScheduler:
         """Cumulative prefix-cache counters summed over both tiers: hits /
         full_hits / tokens_saved / cow_copies / evictions."""
         agg: Dict[str, int] = {}
-        for rt in (self.srt, self.lrt):
+        for rt in (*self.srts, self.lrt):
             for k, v in rt.pool.stats.items():
                 agg[k] = agg.get(k, 0) + v
         return agg
 
     # -- host loop ----------------------------------------------------------
 
-    def _dispatch(self, theta_t: torch.Tensor) -> Dict[str, Dict]:
+    def _dispatch(self, theta_t: torch.Tensor) -> Dict[str, Any]:
         """Build both tiers' operands, copy them to the device at once, run
         the tier ticks (in speculative mode the L verify takes the S
         draft's device tensors, and the S tier rolls back to L's ``keep``
         on the device), and host-fetch the outputs: the tick's single
-        device->host copy."""
+        device->host copy.
+
+        On a mesh, this rank's S replica's operands upload (every
+        replica's host flags are built: they count its lane ticks and set
+        its chunk schedule), the L admit lane takes its tokens from the
+        staging buffer (its host copy is zeroed), the L tick runs on this
+        rank's ``model`` shard, the S outputs are all-gathered over
+        ``data``, and under ``validate`` every rank's output checksum
+        rides the same fetch.  Returns {"s": each replica's S outputs, in
+        replica order, "l": the L outputs}; speculative mode (no mesh)
+        returns the S tier's outputs as such."""
         from repro_torch.serving import engine as engine_mod  # _host_fetch
 
-        tel = self.tel
-        tiers = (("s", self.srt, self.s), ("l", self.lrt, self.l))
-        host_in, flags = {}, {}
-        for key, rt, _ in tiers:
-            arrays, flags[key] = rt.tick_inputs(self._admit_s_max)
-            host_in.update({f"{key}.{k}": v for k, v in arrays.items()})
+        tel, mesh = self.tel, self._mesh
+        host_in, s_flags = {}, []
+        for r, rt in enumerate(self.srts):
+            arrays, flags = rt.tick_inputs(self._admit_s_max)
+            s_flags.append(flags)
+            if r == self._rep:
+                host_in.update({f"s.{k}": v for k, v in arrays.items()})
+        arrays, l_flags = self.lrt.tick_inputs(self._admit_s_max)
+        if mesh is not None:
+            arrays["admit_tokens"] = np.zeros_like(arrays["admit_tokens"])
+            host_in.update(self._stage_rows())
+        host_in.update({f"l.{k}": v for k, v in arrays.items()})
         dev_in = _upload(host_in, self.device)
         tins = {key: {k[2:]: v for k, v in dev_in.items()
-                      if k.startswith(key + ".")} for key, _, _ in tiers}
+                      if k.startswith(key + ".")} for key in ("s", "l", "t")}
+        flags = {"s": s_flags[self._rep], "l": l_flags}
         if tel is not None:
             tel.mark("build_operands")
+        if mesh is not None:
+            # tick top: this tick's escalations into the write half; the
+            # admit lane reads the other half, written last tick
+            wix = self._stage_wix
+            self._stage[wix] = tins["t"]["tokens"]
+            tins["l"]["admit_tokens"] = self._stage[1 - wix][
+                tins["t"]["row"].long()]
+            if tel is not None:
+                tel.mark("transfer_overlap")
         outs = {"s": {}, "l": {}}
         if self.speculative:
             s_out, ext = self._ticks["s"](self.s.params, theta_t, tins["s"],
@@ -872,30 +997,91 @@ class ContinuousScheduler:
                 model_zoo.restore_stage(cfg, self.srt.pool.buffers, sel,
                                         tins["s"]["draft_live"])
         else:
-            for key, rt, tier in tiers:
-                outs[key] = self._ticks[key](tier.params, theta_t, tins[key],
-                                             flags[key], rt.pool)
+            outs["s"] = self._ticks["s"](self.s.params, theta_t, tins["s"],
+                                         flags["s"], self.local_srt.pool)
+            with act.use_mesh(self._l_mesh, self._l_cut):
+                outs["l"] = self._ticks["l"](self._l_params, theta_t,
+                                             tins["l"], flags["l"],
+                                             self.lrt.pool)
+        if mesh is None:
+            tree = {f"s.{k}": v for k, v in outs["s"].items()}
+        else:
+            packed, metas = engine_mod.pack_int32(outs["s"])
+            tree = {"s": act.all_gather_dim(packed[None], mesh.group("data"),
+                                            0)}
+        tree.update({f"l.{k}": v for k, v in outs["l"].items()})
+        if mesh is not None and self.validate:
+            words = engine_mod.pack_int32(tree)[0]
+            tree["check"] = act.all_gather_dim(_checksum(words)[None], None,
+                                               0)
         if tel is not None:
             tel.mark("dispatch")
-        fetched = engine_mod._host_fetch(
-            {f"{key}.{k}": v for key in outs for k, v in outs[key].items()})
+        fetched = engine_mod._host_fetch(tree)
         if tel is not None:
             tel.mark("host_fetch")
         self.counters.ticks += 1
-        host = {"s": {}, "l": {}}
-        for k, v in fetched.items():
-            host[k[0]][k[2:]] = v
+        host = {"l": {k[2:]: v for k, v in fetched.items()
+                      if k.startswith("l.")}}
+        if mesh is None:
+            s_host = {k[2:]: v for k, v in fetched.items()
+                      if k.startswith("s.")}
+            host["s"] = s_host if self.speculative else [s_host]
+            return host
+        self._staged = self._staged_next     # the write half turns readable
+        if "check" in fetched and (fetched["check"] != fetched["check"][0]
+                                   ).any():
+            raise RuntimeError(
+                f"mesh ranks diverged at tick {self.counters.ticks - 1}: "
+                f"output checksums {fetched['check'].tolist()} differ, so "
+                "the ranks' host decisions parted")
+        host["s"] = [engine_mod.unpack_int32(row, metas)
+                     for row in fetched["s"]]
         return host
+
+    def _prepare_stage(self, l_queue, cur: int) -> None:
+        """Stage up to ``lrt.admit_width`` head-of-queue escalations for
+        the NEXT tick's L admit lane: their padded prompt tokens go into
+        the staging buffer's write half in this tick's dispatch.  An
+        escalation is staged again every tick until admitted (its row may
+        move); the host keeps rid -> row for the ``ready`` gate."""
+        t_rows, s_max = self._stage_tokens.shape
+        tokens = np.zeros((t_rows, s_max), np.int32)
+        nxt: Dict[int, int] = {}
+        for i, adm in enumerate(l_queue):
+            if i >= t_rows:
+                break
+            n = min(adm.bucket, s_max)
+            tokens[i, :n] = adm.tokens[:n]
+            nxt[adm.request.request_id] = i
+        self._stage_tokens = tokens
+        self._staged_next = nxt
+        self._stage_wix = cur % 2
+
+    def _stage_rows(self) -> Dict[str, np.ndarray]:
+        """The staging operands of a mesh tick: the rows written at tick
+        top, and for each L admission the row it was staged in last tick
+        (the ``ready`` gate ensures it was)."""
+        rows = np.zeros((self.lrt.admit_width,), np.int32)
+        for row, slot in enumerate(self.lrt.admitted):
+            rid = self.lrt.slot_req[slot].adm.request.request_id
+            rows[row] = self._staged[rid]
+        return {"t.tokens": self._stage_tokens, "t.row": rows}
 
     def _gauges(self, l_queue_len: int = 0) -> Dict[str, float]:
         """Per-tick telemetry gauges: host state the scheduler already
         holds, so sampling moves nothing on the device."""
         g: Dict[str, float] = {}
-        for rt in (self.srt, self.lrt):
+        for rt in (*self.srts, self.lrt):
             for k, v in rt.pool.gauges().items():
                 g[f"{k}@{rt.name}"] = v
             g[f"busy_slots@{rt.name}"] = rt.busy
         g["l_queue_depth"] = l_queue_len
+        if self._mesh is not None:
+            # the staging buffer: rows readable this tick, the write half,
+            # and the S replica count
+            g["stage_occupancy"] = len(self._staged)
+            g["stage_wix"] = self._stage_wix
+            g["replicas"] = len(self.srts)
         if self._link is not None:
             g["esc_in_flight"] = self._link.pending
         if self._breaker is not None:
@@ -947,8 +1133,8 @@ class ContinuousScheduler:
         if not self.validate:
             return
         try:
-            self.srt.pool.check_invariants()
-            self.lrt.pool.check_invariants()
+            for rt in (*self.srts, self.lrt):
+                rt.pool.check_invariants()
         except AssertionError as e:
             if self.fr is not None:
                 self.fr.trigger("invariant_failure", cur, {"error": str(e)})
@@ -1007,10 +1193,15 @@ class ContinuousScheduler:
         self._esc_meta = {}
         self._probe = None
         self._opens_seen = 0
+        # the staging pipeline re-anchors per run: no half of an earlier
+        # run's buffer is readable
+        self._staged, self._staged_next = {}, {}
+        ready = None if self._mesh is None else \
+            (lambda adm: adm.request.request_id in self._staged)
         stall, idle = self._stall_limit(), 0
         l_queue: deque = deque()
-        while (len(queue) or l_queue or self.srt.busy or self.lrt.busy
-               or self._link.pending):
+        while (len(queue) or l_queue or any(rt.busy for rt in self.srts)
+               or self.lrt.busy or self._link.pending):
             if tel is not None:
                 tel.begin_tick(self.counters.ticks)
             cur = self.counters.ticks - self._tick0
@@ -1020,12 +1211,19 @@ class ContinuousScheduler:
             elif state == CircuitBreaker.CLOSED:
                 self._probe = None
             self._fault_tick(cur, l_queue, results)
-            self._try_admit(self.srt, queue,
-                            on_give_up=lambda adm: self._reject(adm, results))
+            for rt in self.srts:
+                self._try_admit(rt, queue,
+                                on_give_up=lambda adm: self._reject(adm,
+                                                                    results))
             self._drop_expired(l_queue, results, cur)
+            # on a mesh, an escalation admits once its staged row is
+            # readable: the +1 tick is the modelled ED->ES hop
             self._try_admit(self.lrt, l_queue, limit=self._l_admit_limit(cur),
                             on_give_up=lambda adm: self._l_give_up(adm, cur,
-                                                                   results))
+                                                                   results),
+                            ready=ready)
+            if self._mesh is not None:
+                self._prepare_stage(l_queue, cur)
             for slot in range(self.lrt.num_slots):
                 rec = self.lrt.slot_req[slot]
                 if rec is None:
@@ -1038,12 +1236,12 @@ class ContinuousScheduler:
                         self._probe = esc.rid
             if tel is not None:
                 tel.mark("fault_tick")   # fault machinery + admission
-            s_busy = self.srt.busy
+            s_busy = any(rt.busy for rt in self.srts)
             if not (len(queue) or l_queue or s_busy or self.lrt.busy
                     or self._link.pending):
                 break                  # everything left resolved host-side
-            if s_busy or self.lrt.busy or self.srt.admitted \
-                    or self.lrt.admitted:
+            if s_busy or self.lrt.busy or self.lrt.admitted \
+                    or any(rt.admitted for rt in self.srts):
                 idle = 0
             else:
                 # a pure timer tick: backoff / cooldown / fault window /
@@ -1063,8 +1261,9 @@ class ContinuousScheduler:
             open_now = self._breaker.state == CircuitBreaker.OPEN
             self._eff_theta = FAIL_LOCAL_THETA if open_now else theta
             host = self._dispatch(theta_fail_t if open_now else theta_t)
-            self._absorb(self.srt, host["s"],
-                         lambda rec: self._finish_s(rec, theta, results))
+            for rt, out in zip(self.srts, host["s"]):
+                self._absorb(rt, out,
+                             lambda rec: self._finish_s(rec, theta, results))
             self._absorb(self.lrt, host["l"],
                          lambda rec: self._finish_l(rec, results))
             self._check_pools(cur)
@@ -1211,12 +1410,14 @@ class ContinuousScheduler:
     # -- admission / completion -------------------------------------------
 
     def _try_admit(self, rt: _TierRuntime, queue, limit: Optional[int] = None,
-                   on_give_up=None) -> None:
+                   on_give_up=None, ready=None) -> None:
         """Admit up to ``admit_width`` queued requests into free slots.
         ``queue`` is the AdmissionQueue (S tier) or the escalation deque
         (L tier).  ``limit`` caps this tick's admissions (0 = the L tier is
-        paused; 1 = the half-open probe).  A request that keeps failing
-        admission goes to ``on_give_up`` after
+        paused; 1 = the half-open probe).  ``ready`` (mesh) gates on the
+        staging pipeline: admission stops at the first head entry whose
+        tokens are not yet readable from the staging buffer.  A request
+        that keeps failing admission goes to ``on_give_up`` after
         ``RetryPolicy.admit_retry_limit`` fruitless ticks."""
         rt.admitted = []
         rt.plans = []
@@ -1227,6 +1428,8 @@ class ContinuousScheduler:
         admitted = 0
         while admitted < cap and len(queue):
             if rt.free_slot() is None:
+                break
+            if ready is not None and not ready(queue[0]):
                 break
             adm = queue.popleft()
             steps = min(adm.request.max_new_tokens, self.max_new_tokens)

@@ -45,10 +45,11 @@ from collections.abc import MutableMapping
 from dataclasses import dataclass, field, fields
 from typing import Any, Dict, List, Optional, Tuple
 
-# Tick-phase wall-time buckets, in intra-tick order.  ``transfer_overlap``
-# is the reference's mesh-mode escalation staging (ROADMAP Queue A item
-# 14); the port's single-device tick never marks it, and it stays in the
-# list so that the Prometheus families keep the reference's keys.
+# Tick-phase wall-time buckets, in the reference's intra-tick order.
+# ``transfer_overlap`` is the mesh tick's escalation staging (the staging
+# write and the L admit lane's gather, ``scheduler._dispatch``), which
+# the port marks just after ``build_operands``: both ride in the tick's one
+# upload.  The single-device tick never marks it.
 PHASES = ("fault_tick", "transfer_overlap", "build_operands", "dispatch",
           "host_fetch", "postprocess")
 

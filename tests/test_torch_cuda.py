@@ -1882,3 +1882,70 @@ def test_cnn_train_step_on_card_matches_cpu(gen):
                                atol=0)
     for a, b in zip(_leaves(out["cuda"][1]), _leaves(out["cpu"][1])):
         assert float((a - b).abs().max()) <= 2 * 2e-3
+
+
+# ---------------------------------------------------------------------------
+# the (1, 1) mesh on the card: a world-size-1 NCCL group
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_debug_mesh_stream_on_card_equals_single_device(gen, kv):
+    """Reduced qwen2 through ``serve_stream(mesh=make_serving_mesh(1, 1))``
+    on the card (NCCL): tokens, statuses and offloads bitwise the
+    single-device run's, one host fetch per tick, clean pools."""
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.batcher import Request
+    from repro_torch.serving.engine import build_engine
+    cfg = ARCHS["qwen2-1.5b"].reduced()
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, 8).astype(np.int32),
+                    max_new_tokens=4) for i in range(6)]
+    kw = dict(buckets=(8,), num_slots=2, page_size=8, kv_dtype=kv,
+              validate=True)
+
+    def engine(theta):
+        return build_engine(cfg, HIConfig(theta=theta, capacity_factor=1.0),
+                            max_new_tokens=4, cache_len=32)
+
+    first = engine(0.5).serve_stream(reqs, **kw)
+    theta = float(np.float32(np.median([r["confidence"]
+                                        for r in first.values()])))
+    ref = engine(theta).serve_stream(reqs, **kw)
+    fetches = []
+    real = engine_mod._host_fetch
+    engine_mod._host_fetch = lambda tree: (fetches.append(1), real(tree))[1]
+    try:
+        e = engine(theta)
+        out = e.serve_stream(reqs, mesh=make_serving_mesh(1, 1), **kw)
+    finally:
+        engine_mod._host_fetch = real
+    assert len(fetches) == e.stats["stream_ticks"] > 0
+    for rid, a in ref.items():
+        assert np.array_equal(a["tokens"], out[rid]["tokens"]), rid
+        assert a["status"] == out[rid]["status"]
+        assert a["offloaded"] == out[rid]["offloaded"]
+    sched = e._stream[1]
+    for rt in (*sched.srts, sched.lrt):
+        rt.pool.check_invariants()
+        assert not rt.pool.held_slots
+
+
+@pytest.mark.parametrize("capacity", [2.0, 0.5])
+def test_moe_ffn_sharded_on_card_equals_moe_ffn(gen, capacity):
+    """The expert-parallel dispatch on the (1, 1) NCCL mesh: the same
+    outputs, aux and dropped pairs as ``moe_ffn``, bit for bit."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import model_zoo, moe
+    from repro_torch.models.transformer import layer_params
+    cfg = ARCHS["deepseek-moe-16b"].reduced()
+    params = model_zoo.init_params(gen, cfg)
+    lp = layer_params(params["layers"], 0)
+    x = torch.randn((4, 8, cfg.d_model), generator=gen, device="cuda")
+    y0, aux0 = moe.moe_ffn(lp, cfg, x, capacity)
+    y1, aux1 = moe.moe_ffn_sharded(lp, cfg, x, capacity,
+                                   make_serving_mesh(1, 1))
+    assert torch.equal(y0, y1) and torch.equal(aux0, aux1)

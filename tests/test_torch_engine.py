@@ -37,6 +37,17 @@ LOGIT_TOL = 5e-3
 CONF_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the reduced models' small ops run about
+    as fast on it, and the suite's other workers keep their cores (the
+    thread count is restored afterwards)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _batch(vocab, n_req=6, batch=8, seed=0):
     """6 requests in a batch of 8: the two padded rows carry identical
     prompts, hence identical confidences, and tie in the router."""

@@ -23,6 +23,7 @@ built from its own package:
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs.base import HIConfig as JHIConfig
 from repro.configs.registry import ARCHS as JAX_ARCHS
@@ -49,6 +50,17 @@ STEPS = 3
 KW = dict(buckets=(8,), num_slots=2, page_size=8)
 HOST_FIELDS = ("status", "escalation_retries", "queue_wait_ticks",
                "esc_created_tick", "served_remote", "dropped", "offloaded")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the reduced models' small ops run about
+    as fast on it, and the suite's other workers keep their cores (the
+    thread count is restored afterwards)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _reqs(n, cls=Request, **kw):

@@ -32,6 +32,7 @@ final scale where steps requantise).
 import jax
 import numpy as np
 import pytest
+import torch
 
 import test_torch_stream as dense_stream
 from repro.configs.base import HIConfig as JHIConfig
@@ -49,6 +50,17 @@ from test_torch_stream import CONF_TOL, TRACES, _assert_stream_equal
 ARCH = "deepseek-moe-16b"
 STEPS = 3
 INT8_CONF_TOL = 2e-3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the reduced models' small ops run about
+    as fast on it, and the suite's other workers keep their cores (the
+    thread count is restored afterwards)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", params=sorted(TRACES))

@@ -29,6 +29,7 @@ import math
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.calibrate import p_histogram
 from repro.serving import audit as jaudit
@@ -58,6 +59,17 @@ STEPS = 3
 CONF_TOL = 5e-4
 KW = dict(buckets=(8, 16), num_slots=3, l_slots=2, page_size=8)
 _STATE = {}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the reduced models' small ops run about
+    as fast on it, and the suite's other workers keep their cores (the
+    thread count is restored afterwards)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _requests(n=7, dropper=True, tclass=False, cls=Request):

@@ -53,6 +53,17 @@ MAX_NEW = 6
 K = 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the reduced models' small ops run about
+    as fast on it, and the suite's other workers keep their cores (the
+    thread count is restored afterwards)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _engine_and_oracle(arch, theta, block=K, max_new=MAX_NEW):
     cfg = ARCHS[arch].reduced()
     hi = HIConfig(theta=theta, capacity_factor=1.0)

@@ -50,6 +50,17 @@ PAGE = 8
 ARCH_NAMES = ["mamba2-370m", "zamba2-2.7b"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the reduced models' small ops run about
+    as fast on it, and the suite's other workers keep their cores (the
+    thread count is restored afterwards)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 

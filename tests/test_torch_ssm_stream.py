@@ -66,6 +66,17 @@ TRACE_KW = dict(buckets=(12, 16, 24), num_slots=3, l_slots=2, page_size=8,
                 decode_block=2, chunk_prefill=True, chunk_size=12)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the reduced models' small ops run about
+    as fast on it, and the suite's other workers keep their cores (the
+    thread count is restored afterwards)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _trace(vocab, seed=0):
     rng = np.random.default_rng(seed)
     base = rng.integers(0, vocab, 10).astype(np.int32)

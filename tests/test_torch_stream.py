@@ -86,6 +86,17 @@ TRACES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the reduced models' small ops run about
+    as fast on it, and the suite's other workers keep their cores (the
+    thread count is restored afterwards)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _to_port(reqs):
     return [Request(r.request_id, r.prompt, max_new_tokens=r.max_new_tokens)
             for r in reqs]
@@ -526,6 +537,11 @@ def test_no_stale_reads_after_slot_reuse():
     assert reused[1]["confidence"] == fresh[1]["confidence"]
 
 
+class _DataOnlyMesh:
+    """A mesh stand-in whose axes lack ``model``."""
+    shape = {"data": 1}
+
+
 @pytest.mark.parametrize("kwargs,exc,match", [
     # the refusals that still stand, each with the reference's message:
     # speculative mode has no L queue for a fault schedule to act on ...
@@ -534,7 +550,8 @@ def test_no_stale_reads_after_slot_reuse():
     # ... also when installed on the scheduler itself
     (dict(speculative=True, set_faults=FaultSchedule(loss_prob=0.5)),
      ValueError, "speculative mode has no L queue"),
-    (dict(mesh=object()), NotImplementedError, "item 14"),
+    # a mesh without both serving axes: the reference's message
+    (dict(mesh=_DataOnlyMesh()), ValueError, "serving mesh needs axes"),
     # speculative acceptance is greedy-only
     (dict(speculative=True, temperature=0.7), NotImplementedError,
      "greedy-only"),
