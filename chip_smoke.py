@@ -179,7 +179,26 @@ Phases (any failure exits non-zero before the last line):
    LML_CIFAR trained on the card to ``tests/test_system.py``'s ordering,
    ``HICascade`` through hi_gate, a checkpoint round trip of both tiers;
    the three training examples at their ``--fast`` settings.
-14. the ``{"kernels": [...]}`` line (launches summed over every main-path
+14. launch — the launch tooling.  The dry run (``launch/dryrun.py``) runs
+   in a subprocess of its own from the build onwards, ``DRYRUN_JOBS``
+   workers at nice 10, and is read last: ``--all --both-meshes`` (every
+   config x shape at 256 and 512 ranks), ``--variant split_cache`` on the
+   sliding-window archs and ``--hi`` over the decode shapes; one line of
+   ok / skipped / errors and seconds per run, any error fails.  Right
+   after phase 3, on an empty card: gemma3-1b at long_500k uncut (26
+   layers, B 1, S 524,288, bf16 caches) decodes one step over the uniform
+   cache and over the split cache built from it (ring slot s holds
+   position p_s): logits within ``SPLIT_LOGIT_TOL``, the drain kernel once
+   a layer a step on each path (counted per path), both caches' bytes
+   and ms a step; the drain
+   kernel against its plain version, SDPA and its bound at the two paths'
+   shapes (nested as ``split_cache`` in its entry).  Then the reference's
+   one-step HI serve (``specs.make_hi_decode_case``) on full-width
+   qwen2-1.5b, decode_32k's length, batch cut to 32: the merged rows equal
+   the tiers' own ``decode_step`` rows bit for bit, the arguments' bytes
+   equal the dry run's, the step no faster than the roofline's largest
+   term; the reckoned peak beside ``max_memory_allocated``'s rise.
+15. the ``{"kernels": [...]}`` line (launches summed over every main-path
    run, each run's counts set to 0 just before it; the int8 bodies listed
    apart as ``name[int8]``), the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
@@ -314,6 +333,31 @@ MOE_LAYER_TOL = 1e-4
 # h2o-danube-3-4b at its published widths and depth: head dim 120 in the
 # three attention kernels; the stream trace's first DANUBE_REQUESTS requests
 DANUBE_ARCH, DANUBE_REQUESTS = "h2o-danube-3-4b", 16
+
+# the launch tooling.  The dry run (``launch/dryrun.py``) in a subprocess
+# of its own, started after the build and read at the end: every
+# (arch x shape x mesh) case at 256 and 512 ranks, then the split-cache
+# decode over the sliding-window archs and the HI case over the decode
+# shapes, DRYRUN_JOBS worker processes at a lower priority than the card's
+# phases (beside them it moved none of their readings beyond the spread
+# between runs; PERF.md, PR 23)
+DRYRUN_JOBS = 4
+# the HI case per arch over the decode shapes.  zamba2-2.7b's S tier
+# (s_variant(4): 13 layers, not a multiple of its shared-attention period
+# 6) cannot be built, in the reference too (ROADMAP Queue C): its run must
+# fail with that error on every case it does not skip, and no other
+HI_REFUSED = {"zamba2-2.7b": "must divide by shared_attn_every"}
+# gemma3-1b's split-cache decode at long_500k, uncut: the uniform cache's
+# rows < SPLIT_POS from a seed, the split cache built from them; logits of
+# the two decodes within SPLIT_LOGIT_TOL (float32 params; the windowed
+# layers' softmax merged in another split order, through 26 layers), ms a
+# step by CUDA events over SPLIT_STEPS steps
+SPLIT_ARCH, SPLIT_POS, SPLIT_STEPS = "gemma3-1b", 524_000, 20
+SPLIT_LOGIT_TOL = 1e-3
+# the reference's one-step HI serve (``specs.make_hi_decode_case``) on
+# full-width qwen2-1.5b at decode_32k's seq_len, the batch cut 128 -> 32
+# (at 128 its arguments alone take ~75 GB): capacity 16
+HI_ARCH, HI_BATCH, HI_STEPS = "qwen2-1.5b", 32, 10
 
 # training on the card.  Reduced, one step per arch, card vs CPU (float32
 # with TF32 off: sums in another order): loss and grad norm within
@@ -646,8 +690,6 @@ def check_decode_attention(gen, shapes=None):
     K, D) over bf16 caches replace the main path's cases.  Returns the
     first case's entry of the kernels line."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention as da
     s = CACHE_LEN
     kpos = torch.arange(s, device="cuda")
     upto = kpos <= DECODE_POS
@@ -658,51 +700,61 @@ def check_decode_attention(gen, shapes=None):
         ("gemma3-1b window 256", 4, 4, 1, 256, window, torch.bfloat16),
         ("L tier, f32 cache", 4, 12, 2, 128, upto, torch.float32),
     ] if shapes is None else [x + (upto, torch.bfloat16) for x in shapes]
-    worst, main = 0.0, None
-    for label, b, h, k, d, valid, dtype in cases:
-        args = _attn_case(gen, b, h, k, d, s, valid, dtype)
-        out_k = da.decode_attention_cuda(*args)
-        out_p = da.decode_attention_plain(*args)
-        torch.cuda.synchronize()
-        err = (out_k - out_p).abs().max().item()
-        if not err <= ATT_ATOL or not bool(torch.isfinite(out_k).all()):
-            raise AssertionError(f"decode_attention {label}: max err {err:.3e}")
-        worst = max(worst, err)
-        n_valid = int(valid.sum())
-        isz = torch.tensor([], dtype=dtype).element_size()
-        nbytes = (b * h * d * 4 * 2 + 2 * b * n_valid * k * d * isz + s)
-        sets = copies(lambda: _attn_case(gen, b, h, k, d, s, valid, dtype),
-                      2 * b * s * k * d * isz)
-        ms = timed(da.decode_attention_cuda, sets, 200)
-        dev_ms = device_ms(da.decode_attention_cuda, sets,
-                           r"decode_attention_(split|combine)_kernel",
-                           launches=2)
-        plain_ms = timed(da.decode_attention_plain, sets, 50)
-        # the library yardstick: one SDPA call on bf16 (B, H, 1, D) queries
-        # over (B, K, S, D) K/V with the same mask; layouts made beforehand
-        lib_sets = [(q.transpose(1, 2).to(dtype), ck.transpose(1, 2).contiguous(),
-                     cv.transpose(1, 2).contiguous(), m[None, None, None, :])
-                    for q, ck, cv, m in sets]
-        lib_ms = timed(lambda q, kk, vv, m: F.scaled_dot_product_attention(
-            q, kk, vv, attn_mask=m, enable_gqa=True), lib_sets, 200)
-        bound_ms, by = bound(nbytes, 4 * b * h * n_valid * d)
-        log(f"  decode_attention {label}: B={b} H={h} K={k} D={d} S={s} "
-            f"valid={n_valid} {str(dtype)[6:]}  max_abs_err {err:.2e} (tol "
-            f"{ATT_ATOL:g})  {ms * 1e3:.1f} us (device {dev_ms * 1e3:.1f} us)"
-            f"  plain {plain_ms * 1e3:.1f} us"
-            f"  sdpa {lib_ms * 1e3:.1f} us  bound {bound_ms * 1e3:.2f} us "
-            f"({by})")
-        if main is None:
-            main = {"name": "decode_attention", "route": "cuda",
-                    "source": "src/repro_torch/csrc/decode_attention.cu",
-                    "replaces": "src/repro/kernels/decode_attention.py:123",
-                    "shape": (f"{label}: q ({b},1,{h},{d}) f32, K/V "
-                              f"({b},{s},{k},{d}) bf16, {n_valid} valid"),
-                    "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": by,
-                    "library_ms": lib_ms}
-    main["max_abs_err"] = worst
+    entries = [drain_case(gen, *case) for case in cases]
+    main = entries[0]
+    main["max_abs_err"] = max(e["max_abs_err"] for e in entries)
     return main
+
+
+def drain_case(gen, label, b, h, k, d, valid, dtype):
+    """One case of the drain kernel against its plain version, over a
+    (B, S, K, D) cache of ``dtype`` with S = ``valid``'s length: the
+    error, CUDA-event and profiler times, the plain version's, one SDPA
+    call's and the bound.  Returns its entry of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    s = valid.shape[0]
+    args = _attn_case(gen, b, h, k, d, s, valid, dtype)
+    out_k = da.decode_attention_cuda(*args)
+    out_p = da.decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    err = (out_k - out_p).abs().max().item()
+    if not err <= ATT_ATOL or not bool(torch.isfinite(out_k).all()):
+        raise AssertionError(f"decode_attention {label}: max err {err:.3e}")
+    n_valid = int(valid.sum())
+    isz = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (b * h * d * 4 * 2 + 2 * b * n_valid * k * d * isz + s)
+    sets = copies(lambda: _attn_case(gen, b, h, k, d, s, valid, dtype),
+                  2 * b * s * k * d * isz)
+    ms = timed(da.decode_attention_cuda, sets, 200)
+    dev_ms = device_ms(da.decode_attention_cuda, sets,
+                       r"decode_attention_(split|combine)_kernel",
+                       launches=2)
+    plain_ms = timed(da.decode_attention_plain, sets, 50)
+    # the library yardstick: one SDPA call on bf16 (B, H, 1, D) queries
+    # over (B, K, S, D) K/V with the same mask; layouts made beforehand
+    lib_sets = [(q.transpose(1, 2).to(dtype),
+                 ck.transpose(1, 2).contiguous(),
+                 cv.transpose(1, 2).contiguous(), m[None, None, None, :])
+                for q, ck, cv, m in sets]
+    lib_ms = timed(lambda q, kk, vv, m: F.scaled_dot_product_attention(
+        q, kk, vv, attn_mask=m, enable_gqa=True), lib_sets, 200)
+    bound_ms, by = bound(nbytes, 4 * b * h * n_valid * d)
+    log(f"  decode_attention {label}: B={b} H={h} K={k} D={d} S={s} "
+        f"valid={n_valid} {str(dtype)[6:]}  max_abs_err {err:.2e} (tol "
+        f"{ATT_ATOL:g})  {ms * 1e3:.1f} us (device {dev_ms * 1e3:.1f} us)"
+        f"  plain {plain_ms * 1e3:.1f} us"
+        f"  sdpa {lib_ms * 1e3:.1f} us  bound {bound_ms * 1e3:.2f} us "
+        f"({by})")
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:123",
+            "shape": (f"{label}: q ({b},1,{h},{d}) f32, K/V "
+                      f"({b},{s},{k},{d}) {str(dtype)[6:]}, {n_valid} valid"),
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": lib_ms}
 
 
 def _paged_case(gen, b, h, k, pages, pos, c, d=128, npg=NPG, plant=False,
@@ -3414,6 +3466,389 @@ def danube_full_width_phase():
 
 
 # ---------------------------------------------------------------------------
+# the launch tooling: the dry run, the split cache, the one-step HI case
+# ---------------------------------------------------------------------------
+
+_DRYRUN_DRIVER = """
+import json, os, signal, sys, time
+# its session (this process and its workers) ends with the script, which
+# sends SIGTERM when it dies (PR_SET_PDEATHSIG)
+signal.signal(signal.SIGTERM, lambda *a: os.killpg(0, signal.SIGKILL))
+from repro_torch.launch import dryrun
+out, runs = sys.argv[1], json.loads(sys.argv[2])
+summary = []
+for i, (name, argv, refused) in enumerate(runs):
+    t0 = time.perf_counter()
+    path = f"{out}/dryrun_{i}.json"
+    try:
+        dryrun.main(argv + ["--out", path])
+    except SystemExit:
+        pass
+    rows = json.load(open(path))
+    summary.append({"run": name, "seconds": time.perf_counter() - t0,
+                    "refused": refused, "rows": rows})
+print("DRYRUN " + json.dumps(summary))
+"""
+
+
+def _dryrun_runs():
+    """(name, argv, the error expected of every case not skipped or None):
+    every case at both meshes (``DRYRUN_JOBS`` workers), the split-cache
+    decode on each sliding-window arch, and the HI case per arch."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import ARCHS
+    decode = [s for s, sh in SHAPES.items() if sh.is_decode]
+    runs = [("all", ["--all", "--both-meshes", "--jobs", str(DRYRUN_JOBS)],
+             None)]
+    runs += [(f"split_cache {a} {s}", ["--arch", a, "--shape", s,
+                                       "--both-meshes", "--variant",
+                                       "split_cache"], None)
+             for a, c in ARCHS.items() if c.sliding_window for s in decode]
+    runs += [(f"hi {a}", ["--arch", a, "--both-meshes", "--hi"],
+              HI_REFUSED.get(a)) for a in ARCHS]
+    return runs
+
+
+def _dryrun_preexec() -> None:
+    """In the dry run's process before it starts: a lower priority, and
+    SIGTERM when this script's process dies (PR_SET_PDEATHSIG)."""
+    import ctypes
+    import os
+    import signal
+    os.nice(10)
+    ctypes.CDLL(None).prctl(1, signal.SIGTERM)
+
+
+class DryRun:
+    """The dry run in a subprocess of its own (``mesh_phase`` starts a
+    one-rank NCCL group in this process, which the fake world must not
+    meet) and its own session, at a lower priority than this process:
+    started at once, read by :meth:`finish`, its every process killed by
+    :meth:`stop` whatever happens."""
+
+    def __init__(self, keep: Path | None):
+        import os
+        import tempfile
+        self._tmp = tempfile.TemporaryDirectory()
+        self.dir = Path(self._tmp.name) if keep is None else keep
+        self.dir.mkdir(parents=True, exist_ok=True)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   OMP_NUM_THREADS="1")
+        self.t0 = time.perf_counter()
+        # output to files: a pipe that nobody reads until the end would
+        # stall the run once full
+        self._out = open(self.dir / "dryrun.out", "w+")
+        self._err = open(self.dir / "dryrun.err", "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _DRYRUN_DRIVER, str(self.dir),
+             json.dumps(_dryrun_runs())], env=env, cwd=str(ROOT),
+            stdout=self._out, stderr=self._err, start_new_session=True,
+            preexec_fn=_dryrun_preexec)
+
+    def finish(self, timeout: float) -> dict:
+        """Wait for the dry run; one line of ok / skipped / errors and
+        seconds per run; raises on any error."""
+        self.proc.wait(timeout=timeout)
+        secs = time.perf_counter() - self.t0
+        self._out.seek(0)
+        self._err.seek(0)
+        out, err = self._out.read(), self._err.read()
+        lines = [ln for ln in out.splitlines() if ln.startswith("DRYRUN ")]
+        if self.proc.returncode != 0 or not lines:
+            raise AssertionError(f"dry run exited {self.proc.returncode}: "
+                                 f"{err[-3000:]}")
+        summary = json.loads(lines[-1][len("DRYRUN "):])
+        n_err = 0
+        for run in summary:
+            status = [r["status"] for r in run["rows"]]
+            refused = run["refused"]
+            note = ""
+            if refused is None:
+                n_err += status.count("error")
+            else:
+                # the known refusal: every case not skipped raises it
+                held = status.count("ok") == 0 and all(
+                    refused in r["error"] for r in run["rows"]
+                    if r["status"] == "error")
+                n_err += 0 if held and "error" in status else 1
+                note = f" (the reference's refusal: {refused!r})"
+            log(f"  dry run {run['run']}: {status.count('ok')} ok, "
+                f"{status.count('skipped')} skipped, "
+                f"{status.count('error')} errors of {len(status)} in "
+                f"{run['seconds']:.1f} s{note}")
+            for r in run["rows"]:
+                if r["status"] == "error" and refused is None:
+                    log(f"    {r['arch']} x {r['shape']} x {r['mesh']}: "
+                        f"{r['error']}")
+        log(f"  dry run: {secs:.1f} s since its start")
+        if n_err:
+            raise AssertionError(f"the dry run reported {n_err} errors")
+        return summary
+
+    def stop(self) -> None:
+        import os
+        import signal
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)   # workers included
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+        self._out.close()
+        self._err.close()
+        self._tmp.cleanup()
+
+
+def _tensors_of(tree):
+    """The tensors of a nested dict or tuple (the host ints left out)."""
+    import torch
+    from repro_torch.tree import leaves
+    return [t for t in leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _same_shapes(real, meta, what):
+    got = [(tuple(t.shape), t.dtype) for t in _tensors_of(real)]
+    want = [(tuple(t.shape), t.dtype) for t in _tensors_of(meta)]
+    if got != want:
+        raise AssertionError(f"{what}: the card's tensors are not the dry "
+                             "run's")
+
+
+def split_cache_phase(gen):
+    """gemma3-1b at its published widths and depth (26 layers, 22 of them
+    windowed at 1,024, 4 global; head dim 256, 4 heads over 1 kv head;
+    vocab 262,144), random float32 params from seed 0, at long_500k uncut
+    (B 1, S 524,288, bf16 caches).  The uniform cache's rows < SPLIT_POS
+    come from a seed; the split cache is built from them (ring slot s
+    holds position p_s, the global stacks their layers' rows).  One decode
+    step each way from SPLIT_POS: the logits agree within
+    SPLIT_LOGIT_TOL, each step launches the drain kernel once a layer,
+    counted on each path from 0; both caches' bytes and ms a step each
+    way.  Then the drain kernel at the two paths' new shapes against its
+    plain version, SDPA and its bound.  Returns (the launches of both
+    paths, the kernels line's cases, each path's drain launches)."""
+    import torch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import model_zoo, transformer
+    cfg = get_arch(SPLIT_ARCH)
+    shape = SHAPES["long_500k"]
+    b, s, p, w = shape.global_batch, shape.seq_len, SPLIT_POS, \
+        cfg.sliding_window
+    torch.cuda.reset_peak_memory_stats()
+    params = model_zoo.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    uni = model_zoo.init_cache(cfg, b, s, torch.bfloat16, "cuda")
+    for key in ("k", "v"):
+        for i in range(cfg.num_layers):
+            uni[key][i, :, :p] = torch.randn(
+                (b, p) + uni[key].shape[3:], generator=gen, device="cuda",
+                dtype=torch.bfloat16)
+    uni["pos"] = p
+    spl = transformer.init_split_cache(cfg, b, s, torch.bfloat16, "cuda")
+    ring = L.ring_positions(p - 1, w, "cuda")      # slot -> position held
+    li = gi = 0
+    for i, local in enumerate(transformer._is_local(cfg)):
+        for key in ("k", "v"):
+            if local:
+                spl[f"local_{key}"][li] = uni[key][i][:, ring]
+            else:
+                spl[f"global_{key}"][gi] = uni[key][i]
+        li, gi = li + local, gi + (not local)
+    spl["pos"] = p
+    nbytes = {name: sum(t.numel() * t.element_size() for k, t in c.items()
+                        if k != "pos") for name, c in (("uniform", uni),
+                                                       ("split", spl))}
+    token = torch.randint(1, cfg.vocab_size, (b, 1), generator=gen,
+                          device="cuda")
+    steps = {"uniform": transformer.decode_step,
+             "split": transformer.decode_step_split}
+    caches = {"uniform": uni, "split": spl}
+    logits, runs, launches = {}, {}, {}
+    with torch.inference_mode():
+        for name, step in steps.items():
+            # each path's launches, counted from 0: one checked step, then
+            # the timed ones (each rewrites row / slot SPLIT_POS with the
+            # same values)
+            cache = caches[name]
+            ops.reset_launch_counts()
+            logits[name], _ = step(params, cfg, token, cache)
+            runs[name] = timed(lambda: step(params, cfg, token, cache), [()],
+                               SPLIT_STEPS, warmup=2)
+            torch.cuda.synchronize()
+            launches[name] = ops.launch_counts()
+        lu, ls = logits["uniform"], logits["split"]
+        err = (lu - ls).abs().max().item()
+        if not (err <= SPLIT_LOGIT_TOL and bool(torch.isfinite(lu).all())):
+            raise AssertionError(f"split cache: logits differ by {err:.3e}")
+    # one launch a layer a step on each path
+    steps_run = 1 + 2 + SPLIT_STEPS
+    for name, counts in launches.items():
+        if counts["decode_attention"] != cfg.num_layers * steps_run:
+            raise AssertionError(f"split cache, {name} path: {counts} "
+                                 f"launches in {steps_run} steps")
+    total = {k: launches["uniform"][k] + launches["split"][k]
+             for k in launches["uniform"]}
+    # the card's own time a step: one CUDA-graph replay of SPLIT_STEPS
+    # steps, no host submission inside (its captures are not launches of
+    # the path: the counts above are the kernels line's)
+    with torch.inference_mode():
+        dev = {name: graph_ms(lambda: step(params, cfg, token,
+                                           caches[name]), [()], SPLIT_STEPS)
+               for name, step in steps.items()}
+    log(f"  {SPLIT_ARCH} long_500k (B {b}, S {s:,}, pos {p:,}): caches "
+        f"{nbytes['uniform'] / 1e9:.2f} GB uniform, {nbytes['split'] / 1e9:.2f}"
+        f" GB split; logits max |diff| {err:.2e} (tol {SPLIT_LOGIT_TOL:g}); "
+        f"{runs['uniform']:.3f} ms a step uniform, {runs['split']:.3f} ms "
+        f"split (CUDA events, {SPLIT_STEPS} steps; device {dev['uniform']:.3f}"
+        f" / {dev['split']:.3f} ms, a CUDA-graph replay); drain launches "
+        f"{launches['uniform']['decode_attention']} uniform, "
+        f"{launches['split']['decode_attention']} split in {steps_run} "
+        f"steps each; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params, uni, spl, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the drain kernel at the two paths' shapes: the global layers over
+    # S = 524,288 (both paths), the uniform cache's windowed layers over
+    # the same S, the split cache's ring over W = 1,024.  A path's launches
+    # are counted, not a shape's: each case names the paths that run it
+    kpos = torch.arange(s, device="cuda")
+    upto = kpos <= p
+    cases = []
+    for label, valid, paths in (
+            ("long_500k global", upto, ["uniform", "split"]),
+            ("long_500k window 1024", upto & (p - kpos < w), ["uniform"]),
+            ("ring of 1024", torch.ones(w, dtype=torch.bool,
+                                        device="cuda"), ["split"])):
+        entry = drain_case(gen, f"{SPLIT_ARCH} {label}", b, cfg.num_heads,
+                           cfg.num_kv_heads, cfg.resolved_head_dim, valid,
+                           torch.bfloat16)
+        entry["paths"] = paths
+        cases.append(entry)
+        torch.cuda.empty_cache()
+    path_launches = {name: counts["decode_attention"]
+                     for name, counts in launches.items()}
+    return total, cases, path_launches
+
+
+def hi_case_phase(gen):
+    """The reference's one-step HI serve (``launch/specs.
+    make_hi_decode_case``) on full-width qwen2-1.5b at decode_32k's seq_len
+    32,768 with the batch cut to HI_BATCH (capacity 16), float32 params
+    and bf16 caches (the port's model code's dtypes), decoding at position
+    32,767.  The case is built in a (1, 1) dry-run world and counted on
+    meta; its arguments are then made on the card from seeds (params by
+    ``init_params``, caches and tokens random) and must have the dry run's
+    shapes, dtypes and bytes.  One step on the card: the merged rows equal
+    the S tier's logits where not served remote and the L tier's where
+    served, from separate ``decode_step`` calls on copies of the caches,
+    bit for bit; the drain kernel launched once per layer of both tiers;
+    the step no faster than the roofline's largest term.  Returns the
+    launches."""
+    import torch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import router
+    from repro_torch.core.confidence import confidence
+    from repro_torch.kernels import ops
+    from repro_torch.launch import counting
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import dryrun_world, make_serving_mesh
+    from repro_torch.models import model_zoo
+    cfg = get_arch(HI_ARCH)
+    s_cfg = cfg.s_variant(4)
+    shape = dataclasses.replace(SHAPES["decode_32k"], global_batch=HI_BATCH)
+    theta = 0.607
+    with dryrun_world(1):
+        fn, args, _, _ = specs.make_hi_decode_case(
+            cfg, shape, make_serving_mesh(1, 1, device="cpu"), theta=theta,
+            dtype=torch.float32)
+        _, counts = counting.count(fn, args)
+    roof = rl.Roofline(HI_ARCH, shape.name, "(1, 1)", 1, counts.flops,
+                       counts.dot_bytes, sum(counts.collectives.values()),
+                       flop_per_s=rl.peak_flops(torch.float32))
+    cap = args[4]["k"].shape[1]
+
+    def cache(meta):
+        return {k: (v if k == "pos" else torch.randn(
+            v.shape, generator=gen, device="cuda", dtype=v.dtype))
+            for k, v in meta.items()}
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    real = (model_zoo.init_params(
+                torch.Generator(device="cuda").manual_seed(0), s_cfg),
+            model_zoo.init_params(
+                torch.Generator(device="cuda").manual_seed(1), cfg),
+            torch.randint(1, cfg.vocab_size, tuple(args[2].shape),
+                          generator=gen, device="cuda",
+                          dtype=args[2].dtype),
+            cache(args[3]), cache(args[4]))
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - base
+    _same_shapes(real, args, "HI case")
+    stored = sum(t.untyped_storage().nbytes() for t in _tensors_of(real))
+    if stored != counts.argument_bytes:
+        raise AssertionError(f"HI case: the card's arguments take {stored} "
+                             f"bytes, the dry run's {counts.argument_bytes}")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        merged, _, _, served = fn(*real)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - base
+        step = ops.launch_counts()
+        if step["decode_attention"] != s_cfg.num_layers + cfg.num_layers:
+            raise AssertionError(f"HI case: {step} launches in a step")
+        s_params, l_params, token, s_cache, l_cache = real
+        s_ref, _ = model_zoo.decode_step(
+            s_params, s_cfg, token, {k: (v if k == "pos" else v.clone())
+                                     for k, v in s_cache.items()})
+        conf = confidence(s_ref, "max_prob")
+        dec = router.route(conf < theta, conf, cap)
+        l_ref, _ = model_zoo.decode_step(
+            l_params, cfg, token[dec.indices],
+            {k: (v if k == "pos" else v.clone()) for k, v in l_cache.items()})
+        want = s_ref.clone()
+        want[dec.indices[dec.valid]] = l_ref[dec.valid]
+        n_served = int(served.sum())
+        if not (torch.equal(served, dec.served_remote)
+                and torch.equal(merged, want) and 0 < n_served < HI_BATCH):
+            raise AssertionError(
+                f"HI case: merged rows differ from the tiers' ({n_served} "
+                "served remote)")
+        ms = timed(fn, [real], HI_STEPS, warmup=2)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        # the card's own time a step: a CUDA-graph replay (its captures are
+        # not launches of the path)
+        dev_ms = graph_ms(fn, [real], HI_STEPS)
+    if min(ms, dev_ms) / 1e3 < roof.bound_s:
+        raise AssertionError(f"HI case: {ms:.3f} ms a step (device "
+                             f"{dev_ms:.3f}), below the roofline's "
+                             f"{roof.bound_s * 1e3:.3f} ms")
+    log(f"  HI case {HI_ARCH} decode_32k, batch {HI_BATCH}, capacity {cap}: "
+        f"{n_served} served remote, merged rows == the tiers' bit for bit; "
+        f"arguments {stored / 1e9:.3f} GB == the dry run's (allocator "
+        f"{allocated / 1e9:.3f} GB); peak reckoned "
+        f"{counts.peak_bytes / 1e9:.3f} GB, max_memory_allocated rise "
+        f"{rise / 1e9:.3f} GB; {ms:.3f} ms a step (CUDA events, {HI_STEPS} "
+        f"steps; device {dev_ms:.3f} ms, a CUDA-graph replay), roofline "
+        f"{roof.bound_s * 1e3:.3f} ms ({roof.dominant}: c "
+        f"{roof.compute_s * 1e3:.3f} m {roof.memory_s * 1e3:.3f} ms), "
+        f"{roof.bound_s / (ms / 1e3):.3f} of the step, "
+        f"{roof.bound_s / (dev_ms / 1e3):.3f} of its device time")
+    del real, merged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # training on the card
 # ---------------------------------------------------------------------------
 
@@ -3748,6 +4183,8 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=Path, metavar="DIR",
                     help="keep the traced serves' gzipped Chrome traces in "
                          "DIR")
+    ap.add_argument("--dryrun-out", type=Path, metavar="DIR",
+                    help="keep the dry run's JSON rows in DIR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3770,6 +4207,18 @@ def main(argv=None) -> int:
     for ln in info.ptxas:
         log(f"  {ln}")
 
+    log("== dry run (started in a subprocess; read at the end)")
+    dry = DryRun(args.dryrun_out)
+    try:
+        return _phases(args, kind, count, smi, dry)
+    finally:
+        dry.stop()
+
+
+def _phases(args, kind, count, smi, dry) -> int:
+    """Phases 3 onwards (see the module docstring); ``dry`` is the dry
+    run started after the build."""
+    import torch
     log("== kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_hi_gate(gen), check_decode_attention(gen),
@@ -3788,6 +4237,15 @@ def main(argv=None) -> int:
     def add(counts):
         for k, v in counts.items():
             total[k] += v
+
+    # on a card that holds nothing else, before any process group
+    log(f"== split-cache decode ({SPLIT_ARCH} at long_500k, uncut)")
+    split_launches, split_cases, split_paths = split_cache_phase(gen)
+    add(split_launches)
+    log(f"== the one-step HI case ({HI_ARCH}, decode_32k at batch "
+        f"{HI_BATCH})")
+    hi_launches = hi_case_phase(gen)
+    add(hi_launches)
 
     log("== cascade (HICascade over SML_CIFAR / LML_CIFAR, the paper's "
         "replays)")
@@ -3957,6 +4415,9 @@ def main(argv=None) -> int:
             (f"{DANUBE_ARCH} int8", dan_int8,
              ("hi_gate", "decode_attention_paged[int8]",
               "decode_attention_chunk_paged[int8]", "copy_pages[int8]")),
+            (f"{SPLIT_ARCH} split cache", split_launches,
+             ("decode_attention",)),
+            (f"{HI_ARCH} HI case", hi_launches, ("decode_attention",)),
             ("reduced training", train_reduced, ("ssd_chunk",)),
             (f"{SSM_ARCH} training", train_full, ("ssd_chunk",)),
             ("CIFAR cascade after training", cnn_launches, ("hi_gate",)),
@@ -4020,6 +4481,21 @@ def main(argv=None) -> int:
                 {key: v for key, v in case.items()
                  if key not in ("name", "route", "source", "replaces")})
             k["max_abs_err"] = max(k["max_abs_err"], case["max_abs_err"])
+
+    # the drain kernel's cases at the split cache's shapes, with each path's
+    # launches; the HI case's launches
+    drain = kernels[1]
+    drain["split_cache_launches"] = split_paths
+    drain["split_cache"] = [{key: v for key, v in case.items()
+                             if key not in ("name", "route", "source",
+                                            "replaces")}
+                            for case in split_cases]
+    drain["max_abs_err"] = max([drain["max_abs_err"]]
+                               + [c["max_abs_err"] for c in split_cases])
+    drain["hi_case_launches"] = hi_launches["decode_attention"]
+
+    log("== dry run (the subprocess started after the build)")
+    dry.finish(timeout=max(60.0, 1100.0 - (time.perf_counter() - T0)))
 
     import torch.distributed as dist
     if dist.is_initialized():

@@ -4,6 +4,14 @@ On a CPU tensor each op runs its kernel's plain PyTorch version; on a CUDA
 tensor it launches the hand-written kernel or raises.  There is no switch
 that turns the kernels off on the card and no fallback from a failed build
 or launch to the plain version.
+
+On a ``meta`` tensor (the dry run, ``launch/dryrun.py``) an op computes
+shapes only and launches nothing: the plain version runs on the meta
+tensors, except for :func:`decode_attention`, whose plain version upcasts
+the whole cache to float32 and so would count twice the bytes the kernel
+reads.  On meta it is the shape-only op ``repro_torch::decode_attention``,
+which ``launch/counting.py`` counts as the kernel's work: the cache read
+once in its own dtype, 4 x B x H x S x D operations.
 """
 from __future__ import annotations
 
@@ -35,11 +43,27 @@ KERNELS = {"hi_gate": (_hg.hi_gate_cuda, "launches"),
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
+    """True where the op runs its plain version: on the CPU, and on
+    ``meta``, where it computes shapes only."""
+    if t.device.type in ("cpu", "meta"):
         return True
     if t.device.type == "cuda":
         return False
     raise ValueError(f"no kernel for device {t.device}")
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def _decode_attention_shape(q: torch.Tensor, cache_k: torch.Tensor,
+                            cache_v: torch.Tensor,
+                            valid: torch.Tensor) -> torch.Tensor:
+    """The drain kernel's call on ``meta`` tensors: shapes only."""
+    raise ValueError(f"repro_torch::decode_attention is shape-only, got "
+                     f"{q.device}")
+
+
+@_decode_attention_shape.register_fake
+def _(q, cache_k, cache_v, valid):
+    return torch.empty_like(q)
 
 
 def hi_gate(logits: torch.Tensor, theta: Union[float, torch.Tensor],
@@ -59,6 +83,8 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor,
                      valid: torch.Tensor) -> torch.Tensor:
     """Flash decode attention.  q: (B,1,H,D); cache: (B,S,K,D); valid: (S,)."""
+    if q.device.type == "meta":
+        return _decode_attention_shape(q, cache_k, cache_v, valid)
     if _on_cpu(q):
         return _da.decode_attention_plain(q, cache_k, cache_v, valid)
     return _da.decode_attention_cuda(q, cache_k, cache_v, valid)

@@ -28,7 +28,8 @@ The inter-chunk recurrence that consumes S and g stays in plain torch
   :func:`ssd_chunk_ref` from the saved inputs and returns that VJP.  The
   reference has no backward kernel (its trainer differentiates the plain
   maths outside any Pallas call), so the backward is the same maths here;
-  a hand-written backward kernel is queued (ROADMAP A15).
+  a hand-written backward kernel is queued with the kernel work (ROADMAP,
+  open work on the ported kernels).
 """
 from __future__ import annotations
 

@@ -15,12 +15,18 @@ mesh, for which :func:`make_serving_mesh` starts a world-size-1 group on a
 ``HashStore`` itself (no TCP port); larger meshes run on the CPU over
 gloo in the tests.
 
+The dry run (``launch/dryrun.py``) stands in for the reference's 512
+forced host devices with :func:`dryrun_world`: a ``fake`` process group
+of 256 or 512 ranks in this one process, whose collectives return at once
+and whose tensors are ``meta`` tensors, so it needs no card.
+
 Functions, not module-level constants: importing this module touches no
 process group.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import contextlib
+from typing import Dict, Iterator, Tuple
 
 import torch
 import torch.distributed as dist
@@ -126,6 +132,28 @@ def make_debug_mesh(data: int = 1, model: int = 1,
                     device: str = "cuda") -> Mesh:
     """Tiny mesh over however many ranks were started (tests)."""
     return make_serving_mesh(data, model, device)
+
+
+@contextlib.contextmanager
+def dryrun_world(world: int, rank: int = 0) -> Iterator[None]:
+    """A ``fake`` process group of ``world`` ranks, this process as
+    ``rank``, for the block: collectives on it move nothing (the dry run
+    counts their bytes).  On exit the group is destroyed and the meshes
+    made inside the block are forgotten, so a later
+    :func:`make_serving_mesh` starts from no group."""
+    if dist.is_initialized():
+        raise RuntimeError("dry-run world: a process group is already "
+                           "started in this process")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    before = set(_MESHES)
+    try:
+        yield
+    finally:
+        for key in set(_MESHES) - before:
+            del _MESHES[key]
+        dist.destroy_process_group()
 
 
 def make_production_mesh(*, multi_pod: bool = False,

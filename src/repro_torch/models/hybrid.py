@@ -96,15 +96,16 @@ def _group(gp: Params, sp: Params, cfg: ModelConfig,
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            remat: bool = False) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V) float32; ``remat`` checkpoints
-    each group, as the reference does."""
+            remat: bool = False, last_only: bool = False) -> torch.Tensor:
+    """tokens: (B, S) -> logits (B, S, V) float32 ((B, 1, V) with
+    ``last_only``); ``remat`` checkpoints each group, as the reference
+    does."""
     h = params["embed"][tokens]
     group = maybe_remat(_group, remat)
     for gi in range(_num_groups(cfg)):
         h = group(layer_params(params["layers"], gi), params["shared_attn"],
                   cfg, h)
-    return M._head(params, cfg, h)
+    return M._head(params, cfg, h, last_only)
 
 
 # ---------------------------------------------------------------------------

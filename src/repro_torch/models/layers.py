@@ -164,25 +164,40 @@ def decode_valid(seq: int, pos: int, window: Optional[int],
     return valid
 
 
+def ring_positions(pos: int, w: int, device) -> torch.Tensor:
+    """(W,) the position each slot of a W-slot ring holds after position
+    ``pos`` was written: position p lives in slot p % W, so slot s holds
+    ``pos - ((pos - s) mod W)``, negative where nothing was written yet."""
+    return pos - torch.remainder(pos - torch.arange(w, device=device), w)
+
+
 def attention_decode(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: int, *, num_heads: int,
                      num_kv: int, head_dim: int, rope_theta: float,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None,
+                     ring: bool = False) -> torch.Tensor:
     """One-token decode.  x: (B, 1, D); cache_k/v: (B, S, K, Dh) views of
     one layer; pos: the host-side position (every row decodes at the same
     depth in the drained batch, so it is a python int, not a device value).
 
     Writes the new K/V into row ``pos`` of the caches IN PLACE (the
-    reference's ``dynamic_update_slice``) and returns out (B, 1, D)."""
+    reference's ``dynamic_update_slice``) and returns out (B, 1, D).
+    ``ring``: the caches are an S-slot ring of a sliding-window layer
+    (``transformer.decode_step_split``): the row is ``pos % S`` and every
+    slot written so far is visible (RoPE is applied at the absolute
+    position before the write, so reads need no fix-up)."""
     b = x.shape[0]
     q, k, v = _qkv(params, x, num_heads, num_kv, head_dim)
     if rope_theta > 0:
         p1 = torch.full((1,), pos, dtype=torch.int64, device=x.device)
         q = apply_rope(q, p1, rope_theta)
         k = apply_rope(k, p1, rope_theta)
-    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
-    valid = decode_valid(cache_k.shape[1], pos, window, x.device)
+    seq = cache_k.shape[1]
+    row = pos % seq if ring else pos
+    cache_k[:, row] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, row] = v[:, 0].to(cache_v.dtype)
+    valid = (ring_positions(pos, seq, x.device) >= 0 if ring
+             else decode_valid(seq, pos, window, x.device))
     out = ops.decode_attention(q, cache_k, cache_v, valid)
     return act.reduce_model(
         out.reshape(b, 1, num_heads * head_dim) @ params["wo"], "attn")

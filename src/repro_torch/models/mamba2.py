@@ -257,8 +257,11 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> Params:
             "lm_head": _dense(gen, (d, cfg.vocab_size))}
 
 
-def _head(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+def _head(params: Params, cfg: ModelConfig, h: torch.Tensor,
+          last_only: bool = False) -> torch.Tensor:
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    if last_only:
+        h = h[:, -1:]
     return L.lm_logits(h, params["lm_head"])
 
 
@@ -273,14 +276,14 @@ def _layer(lp: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            remat: bool = False) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V) float32; ``remat`` checkpoints
-    each layer."""
+            remat: bool = False, last_only: bool = False) -> torch.Tensor:
+    """tokens: (B, S) -> logits (B, S, V) float32 ((B, 1, V) with
+    ``last_only``); ``remat`` checkpoints each layer."""
     h = params["embed"][tokens]
     layer = maybe_remat(_layer, remat)
     for i in range(cfg.num_layers):
         h = layer(layer_params(params["layers"], i), cfg, h)
-    return _head(params, cfg, h)
+    return _head(params, cfg, h, last_only)
 
 
 def state_rows(cfg: ModelConfig, lead: Tuple[int, ...], rows: int,

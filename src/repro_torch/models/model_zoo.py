@@ -3,11 +3,12 @@ dense decoder (and the VLM's, with its patch prefix), MoE, SSM (mamba2),
 hybrid (zamba2) and enc-dec (whisper).
 
   init_params(gen, cfg)                        -> float32 params dict
-  init_params_spec(cfg)                        -> the same tree on ``meta``
+  init_params_spec(cfg, dtype=float32)         -> the same tree on ``meta``
   cache_spec(cfg, batch, seq_len)              -> init_cache's tree on ``meta``
-  forward(params, cfg, tokens, patches=None, frames=None, remat=False)
-                                               -> logits (B, S, V) float32
-                                                  (VLM: (B, P + S, V))
+  forward(params, cfg, tokens, patches=None, frames=None, remat=False,
+          last_only=False)                     -> logits (B, S, V) float32
+                                                  (VLM: (B, P + S, V);
+                                                  last_only: (B, 1, V))
   loss(params, cfg, batch, remat=False)        -> (scalar, {"nll", "aux"})
   init_cache(cfg, batch, seq_len, dtype, device) -> decode cache dict
   prefill(params, cfg, tokens, cache)          -> (logits (B, V), cache)
@@ -99,11 +100,26 @@ class _MetaGenerator:
     device = torch.device("meta")
 
 
-def init_params_spec(cfg: ModelConfig) -> Params:
-    """``init_params``' tree with the same leaf paths, shapes and dtypes,
-    on the ``meta`` device: the partition rules can be checked on the
-    full-size configs without allocating them."""
-    return init_params(_MetaGenerator(), cfg)
+# leaves that stay float32 whatever the params' dtype, as in the reference
+_FLOAT32_LEAVES = ("A_log", "D", "dt_bias", "router")
+
+
+def _cast(tree: Params, dtype, name: str = ""):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype, k) for k, v in tree.items()}
+    if not tree.is_floating_point() or name in _FLOAT32_LEAVES:
+        return tree
+    return tree.to(dtype)
+
+
+def init_params_spec(cfg: ModelConfig, dtype=torch.float32) -> Params:
+    """``init_params``' tree with the same leaf paths and shapes on the
+    ``meta`` device: the partition rules and the dry run read the
+    full-size configs without allocating them.  Floating leaves take
+    ``dtype`` (``init_params``' float32 by default), but for the SSM
+    decay terms and the MoE router, which stay float32 as in the
+    reference."""
+    return _cast(init_params(_MetaGenerator(), cfg), dtype)
 
 
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
@@ -113,27 +129,32 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
 
 
 def forward_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-                patches=None, frames=None, remat: bool = False):
+                patches=None, frames=None, remat: bool = False,
+                last_only: bool = False):
     """(logits, aux loss): the MoE family's mean router loss, a float32 0
     for every other family."""
+    kw = dict(remat=remat, last_only=last_only)
     if cfg.family == MOE:
-        return moe.forward(params, cfg, tokens, remat=remat)
+        return moe.forward(params, cfg, tokens, **kw)
     if cfg.family == VLM:
         logits = transformer.forward(params, cfg, tokens,
-                                     patch_embeds=patches, remat=remat)
+                                     patch_embeds=patches, **kw)
     elif cfg.family == ENCDEC:
-        logits = whisper.forward(params, cfg, frames, tokens, remat=remat)
+        logits = whisper.forward(params, cfg, frames, tokens, **kw)
     else:
-        logits = _module(cfg).forward(params, cfg, tokens, remat=remat)
+        logits = _module(cfg).forward(params, cfg, tokens, **kw)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            patches=None, frames=None, remat: bool = False) -> torch.Tensor:
+            patches=None, frames=None, remat: bool = False,
+            last_only: bool = False) -> torch.Tensor:
     """Logits (B, S, V) float32: (B, P + S, V) for the VLM with ``patches``
-    (B, P, D); the enc-dec family takes ``frames`` (B, F, D)."""
+    (B, P, D); the enc-dec family takes ``frames`` (B, F, D).
+    ``last_only`` projects the last position only (the prefill serving
+    path): (B, 1, V)."""
     return forward_aux(params, cfg, tokens, patches=patches, frames=frames,
-                       remat=remat)[0]
+                       remat=remat, last_only=last_only)[0]
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -311,10 +311,11 @@ def _block(lp: Params, cfg: ModelConfig, x: torch.Tensor, win: int,
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            capacity_factor: float = FORWARD_CAPACITY, remat: bool = False
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            capacity_factor: float = FORWARD_CAPACITY, remat: bool = False,
+            last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V) float32, mean aux loss);
-    ``remat`` checkpoints each layer."""
+    ``remat`` checkpoints each layer; ``last_only`` projects the last
+    position only (logits (B, 1, V))."""
     h = params["embed"][tokens]
     win = tokens.shape[1]
     block = maybe_remat(_block, remat)
@@ -324,6 +325,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                        capacity_factor)
         auxs.append(aux)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    if last_only:
+        h = h[:, -1:]
     return L.lm_logits(h, params["lm_head"]), torch.stack(auxs).mean()
 
 

@@ -123,7 +123,8 @@ def maybe_remat(fn: Callable, remat: bool) -> Callable:
                              use_reentrant=False)
 
 
-def layer_windows(cfg: ModelConfig, seq_len: int) -> List[int]:
+def layer_windows(cfg: ModelConfig,
+                  seq_len: Optional[int]) -> List[Optional[int]]:
     """Per-layer sliding-window sizes; ``seq_len`` means full causal."""
     if cfg.local_global_ratio:
         period = cfg.local_global_ratio + 1
@@ -150,12 +151,14 @@ def _layer(lp: Params, cfg: ModelConfig, h: torch.Tensor,
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             patch_embeds: Optional[torch.Tensor] = None,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, last_only: bool = False) -> torch.Tensor:
     """tokens: (B, S) -> logits (B, S_total, V) float32.
 
     For VLM configs, ``patch_embeds`` (B, P, D) is prepended to the token
     embeddings (the stubbed vision tower's output): S_total = P + S.
-    ``remat`` checkpoints each layer."""
+    ``remat`` checkpoints each layer.  ``last_only`` keeps the last
+    position before the vocab projection (the prefill serving path):
+    logits (B, 1, V)."""
     h = params["embed"][tokens]
     if patch_embeds is not None:
         h = torch.cat([patch_embeds.to(h.dtype), h], dim=1)
@@ -163,6 +166,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     for i, win in enumerate(layer_windows(cfg, h.shape[1])):
         h = layer(layer_params(params["layers"], i), cfg, h, win)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    if last_only:
+        h = h[:, -1:]
     return L.lm_logits(h, params["lm_head"])
 
 
@@ -257,25 +262,103 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return logits, {"k": cache["k"], "v": cache["v"], "pos": s}
 
 
+def _uniform_kv(cfg: ModelConfig, cache: Params) -> List[Tuple]:
+    """(k, v, window, ring) per layer of a uniform cache."""
+    seq = cache["k"].shape[2]
+    return [(cache["k"][i], cache["v"][i], win, False)
+            for i, win in enumerate(layer_windows(cfg, seq))]
+
+
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
-                cache: Params, *, ffn: FFN = dense_ffn
+                cache: Params, *, ffn: FFN = dense_ffn,
+                layer_kv: Callable = _uniform_kv
                 ) -> Tuple[torch.Tensor, Params]:
     """token: (B, 1) -> (logits (B, V) float32, cache advanced by one row).
-    The new K/V rows are written into ``cache`` in place."""
+    The new K/V rows are written into ``cache`` in place.  ``layer_kv``
+    gives each layer's (k, v, window, ring) views of the cache."""
     h = params["embed"][token]
     pos = cache["pos"]
-    seq = cache["k"].shape[2]
-    for i, win in enumerate(layer_windows(cfg, seq)):
+    for i, (ck, cv, win, ring) in enumerate(layer_kv(cfg, cache)):
         lp = layer_params(params["layers"], i)
         h = h + L.attention_decode(
-            lp["attn"], L.rmsnorm(lp["ln1"], h, cfg.norm_eps),
-            cache["k"][i], cache["v"][i], pos, num_heads=cfg.num_heads,
-            num_kv=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-            rope_theta=cfg.rope_theta, window=win)
+            lp["attn"], L.rmsnorm(lp["ln1"], h, cfg.norm_eps), ck, cv, pos,
+            num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+            window=win, ring=ring)
         h = h + ffn(lp, cfg, L.rmsnorm(lp["ln2"], h, cfg.norm_eps))
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = L.lm_logits(h[:, 0, :], params["lm_head"])
-    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    return logits, dict(cache, pos=pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# split-cache decode: ring buffers for sliding-window layers
+# ---------------------------------------------------------------------------
+#
+# The uniform cache allocates the full sequence for every layer, but a local
+# (sliding-window) layer only ever reads the last W positions.  For gemma3's
+# 5:1 pattern at 500k that wastes ~80% of the cache's memory.  The split
+# cache keeps an (n_local, B, W, K, Dh) ring for the local layers and full
+# (n_global, B, S, K, Dh) stacks for the global ones only.  Position p of a
+# local layer lives in ring slot p % W (``layers.ring_positions``).
+
+def _is_local(cfg: ModelConfig) -> List[bool]:
+    """Which layers are sliding-window layers: those with a window at any
+    length (:func:`layer_windows` with no length)."""
+    return [win is not None for win in layer_windows(cfg, None)]
+
+
+def num_local_layers(cfg: ModelConfig) -> int:
+    """The count of sliding-window layers."""
+    return sum(_is_local(cfg))
+
+
+def init_split_cache(cfg: ModelConfig, batch: int, seq_len: int,
+                     dtype=torch.bfloat16, device="cuda") -> Params:
+    """Zeroed ``local_k``/``local_v`` rings (n_local, B, W, K, Dh) and
+    ``global_k``/``global_v`` stacks (n_global, B, S, K, Dh) (zero-size
+    where every layer is local), ``pos`` a host int."""
+    n_local = num_local_layers(cfg)
+    n_global = cfg.num_layers - n_local
+    tail = (cfg.num_kv_heads, cfg.resolved_head_dim)
+    local = (n_local, batch, cfg.sliding_window) + tail
+    glob = (n_global, batch, seq_len) + tail
+    return {"local_k": torch.zeros(local, dtype=dtype, device=device),
+            "local_v": torch.zeros(local, dtype=dtype, device=device),
+            "global_k": torch.zeros(glob, dtype=dtype, device=device),
+            "global_v": torch.zeros(glob, dtype=dtype, device=device),
+            "pos": 0}
+
+
+def split_cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
+                     dtype=torch.bfloat16) -> Params:
+    """:func:`init_split_cache`'s tree on the ``meta`` device."""
+    return init_split_cache(cfg, batch, seq_len, dtype, "meta")
+
+
+def _split_kv(cfg: ModelConfig, cache: Params) -> List[Tuple]:
+    """(k, v, window, ring) per layer of a split cache: local layers read
+    their ring, global ones their stack (full causal)."""
+    taken = {True: 0, False: 0}
+    out = []
+    for local in _is_local(cfg):
+        kind, j = ("local" if local else "global"), taken[local]
+        taken[local] += 1
+        out.append((cache[f"{kind}_k"][j], cache[f"{kind}_v"][j], None,
+                    local))
+    return out
+
+
+def decode_step_split(params: Params, cfg: ModelConfig, token: torch.Tensor,
+                      cache: Params) -> Tuple[torch.Tensor, Params]:
+    """:func:`decode_step` over a split cache (``sliding_window`` > 0): the
+    new K/V rows are written in place (local layers at ring slot
+    ``pos % W``), and every layer's attention is ``ops.decode_attention``,
+    over the ring with the slots written so far visible, or over the
+    global stack up to ``pos``."""
+    if not cfg.sliding_window:
+        raise ValueError("split cache needs a sliding-window arch")
+    return decode_step(params, cfg, token, cache, layer_kv=_split_kv)
 
 
 # ---------------------------------------------------------------------------

@@ -122,9 +122,11 @@ def _dec_layer(lp: Params, cfg: ModelConfig, h: torch.Tensor,
 
 
 def forward(params: Params, cfg: ModelConfig, frames: torch.Tensor,
-            tokens: torch.Tensor, *, remat: bool = False) -> torch.Tensor:
-    """Teacher-forced enc-dec forward -> logits (B, S, V) float32;
-    ``remat`` checkpoints each encoder and decoder layer."""
+            tokens: torch.Tensor, *, remat: bool = False,
+            last_only: bool = False) -> torch.Tensor:
+    """Teacher-forced enc-dec forward -> logits (B, S, V) float32 ((B, 1,
+    V) with ``last_only``); ``remat`` checkpoints each encoder and decoder
+    layer."""
     enc = encode(params, cfg, frames, remat)
     s = tokens.shape[1]
     h = params["embed"][tokens] + \
@@ -133,6 +135,8 @@ def forward(params: Params, cfg: ModelConfig, frames: torch.Tensor,
     for i in range(cfg.num_layers):
         h = layer(layer_params(params["dec_layers"], i), cfg, h, enc)
     h = L.layernorm(params["dec_norm"], h, cfg.norm_eps)
+    if last_only:
+        h = h[:, -1:]
     return (h @ params["lm_head"]).float()
 
 

@@ -1949,3 +1949,62 @@ def test_moe_ffn_sharded_on_card_equals_moe_ffn(gen, capacity):
     y1, aux1 = moe.moe_ffn_sharded(lp, cfg, x, capacity,
                                    make_serving_mesh(1, 1))
     assert torch.equal(y0, y1) and torch.equal(aux0, aux1)
+
+
+@pytest.mark.parametrize("s,mask", [(1024, "ring"), (4096, "window"),
+                                    (8192, "global")])
+def test_drain_kernel_at_head_dim_256(gen, s, mask):
+    """gemma3's split-cache shapes: q (1, 1, 4, 256) over one kv head, a
+    ring whose every slot is written, a 1,024 window ending at the last
+    row, and every row."""
+    q = torch.randn((1, 1, 4, 256), generator=gen, device="cuda")
+    ck = torch.randn((1, s, 1, 256), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    cv = torch.randn((1, s, 1, 256), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    kpos = torch.arange(s, device="cuda")
+    valid = {"ring": kpos >= 0, "window": kpos > s - 1 - 1024,
+             "global": kpos <= s - 1}[mask]
+    before = da.decode_attention_cuda.launches
+    out = ops.decode_attention(q, ck, cv, valid)
+    again = ops.decode_attention(q, ck, cv, valid)
+    torch.cuda.synchronize()
+    assert da.decode_attention_cuda.launches == before + 2
+    torch.testing.assert_close(out, da.decode_attention_plain(q, ck, cv,
+                                                              valid),
+                               atol=ATT_ATOL, rtol=0)
+    assert torch.equal(out, again)
+
+
+def test_decode_step_split_on_card_matches_uniform(gen):
+    """Reduced gemma3-1b (6 layers: five windowed, one global; window 4)
+    over 10 tokens: the split-cache decode against the uniform one on the
+    card (bf16 caches), and the same bits twice."""
+    import dataclasses
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import model_zoo, transformer
+    cfg = dataclasses.replace(ARCHS["gemma3-1b"].reduced(num_layers=6),
+                              sliding_window=4)
+    params = model_zoo.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 10), generator=gen,
+                         device="cuda")
+    runs = []
+    for _ in range(2):
+        uni = model_zoo.init_cache(cfg, 2, 16, torch.bfloat16, "cuda")
+        spl = transformer.init_split_cache(cfg, 2, 16, torch.bfloat16,
+                                           "cuda")
+        before = da.decode_attention_cuda.launches
+        with torch.inference_mode():
+            for t in range(10):
+                lu, uni = transformer.decode_step(params, cfg,
+                                                  toks[:, t:t + 1], uni)
+                ls, spl = transformer.decode_step_split(params, cfg,
+                                                        toks[:, t:t + 1], spl)
+        torch.cuda.synchronize()
+        assert da.decode_attention_cuda.launches == before + 2 * 10 * 6
+        torch.testing.assert_close(ls, lu, atol=2e-3, rtol=2e-3)
+        runs.append((ls, spl))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for key in ("local_k", "local_v", "global_k", "global_v"):
+        assert torch.equal(runs[0][1][key], runs[1][1][key])

@@ -38,7 +38,10 @@ def test_importing_every_module_leaves_jax_out():
             "repro_torch.optim.adamw", "repro_torch.training.trainer",
             "repro_torch.training.cnn_trainer",
             "repro_torch.checkpoint.io", "repro_torch.launch.train",
-            "repro_torch.launch.mesh", "repro_torch.sharding.specs",
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+            "repro_torch.launch.specs", "repro_torch.launch.counting",
+            "repro_torch.launch.roofline", "repro_torch.launch.tier_split",
+            "repro_torch.sharding.specs",
             "repro_torch.sharding.act", "repro_torch.tree"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -3,6 +3,8 @@ reference's Pallas kernels (interpret mode, as tests/test_kernels.py runs
 them), on the same numpy-seeded inputs.  The CUDA kernels themselves are
 held against these plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py)."""
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -156,7 +158,7 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
 def test_kernel_wrappers_refuse_non_cuda_tensors():
     """The CUDA wrappers never fall back: a CPU tensor is refused, and the
     public ops refuse devices that have neither a kernel nor a plain
-    version."""
+    version.  A ``meta`` tensor (the dry run) computes shapes only."""
     x = torch.randn(4, 32)
     with pytest.raises(ValueError, match="CUDA"):
         thg.hi_gate_cuda(x, torch.tensor(0.5))
@@ -165,8 +167,11 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
                                   torch.randn(1, 8, 1, 16),
                                   torch.randn(1, 8, 1, 16),
                                   torch.ones(8, dtype=bool))
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.hi_gate(torch.empty(4, 32, device="meta"), 0.5)
+    conf, _, _ = ops.hi_gate(torch.empty(4, 32, device="meta"), 0.5)
+    assert conf.device.type == "meta" and conf.shape == (4,)
+    xpu = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
+        ops.hi_gate(xpu, 0.5)
 
 
 def test_build_commands_target_sm90a_in_parallel(tmp_path):
