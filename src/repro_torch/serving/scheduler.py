@@ -128,6 +128,7 @@ its own local heads.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 import warnings
 from collections import deque
@@ -153,8 +154,12 @@ from repro_torch.sharding import specs as sharding_specs
 
 # lanes whose ticks each tier counts from its host flags; "prefill" is the
 # admit lane's batched prefill, skipped on ticks whose admissions all
-# restore a whole prompt
+# restore a whole prompt.  Telemetry's lane spans take these names, and
+# ``verify`` for the speculative verify lane (the L tier's ``live`` flag)
+# and the S tier's rollback after it
 LANES = ("cow", "admit", "prefill", "chunk", "live")
+# the lane context while telemetry is off: one shared object, no span
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _upload(arrays: Dict[str, np.ndarray],
@@ -199,7 +204,8 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
     the speculative draft, which also returns its staged states), or, for
     ``role == "spec_l"``, the verify lane over the S tier's drafts.  ``tin``
     holds the tick's device operands, ``flags`` the host values its
-    branches read."""
+    branches read.  With ``tel`` set, each lane that runs is a telemetry
+    lane span of tier ``tier``."""
 
     def conf_of(logits, theta):
         return ops.hi_gate(logits, theta, metric)[0]
@@ -213,16 +219,11 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
         return sampler.sample(sampler.request_keys(seeds, idx), logits, temps)
 
     def admit_and_prefix(params, tin, flags, pool: KVPool):
-        """COW + batched admission prefill + prefix-cache save/restore.
-        Returns the admission logits (A, V)."""
+        """Batched admission prefill + prefix-cache save/restore (after the
+        COW lane).  Returns the admission logits (A, V)."""
         core = pool.buffers
         a = tin["admit_tokens"].shape[0]
         dev = tin["admit_tokens"].device
-        if sharing and flags["any_cow"]:
-            # copy-on-write first: prefill reads and decode appends must see
-            # the private copies
-            model_zoo.cow_pages(cfg, core, flags["cow_src"],
-                                flags["cow_dst"])
         if flags["any_prefill"]:
             logits0, _ = model_zoo.prefill_paged(
                 params, cfg, tin["admit_tokens"], tin["admit_len"],
@@ -323,7 +324,8 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
                 # bonus position to 1.0, which would skew calibration)
                 "match": match, "draft_confs": confs.T}
 
-    def tick(params, theta, tin, flags, pool: KVPool, draft=None):
+    def tick(params, theta, tin, flags, pool: KVPool, draft=None,
+             tel: Optional[Telemetry] = None, tier: str = ""):
         a = tin["admit_tokens"].shape[0]
         n_slots = tin["last_tok"].shape[0]
         dev = tin["last_tok"].device
@@ -332,22 +334,32 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
         last0 = torch.cat([tin["last_tok"].long(),
                            torch.zeros((1,), dtype=torch.int64, device=dev)])
         if flags["any_admit"]:
-            logits0 = admit_and_prefix(params, tin, flags, pool)
-            conf0 = conf_of(logits0, theta)
-            tok0 = pick(logits0, flags, tin["admit_seed"], 0,
-                        tin["admit_temp"])
-            # admitted slots decode their own first tokens in the same tick
-            last0[tin["admit_slot"].long()] = tok0
+            if sharing and flags["any_cow"]:
+                # copy-on-write first: prefill reads and decode appends
+                # must see the private copies
+                with _NO_SPAN if tel is None else tel.lane(tier, "cow"):
+                    model_zoo.cow_pages(cfg, pool.buffers, flags["cow_src"],
+                                        flags["cow_dst"])
+            with _NO_SPAN if tel is None else tel.lane(tier, "admit"):
+                logits0 = admit_and_prefix(params, tin, flags, pool)
+                conf0 = conf_of(logits0, theta)
+                tok0 = pick(logits0, flags, tin["admit_seed"], 0,
+                            tin["admit_temp"])
+                # admitted slots decode their own first tokens in the same
+                # tick
+                last0[tin["admit_slot"].long()] = tok0
         else:
             tok0 = torch.zeros((a,), dtype=torch.int64, device=dev)
             conf0 = torch.zeros((a,), dtype=torch.float32, device=dev)
         out = {"admit_tok": tok0, "admit_conf": conf0}
         if chunk:
-            tok_c, conf_c = chunk_lane(params, theta, tin, flags, pool)
-            if flags["any_chunk"]:
-                fin_slot = torch.where(tin["chunk_fin"], tin["chunk_slot"],
-                                       n_slots)
-                last0[fin_slot.long()] = tok_c
+            with _NO_SPAN if tel is None or not flags["any_chunk"] else \
+                    tel.lane(tier, "chunk"):
+                tok_c, conf_c = chunk_lane(params, theta, tin, flags, pool)
+                if flags["any_chunk"]:
+                    fin_slot = torch.where(tin["chunk_fin"],
+                                           tin["chunk_slot"], n_slots)
+                    last0[fin_slot.long()] = tok_c
             out["chunk_tok"] = tok_c
             out["chunk_conf"] = conf_c
         block = tin["block"]
@@ -355,33 +367,39 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
         wb = tin["draft_wblock"] if chunk else \
             (tin["wblock"] if sharing else None)
         if role == "spec_l":
-            out.update(verify(params, theta, tin, flags, pool, draft, wb))
+            with _NO_SPAN if tel is None or not flags["any_live"] else \
+                    tel.lane(tier, "verify"):
+                out.update(verify(params, theta, tin, flags, pool, draft,
+                                  wb))
             return out
         staged = {}
         if flags["any_live"]:
-            core = pool.buffers
-            pre_d = model_zoo.chunk_stage(cfg, core) if chunk else None
-            last = last0[:n_slots]
-            toks, confs, snaps = [], [], []
-            for kk in range(decode_block):
-                logits, core = model_zoo.decode_step_paged(
-                    params, cfg, last[:, None], tin["pos"] + kk, block, core,
-                    write_block=wb)
-                confs.append(conf_of(logits, theta))
-                last = pick(logits, flags, tin["seeds"], tin["tok_idx"] + kk,
-                            tin["temps"])
-                toks.append(last)
-                if role == "spec_s":
-                    snaps.append(model_zoo.draft_stage(cfg, core, b))
-            if chunk:
-                # slots still mid chunk-prefill took garbage decode steps:
-                # their page writes went to the null page; restore their
-                # recurrent state (none for the dense family) from the copy
-                model_zoo.restore_stage(cfg, core, pre_d, ~tin["draft_live"])
-            out["toks"] = torch.stack(toks)                  # (K, B)
-            out["confs"] = torch.stack(confs)
-            staged = {key: torch.stack([s[key] for s in snaps])
-                      for key in (snaps[0] if snaps else {})}
+            with _NO_SPAN if tel is None else tel.lane(tier, "live"):
+                core = pool.buffers
+                pre_d = model_zoo.chunk_stage(cfg, core) if chunk else None
+                last = last0[:n_slots]
+                toks, confs, snaps = [], [], []
+                for kk in range(decode_block):
+                    logits, core = model_zoo.decode_step_paged(
+                        params, cfg, last[:, None], tin["pos"] + kk, block,
+                        core, write_block=wb)
+                    confs.append(conf_of(logits, theta))
+                    last = pick(logits, flags, tin["seeds"],
+                                tin["tok_idx"] + kk, tin["temps"])
+                    toks.append(last)
+                    if role == "spec_s":
+                        snaps.append(model_zoo.draft_stage(cfg, core, b))
+                if chunk:
+                    # slots still mid chunk-prefill took garbage decode
+                    # steps: their page writes went to the null page;
+                    # restore their recurrent state (none for the dense
+                    # family) from the copy
+                    model_zoo.restore_stage(cfg, core, pre_d,
+                                            ~tin["draft_live"])
+                out["toks"] = torch.stack(toks)              # (K, B)
+                out["confs"] = torch.stack(confs)
+                staged = {key: torch.stack([s[key] for s in snaps])
+                          for key in (snaps[0] if snaps else {})}
         else:
             # no decoding slot this tick (e.g. all still chunk-prefilling)
             out["toks"] = torch.zeros((decode_block, b), dtype=torch.int64,
@@ -469,6 +487,11 @@ class _TierRuntime:
         self.plans: List[AdmitPlan] = []  # aligned admission plans
         # ticks in which each lane ran (host flags), for launch accounting
         self.lane_ticks: Dict[str, int] = dict.fromkeys(LANES, 0)
+        # the chunk lane's fill over the ticks it ran: the real prompt
+        # tokens it fed (its rows' keeps) and the W x C positions it
+        # computed
+        self.chunk_tokens = 0
+        self.chunk_positions = 0
 
     @property
     def busy(self) -> int:
@@ -641,6 +664,9 @@ class _TierRuntime:
             })
             flags["any_chunk"] = bool(ckeep.any())
             flags["chunk_keep"] = ckeep
+            if flags["any_chunk"]:
+                self.chunk_tokens += int(ckeep.sum())
+                self.chunk_positions += w * c
             flags["any_live"] = bool(dlive.any())
         else:
             flags["any_live"] = self.busy > 0
@@ -979,30 +1005,37 @@ class ContinuousScheduler:
                 tins["t"]["row"].long()]
             if tel is not None:
                 tel.mark("transfer_overlap")
+        if tel is not None:
+            tel.begin_dispatch()
         outs = {"s": {}, "l": {}}
+        s_name, l_name = self.local_srt.name, self.lrt.name
         if self.speculative:
             s_out, ext = self._ticks["s"](self.s.params, theta_t, tins["s"],
-                                          flags["s"], self.srt.pool)
+                                          flags["s"], self.srt.pool,
+                                          tel=tel, tier=s_name)
             outs["s"] = s_out
             outs["l"] = self._ticks["l"](self.l.params, theta_t, tins["l"],
                                          flags["l"], self.lrt.pool,
-                                         draft=ext)
+                                         draft=ext, tel=tel, tier=l_name)
             if flags["s"]["any_live"]:
                 # roll the S tier back to the accepted boundary: recurrent
                 # state from the draft's per-step copies (attention state
                 # is positional: the host rewinds pos)
-                cfg = self.s.cfg
-                sel = model_zoo.select_stage(cfg, ext["staged"],
-                                             outs["l"]["keep"])
-                model_zoo.restore_stage(cfg, self.srt.pool.buffers, sel,
-                                        tins["s"]["draft_live"])
+                with _NO_SPAN if tel is None else tel.lane(s_name, "verify"):
+                    cfg = self.s.cfg
+                    sel = model_zoo.select_stage(cfg, ext["staged"],
+                                                 outs["l"]["keep"])
+                    model_zoo.restore_stage(cfg, self.srt.pool.buffers, sel,
+                                            tins["s"]["draft_live"])
         else:
             outs["s"] = self._ticks["s"](self.s.params, theta_t, tins["s"],
-                                         flags["s"], self.local_srt.pool)
+                                         flags["s"], self.local_srt.pool,
+                                         tel=tel, tier=s_name)
             with act.use_mesh(self._l_mesh, self._l_cut):
                 outs["l"] = self._ticks["l"](self._l_params, theta_t,
                                              tins["l"], flags["l"],
-                                             self.lrt.pool)
+                                             self.lrt.pool, tel=tel,
+                                             tier=l_name)
         if mesh is None:
             tree = {f"s.{k}": v for k, v in outs["s"].items()}
         else:
@@ -1239,6 +1272,8 @@ class ContinuousScheduler:
             s_busy = any(rt.busy for rt in self.srts)
             if not (len(queue) or l_queue or s_busy or self.lrt.busy
                     or self._link.pending):
+                if tel is not None:
+                    tel.drop_tick()
                 break                  # everything left resolved host-side
             if s_busy or self.lrt.busy or self.lrt.admitted \
                     or any(rt.admitted for rt in self.srts):
@@ -1534,7 +1569,9 @@ class ContinuousScheduler:
             if self.tel is not None:
                 self.tel.req_chunk(rt.name, slot,
                                    rt.slot_req[slot].adm.request.request_id,
-                                   fed=keep, keep=int(rt.chunk_left[slot]))
+                                   fed=keep, keep=int(rt.chunk_left[slot]),
+                                   tick=self.counters.ticks - 1,
+                                   lane="chunk")
             if fin and emit:
                 rec = rt.slot_req[slot]
                 if self.aud is not None and not rec.done:
@@ -1579,7 +1616,9 @@ class ContinuousScheduler:
             rt.pos[slot] += k_steps
             if self.tel is not None:
                 self.tel.req_decode(rt.name, slot,
-                                    rec.adm.request.request_id, k_steps)
+                                    rec.adm.request.request_id, k_steps,
+                                    tick=self.counters.ticks - 1,
+                                    lane="live")
             if rec.done:
                 finish(rt.release(slot))
 
@@ -1614,10 +1653,13 @@ class ContinuousScheduler:
                 self.counters.escalated_blocks += 1
             rid = rec.adm.request.request_id
             if self.tel is not None:
-                self.tel.req_decode("S", slot, rid, n)
+                tick = self.counters.ticks - 1
+                self.tel.req_decode("S", slot, rid, n, tick=tick,
+                                    lane="live")
                 if esc:
                     self.tel.req_l_verify(slot, rid,
-                                          int(l["accept"][slot]), n)
+                                          int(l["accept"][slot]), n,
+                                          tick=tick, lane="verify")
             if self.aud is not None:
                 # the block-level gate decision, and per emitted position
                 # the verify lane's ground truth (L re-derived every drafted

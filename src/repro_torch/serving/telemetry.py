@@ -27,6 +27,16 @@ disabled (the default) each scheduler hook is one ``is None`` test.
   asynchronous, so this is launch time), ``host_fetch`` (the tick's one
   device->host copy, which absorbs the device time) and ``postprocess``;
   plus the pool, breaker and queue gauges sampled once a tick.
+* **Lane spans** (:class:`LaneSpan`): inside ``dispatch``, one span per
+  lane that each tier's tick runs (``cow``, ``admit``, ``chunk``, ``live``,
+  ``verify``), in :attr:`TickRecord.lanes`, with the host seconds per
+  ``<tier>.<lane>`` in :attr:`Telemetry.lane_time`.  The tick, its
+  ``dispatch`` bracket and each lane also open a
+  ``torch.profiler.record_function`` range (``hi.tick``, ``hi.dispatch``,
+  ``hi.<tier>.<lane>``): under a profiler these are kineto CPU ranges on
+  the device trace's own clock, so a kernel's launching call (by
+  correlation id) and each idle gap of the device fall under the lane the
+  host was in.  Off, no range is opened.
 
 Exporters: :meth:`Telemetry.histogram_summary` (log-bucketed TTFT / TPOT /
 queue-wait / escalation-latency histograms with p50/p95/p99),
@@ -44,6 +54,8 @@ import time
 from collections.abc import MutableMapping
 from dataclasses import dataclass, field, fields
 from typing import Any, Dict, List, Optional, Tuple
+
+from torch.profiler import record_function
 
 # Tick-phase wall-time buckets, in the reference's intra-tick order.
 # ``transfer_overlap`` is the mesh tick's escalation staging (the staging
@@ -319,6 +331,17 @@ class RequestTrace:
 
 
 @dataclass
+class LaneSpan:
+    """One lane of one tier's tick, on the host clock: ``lane`` is a name
+    of ``scheduler.LANES`` or ``verify``, ``tick`` the tick that ran it."""
+    tier: str
+    lane: str
+    t0: float
+    t1: float
+    tick: int
+
+
+@dataclass
 class TickRecord:
     index: int                  # global scheduler tick number
     t0: float
@@ -326,6 +349,31 @@ class TickRecord:
     # ordered (phase, start, end) wall segments within the tick
     segments: List[Tuple[str, float, float]] = field(default_factory=list)
     gauges: Dict[str, float] = field(default_factory=dict)
+    # the lanes that ran, in order, inside the ``dispatch`` segment
+    lanes: List[LaneSpan] = field(default_factory=list)
+
+
+def _open_range(name: str) -> record_function:
+    rf = record_function(name)
+    rf.__enter__()
+    return rf
+
+
+class _Lane:
+    """The context of one lane: its ``hi.<tier>.<lane>`` profiler range
+    inside its host-clock span."""
+    __slots__ = ("tel", "tier", "lane", "t0", "rf")
+
+    def __init__(self, tel: "Telemetry", tier: str, lane: str):
+        self.tel, self.tier, self.lane = tel, tier, lane
+
+    def __enter__(self):
+        self.t0 = _now()
+        self.rf = _open_range(f"hi.{self.tier}.{self.lane}")
+
+    def __exit__(self, *exc):
+        self.rf.__exit__(*exc)
+        self.tel._lane_done(self.tier, self.lane, self.t0, _now())
 
 
 class Telemetry:
@@ -354,7 +402,12 @@ class Telemetry:
         # (t, name, args) instant events (SLO watchdog breaches) — rendered
         # as Chrome ``i`` markers on the scheduler track by trace_export
         self.events: List[Tuple[float, str, Dict[str, Any]]] = []
+        # host seconds per "<tier>.<lane>" over every tick
+        self.lane_time: Dict[str, float] = {}
         self._tick: Optional[TickRecord] = None
+        # the open hi.tick / hi.dispatch profiler ranges
+        self._tick_range: Optional[record_function] = None
+        self._dispatch_range: Optional[record_function] = None
         self._mark_t = 0.0
         # (rid, kind) -> open span awaiting its close
         self._open: Dict[Tuple[int, str], Span] = {}
@@ -364,12 +417,47 @@ class Telemetry:
     # -- tick lifecycle -----------------------------------------------------
 
     def begin_tick(self, index: int) -> None:
+        self._close_ranges()             # of a tick that raised
         t = _now()
         self._tick = TickRecord(index=index, t0=t)
         self._mark_t = t
+        self._tick_range = _open_range("hi.tick")
+
+    def begin_dispatch(self) -> None:
+        """Open the ``hi.dispatch`` profiler range, at the start of the
+        ``dispatch`` segment; ``mark("dispatch")`` closes it."""
+        self._dispatch_range = _open_range("hi.dispatch")
+
+    def lane(self, tier: str, lane: str) -> _Lane:
+        """The context of one lane of ``tier``'s tick: a :class:`LaneSpan`
+        of the in-flight tick and a ``hi.<tier>.<lane>`` profiler range."""
+        return _Lane(self, tier, lane)
+
+    def _lane_done(self, tier: str, lane: str, t0: float, t1: float) -> None:
+        key = f"{tier}.{lane}"
+        self.lane_time[key] = self.lane_time.get(key, 0.0) + (t1 - t0)
+        if self._tick is not None:
+            self._tick.lanes.append(LaneSpan(tier, lane, t0, t1,
+                                             self._tick.index))
+
+    def _close_ranges(self) -> None:
+        for name in ("_dispatch_range", "_tick_range"):
+            rf = getattr(self, name)
+            if rf is not None:
+                rf.__exit__(None, None, None)
+                setattr(self, name, None)
+
+    def drop_tick(self) -> None:
+        """Abandon the in-flight tick unrecorded (the scheduler found
+        nothing left for the device) and close its profiler range."""
+        self._close_ranges()
+        self._tick = None
 
     def mark(self, phase: str) -> None:
         """Close the wall segment since the previous mark under ``phase``."""
+        if phase == "dispatch" and self._dispatch_range is not None:
+            self._dispatch_range.__exit__(None, None, None)
+            self._dispatch_range = None
         t = _now()
         tick = self._tick
         if tick is not None:
@@ -382,6 +470,7 @@ class Telemetry:
         tick = self._tick
         if tick is None:
             return
+        self._close_ranges()
         tick.t1 = _now()
         tick.gauges = gauges
         self.ticks.append(tick)
@@ -453,15 +542,18 @@ class Telemetry:
             self.span_open(rid, "l_verify", "L", slot)
 
     def req_chunk(self, tier: str, slot: int, rid: int, fed: int,
-                  keep: int) -> None:
+                  keep: int, **cause) -> None:
+        """``cause``: the ``tick`` and ``lane`` that ran the chunk."""
         self.span_point(rid, "prefill_chunk", tier, slot,
                         i=self._next_idx(rid, f"{tier}:prefill_chunk"),
-                        fed=fed, keep=keep)
+                        fed=fed, keep=keep, **cause)
 
-    def req_decode(self, tier: str, slot: int, rid: int, steps: int) -> None:
+    def req_decode(self, tier: str, slot: int, rid: int, steps: int,
+                   **cause) -> None:
+        """``cause``: the ``tick`` and ``lane`` that ran the block."""
         self.span_point(rid, "decode_block", tier, slot,
                         j=self._next_idx(rid, f"{tier}:decode_block"),
-                        steps=steps)
+                        steps=steps, **cause)
 
     def req_esc_send(self, rid: int, slot: int, attempt: int) -> None:
         self.span_open(rid, "escalate_attempt", "S", slot, k=attempt)
@@ -477,10 +569,11 @@ class Telemetry:
                         resend_tick=resend_tick)
 
     def req_l_verify(self, slot: int, rid: int, accepted: int,
-                     emitted: int) -> None:
-        """Speculative path: one escalated verify block."""
+                     emitted: int, **cause) -> None:
+        """Speculative path: one escalated verify block (``cause``: the
+        ``tick`` and ``lane`` that ran it)."""
         self.span_point(rid, "l_verify", "L", slot, accepted=accepted,
-                        emitted=emitted)
+                        emitted=emitted, **cause)
 
     def req_l_release(self, rid: int, outcome: str) -> None:
         self.span_close(rid, "l_verify", outcome=outcome)

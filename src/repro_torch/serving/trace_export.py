@@ -6,10 +6,13 @@ The port's copy of the reference's ``serving/trace_export.py``: renders a
 
 * pid 0, the scheduler: one ``X`` event per tick-phase segment, ``C``
   (counter) events for the per-tick gauges (audit aggregates included),
-  and ``i`` markers for watchdog breaches (``cat: "slo"``);
+  and ``i`` markers for watchdog breaches (``cat: "slo"``); the lane spans
+  inside ``dispatch`` on a thread of their own (``<tier>.<lane>``,
+  ``cat: "lane"``, with their tick), when the ticks recorded any;
 * pid 1 (S tier) and pid 2 (L tier): one thread per slot with its request
   spans; ``queued`` and ``escalate_attempt[k]`` on queue / transport
-  tracks;
+  tracks; a ``prefill_chunk[i]`` or ``decode_block[j]`` carries the
+  ``tick`` and ``lane`` that ran it, which name its lane span;
 * each escalation as a flow (``s`` at the S-side attempt, ``f`` at the
   L-side ``l_verify``, ``id`` = request id); terminal statuses as
   ``terminal:<status>`` instant markers.
@@ -24,6 +27,8 @@ from typing import Any, Dict, List
 
 # transport/queue pseudo-slots get a tid far above any real slot index
 _QUEUE_TID = 1000
+# the scheduler's lane-span thread, beside its tick phases (tid 0)
+_LANE_TID = 1
 _TIER_PID = {"S": 1, "L": 2, "": 0}
 
 
@@ -72,6 +77,17 @@ def chrome_trace(tel) -> Dict[str, Any]:
         for k, v in tick.gauges.items():
             ev.append({"ph": "C", "pid": 0, "name": k, "ts": us(tick.t0),
                        "args": {"value": v}})
+
+    # -- lane spans inside dispatch -----------------------------------------
+    lanes = [sp for tick in tel.ticks for sp in getattr(tick, "lanes", ())]
+    if lanes:
+        meta(0, _LANE_TID, "thread_name", "lanes")
+    for sp in lanes:
+        ev.append({"ph": "X", "pid": 0, "tid": _LANE_TID,
+                   "name": f"{sp.tier}.{sp.lane}", "cat": "lane",
+                   "ts": us(sp.t0),
+                   "dur": max(round((sp.t1 - sp.t0) * 1e6, 3), 0.001),
+                   "args": {"tick": sp.tick}})
 
     # -- watchdog / audit instant events ------------------------------------
     for t, name, args in getattr(tel, "events", ()):
