@@ -37,6 +37,8 @@ pool carries ``ks``/``vs`` scale rows, one per physical page and kv head):
                                                    staged)
   cow_pages(cfg, cache, src, dst)              -> cache (copied in place)
   init_prefix_cache(cfg, entries, device)      -> {"logits": (E + 1, V), ...}
+  independent_rows(cfg)                        -> whether a pass's rows are
+                                                  computed apart
 
 and the recurrent-state hooks the scheduler calls for every family
 (``gather_chunk_slots`` ... ``snapshot_restore``, and ``draft_stage`` for
@@ -85,6 +87,14 @@ def _served(cfg: ModelConfig, what: str):
 
 def _recurrent(cfg: ModelConfig) -> bool:
     return cfg.family in _SLOT_AXIS
+
+
+def independent_rows(cfg: ModelConfig) -> bool:
+    """Whether a serving pass computes each batch row on its own, so that
+    dropping rows leaves the others' outputs as they were.  Not for the MoE
+    family: its routed dispatch sizes expert capacity from the pass's token
+    count, and every row's tokens take capacity."""
+    return cfg.family != MOE
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:

@@ -13,7 +13,9 @@ this order:
 3. **chunk lane** (``chunk_prefill``): one ``forward_chunk_paged`` pass over
    a (``chunk_width``, ``chunk_size``) lane that feeds up to W long prompts
    their next C tokens; a slot that consumes its last chunk samples token 0
-   and joins decode in the same tick;
+   and joins decode in the same tick.  The pass runs only the lane's first
+   ``chunk_lane_width`` rows, which hold its live ones, unless the family's
+   rows interact (``model_zoo.independent_rows``);
 4. **decode lane**: ``decode_block`` decode steps for every decoding slot at
    per-slot positions; in speculative mode this is the S tier's DRAFT,
    with a copy of the recurrent rows after every step;
@@ -137,6 +139,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import HIConfig, ModelConfig
 from repro_torch.kernels import ops
@@ -160,6 +163,17 @@ from repro_torch.sharding import specs as sharding_specs
 LANES = ("cow", "admit", "prefill", "chunk", "live")
 # the lane context while telemetry is off: one shared object, no span
 _NO_SPAN = contextlib.nullcontext()
+
+
+def chunk_lane_width(live: int, width: int) -> int:
+    """The rows the chunk lane runs for ``live`` scheduled rows of a
+    ``width``-row lane: the smallest power of two below ``width`` that holds
+    them, else ``width``.  A few fixed widths (1, 2, 4, W for W = 8), so
+    each stays one shape per tier."""
+    n = 1
+    while n < live:
+        n *= 2
+    return n if n < width else width
 
 
 def _upload(arrays: Dict[str, np.ndarray],
@@ -249,29 +263,39 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
         return logits0
 
     def chunk_lane(params, theta, tin, flags, pool: KVPool):
-        """One multi-token pass over the W-row chunk lane.  Returns the
-        sampled token and confidence at each row's last live position
+        """One multi-token pass over the chunk lane's first
+        ``flags["chunk_width"]`` rows, which hold its live rows (views of
+        the tick's upload).  Returns the sampled token and confidence at
+        each row's last live position, zero-padded to the lane's W rows
         (consumed where ``chunk_fin``)."""
         w = tin["chunk_slot"].shape[0]
         dev = tin["chunk_slot"].device
         if not flags["any_chunk"]:
             return (torch.zeros((w,), dtype=torch.int64, device=dev),
                     torch.zeros((w,), dtype=torch.float32, device=dev))
+        n = flags["chunk_width"]
+        lane = {k: tin["chunk_" + k][:n] for k in (
+            "tokens", "pos", "block", "wblock", "slot", "keep", "seed",
+            "temp")}
         core = pool.buffers
-        mini = model_zoo.gather_chunk_slots(cfg, core, tin["chunk_slot"],
-                                            fresh=tin["chunk_pos"] == 0)
+        mini = model_zoo.gather_chunk_slots(cfg, core, lane["slot"],
+                                            fresh=lane["pos"] == 0)
         # with the host's keep counts the recurrent families stage only
         # the boundary each row commits: select_stage(staged, keep)
         logits_c, mini, sel = model_zoo.forward_chunk_paged(
-            params, cfg, tin["chunk_tokens"], tin["chunk_pos"],
-            tin["chunk_block"], mini, write_block=tin["chunk_wblock"],
-            keep=flags["chunk_keep"])
-        model_zoo.scatter_chunk_slots(cfg, core, mini, sel, tin["chunk_slot"])
-        idx = torch.clamp(tin["chunk_keep"].long() - 1, min=0)
-        last = logits_c[torch.arange(w, device=dev), idx]
+            params, cfg, lane["tokens"], lane["pos"], lane["block"], mini,
+            write_block=lane["wblock"], keep=flags["chunk_keep"][:n])
+        model_zoo.scatter_chunk_slots(cfg, core, mini, sel, lane["slot"])
+        idx = torch.clamp(lane["keep"].long() - 1, min=0)
+        last = logits_c[torch.arange(n, device=dev), idx]
         # token 0 of the request, as the admit lane's
-        return (pick(last, flags, tin["chunk_seed"], 0, tin["chunk_temp"]),
-                conf_of(last, theta))
+        tok = pick(last, flags, lane["seed"], 0, lane["temp"])
+        conf = conf_of(last, theta)
+        if n < w:
+            # the fetched tree, the mesh's gather and the fin scatter keep
+            # the lane's (W,) shapes
+            tok, conf = F.pad(tok, (0, w - n)), F.pad(conf, (0, w - n))
+        return tok, conf
 
     def verify(params, theta, tin, flags, pool: KVPool, draft, wb):
         """The fused verify chunk over the S tier's drafts (greedy-only
@@ -488,10 +512,13 @@ class _TierRuntime:
         # ticks in which each lane ran (host flags), for launch accounting
         self.lane_ticks: Dict[str, int] = dict.fromkeys(LANES, 0)
         # the chunk lane's fill over the ticks it ran: the real prompt
-        # tokens it fed (its rows' keeps) and the W x C positions it
-        # computed
+        # tokens it fed (its rows' keeps) and the width x C positions it
+        # computed, and the ticks it ran at each width.  A family whose
+        # rows interact (capacity-bounded routing) runs every tick at W
         self.chunk_tokens = 0
         self.chunk_positions = 0
+        self.chunk_width_ticks: Dict[int, int] = {}
+        self.independent_rows = model_zoo.independent_rows(cfg)
 
     @property
     def busy(self) -> int:
@@ -574,7 +601,8 @@ class _TierRuntime:
         """This tick's operands (numpy, copied to the device by the caller)
         and the host values the tick branches on: ``any_admit``,
         ``any_prefill``, ``any_cow`` with the ``cow_src``/``cow_dst`` pairs,
-        ``any_chunk``, ``any_live`` and ``sampled`` (a slot of this tier
+        ``any_chunk`` with the rows' ``chunk_keep`` and the lane's
+        ``chunk_width``, ``any_live`` and ``sampled`` (a slot of this tier
         samples at temperature > 0).  In speculative mode ``draft_live``
         marks the slots that draft and verify."""
         a = self.admit_width
@@ -662,11 +690,17 @@ class _TierRuntime:
                 "draft_wblock": np.where(dlive[:, None], base,
                                          0).astype(np.int32),
             })
+            # live rows come first: the lane runs a prefix of its rows
+            width = (chunk_lane_width(len(self.chunk_sched), w)
+                     if self.independent_rows else w)
             flags["any_chunk"] = bool(ckeep.any())
             flags["chunk_keep"] = ckeep
+            flags["chunk_width"] = width
             if flags["any_chunk"]:
                 self.chunk_tokens += int(ckeep.sum())
-                self.chunk_positions += w * c
+                self.chunk_positions += width * c
+                self.chunk_width_ticks[width] = \
+                    self.chunk_width_ticks.get(width, 0) + 1
             flags["any_live"] = bool(dlive.any())
         else:
             flags["any_live"] = self.busy > 0

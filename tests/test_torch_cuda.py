@@ -2008,3 +2008,68 @@ def test_decode_step_split_on_card_matches_uniform(gen):
     assert torch.equal(runs[0][0], runs[1][0])
     for key in ("local_k", "local_v", "global_k", "global_v"):
         assert torch.equal(runs[0][1][key], runs[1][1][key])
+
+
+# ---------------------------------------------------------------------------
+# the chunk lane at its live rows' width (``scheduler.chunk_lane_width``)
+# ---------------------------------------------------------------------------
+
+# cuBLAS picks other tiles at another row count, so a row's float32 sums run
+# in another order.  Over bf16 pages a K/V element whose float32 value moves
+# across a bf16 rounding moves by 2^-8 of itself, and the lane's logits by
+# up to 1.8e-3 (NVIDIA H100, the first card reading of this test)
+LANE_LOGIT_ATOL = {"float32": 1e-4, "bfloat16": 5e-3}
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("pages", ["float32", "bfloat16"])
+def test_chunk_lane_width_on_card_matches_the_full_lane(gen, n, pages):
+    """A danube-shaped dense chunk lane (the published widths: d 3,840, 32
+    query heads over 8 kv heads of 120, SwiGLU 10,240, vocab 32,000; 2
+    layers), W = 8 rows of C = 256 over pages of 16, float32 params, TF32
+    off.  Its first ``n`` rows run alone give the logits of the same rows
+    run at W within ``LANE_LOGIT_ATOL``, and the same tokens wherever W's
+    top two logits lie more than twice that apart.  Rows past ``n`` are the
+    lane's padding, as the scheduler builds it: zero tokens over the null
+    page.  Both passes are the rows' second chunk, over the pages the first
+    chunk wrote."""
+    import dataclasses
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import model_zoo
+    from repro_torch.parity import decisive
+    cfg = dataclasses.replace(ARCHS["h2o-danube-3-4b"], num_layers=2)
+    w, c, page = 8, 256, 16
+    npg = 2 * c // page
+    tol = LANE_LOGIT_ATOL[pages]
+    params = model_zoo.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    pools = model_zoo.init_paged_cache(cfg, w, 1 + w * npg, page,
+                                       getattr(torch, pages), "cuda")
+    live = torch.arange(w, device="cuda") < n
+    block = torch.where(
+        live[:, None],
+        1 + torch.arange(w * npg, device="cuda").view(w, npg), 0).int()
+    toks = torch.randint(0, cfg.vocab_size, (w, 2 * c), generator=gen,
+                         device="cuda")
+    toks = torch.where(live[:, None], toks, 0).int()
+    pos = torch.zeros((w,), dtype=torch.int32, device="cuda")
+    runs = {}
+    with torch.inference_mode():
+        model_zoo.forward_chunk_paged(params, cfg, toks[:, :c], pos, block,
+                                      pools, write_block=block)
+        for m in (w, n):
+            cache = {k: v.clone() for k, v in pools.items()}
+            logits, _, _ = model_zoo.forward_chunk_paged(
+                params, cfg, toks[:m, c:], pos[:m] + c, block[:m], cache,
+                write_block=block[:m])
+            runs[m] = logits[:n].cpu()
+    full, cut = runs[w], runs[n]
+    mask = decisive(full.numpy(), 2 * tol)
+    print(f"{pages} pages, width {n} of {w}: largest logit gap "
+          f"{float((cut - full).abs().max()):.3e} (logits up to "
+          f"{float(full.abs().max()):.3f}), {mask.mean():.4f} of "
+          f"{mask.size} positions decisive")
+    torch.testing.assert_close(cut, full, atol=tol, rtol=0)
+    assert mask.mean() > 0.95
+    np.testing.assert_array_equal(cut.argmax(-1).numpy()[mask],
+                                  full.argmax(-1).numpy()[mask])

@@ -10,8 +10,8 @@ qwen2-1.5b on the CPU):
   do, within 0.5 ms after ``hibench.trace.Clock``'s shift;
 * with telemetry off, no ``record_function`` range and no lane context is
   made; on, every range opened is closed;
-* the chunk counters equal the sum of ``chunk_sched``'s keeps and W x C per
-  tick the lane ran;
+* the chunk counters equal the sum of ``chunk_sched``'s keeps and the
+  lane's width x C per tick it ran;
 * the Chrome trace draws the lanes on a thread of their own, and each
   request's ``prefill_chunk`` / ``decode_block`` span names the tick and
   lane that ran it;
@@ -163,8 +163,9 @@ def test_chunk_fill_counts_the_scheduled_keeps(path, monkeypatch):
     for rt in (*eng._stream[1].srts, eng._stream[1].lrt):
         rows = [sched for r, _, sched in log if r is rt]
         assert rt.chunk_tokens == sum(k for row in rows for _, k, _ in row)
-        assert rt.chunk_positions == sum(bool(row) for row in rows) \
-            * rt.chunk_width * rt.chunk_size
+        assert rt.chunk_positions == rt.chunk_size * sum(
+            sched_mod.chunk_lane_width(len(row), rt.chunk_width)
+            for row in rows if row)
         assert (rt.chunk_tokens > 0) == (path != "sharing")
         assert rt.chunk_tokens <= rt.chunk_positions
 
