@@ -1300,11 +1300,15 @@ def _to(tree, dev):
 def _drain_expected(eng):
     """Each kernel's launches per serve: hi_gate gates both tiers' T steps;
     the attention families' (dense, MoE) decode attention runs once per
-    layer and step; the SSM family's prefill launches ssd_chunk once per
-    layer and tier."""
+    layer and step; the MoE family's routed FFN (route_pairs, then
+    grouped_swiglu) once per layer and pass, the prefill and T steps; the
+    SSM family's prefill launches ssd_chunk once per layer and tier."""
     exp = dict.fromkeys(_kernel_names(), 0)
     exp["hi_gate"] = 2 * MAX_NEW
     for cfg in (eng.s.cfg, eng.l.cfg):
+        if cfg.family == "moe":
+            for name in ("grouped_swiglu", "route_pairs"):
+                exp[name] += (1 + MAX_NEW) * cfg.num_layers
         if cfg.family in ATTENTION_FAMILIES:
             exp["decode_attention"] += MAX_NEW * cfg.num_layers
         else:
@@ -1536,7 +1540,10 @@ def _expected_launches(sched, before, kb, chunk):
     lane's ``chunk`` per-token steps included), copy_pages per COW tick.
     Speculative: the L tier's ``live`` ticks are verify ticks, which gate
     nothing and run one ``kb``-token chunk pass (dense: the chunk kernel
-    once per layer; the hybrid's ``kb`` per-token steps as its decode)."""
+    once per layer; the hybrid's ``kb`` per-token steps as its decode).
+    MoE: its routed FFN (route_pairs, then grouped_swiglu) once per layer
+    and pass: the admission prefill, each chunk pass and decode step, and
+    each verify pass."""
     exp = dict.fromkeys(_kernel_names(), 0)
     for rt in (sched.local_srt, sched.lrt):
         d = {k: rt.lane_ticks[k] - before[rt.name][k] for k in rt.lane_ticks}
@@ -1547,6 +1554,10 @@ def _expected_launches(sched, before, kb, chunk):
         q = "[int8]" if rt.pool.kv_dtype == "int8" else ""
         exp["hi_gate"] += d["admit"] + d["chunk"] + \
             (0 if verify else kb * d["live"])
+        if cfg.family == "moe":
+            for name in ("grouped_swiglu", "route_pairs"):
+                exp[name] += n_layers * (d["prefill"] + d["chunk"]
+                                         + (1 if verify else kb) * d["live"])
         if cfg.family in ATTENTION_FAMILIES:
             if verify:
                 exp["decode_attention_chunk_paged" + q] += \
@@ -3058,6 +3069,205 @@ def check_moe_kernels(gen):
     return out
 
 
+# the MoE family's routed-expert shapes of the deepseek-moe.chat cell:
+# (label, experts, d, f, tokens), top GROUPED_K; the first is the main row
+GROUPED_SHAPES = (("L decode", 64, 2048, 1408, 8),
+                  ("L chunk", 64, 2048, 1408, 2048),
+                  ("S decode", 16, 512, 352, 32),
+                  ("S chunk", 16, 512, 352, 2048))
+GROUPED_K = 6
+# kernel and plain version: float32 IEEE products over the same rows, only
+# the order of the K sums differs (sums of up to 2,048 terms of O(1))
+GROUPED_ATOL = 1e-4
+
+
+def _grouped_case(gen, e, d, f, t):
+    """Routed pairs of ``t`` tokens (a quarter dead, their x rows NaN) from
+    the card's routing, and one weight set of ``e`` experts whose unhit
+    experts are NaN: neither may reach the output."""
+    import torch
+    from repro_torch.kernels import ops
+    x = torch.randn((t, d), generator=gen, device="cuda")
+    live = torch.rand((t,), generator=gen, device="cuda") >= 0.25
+    live[0] = True
+    x[~live] = float("nan")
+    logits = torch.randn((t, e), generator=gen, device="cuda")
+    gate, pairs, offsets = ops.route_pairs(logits, GROUPED_K, live)
+    idle = offsets[1:] == offsets[:-1]
+    ws = []
+    for shape, fan in (((e, d, f), d), ((e, d, f), d), ((e, f, d), f)):
+        w = torch.randn(shape, generator=gen, device="cuda") / fan ** 0.5
+        w[idle] = float("nan")
+        ws.append(w)
+    return x, pairs, offsets, ws, gate, live
+
+
+def check_grouped_swiglu(gen):
+    """The grouped expert kernel (``csrc/grouped_ffn.cu``, two launches a
+    call) against its plain version at the cell's four shapes, dead tokens
+    and unhit experts planted with NaN; the same bits twice; CUDA-event and
+    profiler times over weight copies that exceed the L2 cache; the bound
+    (every hit expert's three matrices, the live rows and the outputs
+    once, or 2*3*d*f float32 FLOPs a pair); the library: the capacity
+    path's ``torch.bmm`` over all E experts at the serving capacity 2.0
+    and ``torch._grouped_mm`` over the same sorted rows, timed only where
+    it gives the plain version's float32 within the tolerance.  Returns
+    (the main row's entry, the other shapes' entries)."""
+    import torch
+    from repro_torch.kernels import grouped_ffn as gf
+    k = GROUPED_K
+    entries = []
+    for label, e, d, f, t in GROUPED_SHAPES:
+        x, pairs, offsets, (wg, wi, wo), gate, live = _grouped_case(
+            gen, e, d, f, t)
+        want = gf.grouped_swiglu_plain(x, pairs, offsets, wg, wi, wo, gate,
+                                       k)
+        stats = torch.zeros((3,), dtype=torch.int32, device="cuda")
+        got = gf.grouped_swiglu_cuda(x, pairs, offsets, wg, wi, wo, gate, k,
+                                     stats)
+        again = gf.grouped_swiglu_cuda(x, pairs, offsets, wg, wi, wo, gate,
+                                       k)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"grouped_swiglu {label}: not the same bits "
+                                 "twice")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"grouped_swiglu {label}: a planted NaN "
+                                 "reached the output")
+        err = float((got - want).abs().max())
+        if err > GROUPED_ATOL:
+            raise AssertionError(f"grouped_swiglu {label}: max err {err:.3e}"
+                                 f" > {GROUPED_ATOL}")
+        n_live = int(live.sum())
+        p, hit = k * n_live, int((offsets[1:] > offsets[:-1]).sum())
+        if stats.tolist() != [p, hit, 1]:
+            raise AssertionError(f"grouped_swiglu {label}: counters "
+                                 f"{stats.tolist()}, want {[p, hit, 1]}")
+        del wg, wi, wo, want, got, again
+        wbytes = 3 * e * d * f * 4
+        copies_ = max(2, math.ceil(2 * L2_BYTES / wbytes))
+        sets = []
+        for _ in range(copies_):
+            ws = [torch.randn(s_, generator=gen, device="cuda") / fan ** 0.5
+                  for s_, fan in (((e, d, f), d), ((e, d, f), d),
+                                  ((e, f, d), f))]
+            sets.append((x, pairs, offsets, *ws, gate, k))
+        iters = 200 if t * k <= 256 else 20
+        ms = timed(gf.grouped_swiglu_cuda, sets, iters)
+        dev_ms = device_ms(gf.grouped_swiglu_cuda, sets,
+                           r"moe_gate_up_kernel|moe_down_kernel",
+                           launches=2, iters=min(iters, 50))
+        plain_ms = timed(gf.grouped_swiglu_plain, sets, max(2, iters // 10),
+                         warmup=1)
+        nbytes = 4 * (3 * hit * d * f + n_live * d + p * d)
+        bound_ms, by = bound(nbytes, 6 * d * f * p)
+        # the capacity path: every expert's (cap, d) buffer through bmm
+        cap = max(1, math.ceil(t * k / e * 2.0))
+        buf = torch.randn((e, cap, d), generator=gen, device="cuda")
+
+        def capacity(x, pairs, offsets, wg, wi, wo, gate, k):
+            h = torch.nn.functional.silu(torch.bmm(buf, wg)) * \
+                torch.bmm(buf, wi)
+            return torch.bmm(h, wo)
+        bmm_ms = timed(capacity, sets, iters)
+        n = int(offsets[-1])
+        rows = pairs[:n]
+        xs = x[rows // k]
+        ends = torch.cumsum((offsets[1:] - offsets[:-1]).int(), 0,
+                            dtype=torch.int32)
+
+        def grouped_mm(x, pairs, offsets, wg, wi, wo, gate, k):
+            h = torch.nn.functional.silu(torch._grouped_mm(xs, wg, offs=ends)) \
+                * torch._grouped_mm(xs, wi, offs=ends)
+            return torch._grouped_mm(h, wo, offs=ends) * gate[rows, None]
+        lib_ms = lib_note = None
+        try:
+            plain = gf.grouped_swiglu_plain(*sets[0])[rows]
+            lib_err = float((grouped_mm(*sets[0]) - plain).abs().max())
+            if lib_err <= GROUPED_ATOL:
+                lib_ms = timed(grouped_mm, sets, iters)
+            else:
+                lib_note = f"torch._grouped_mm float32 err {lib_err:.3e}"
+        except (RuntimeError, TypeError, AttributeError) as exc:
+            lib_note = f"torch._grouped_mm: {type(exc).__name__}: {exc}"[:200]
+        shape = (f"{label}: {e} experts ({d}, {f}), {t} tokens ({n_live} "
+                 f"live) x top {k}, {hit} experts hit")
+        log(f"  grouped_swiglu {shape}  err {err:.2e}  {ms * 1e3:.1f} us "
+            f"(device {dev_ms * 1e3:.1f} us = {bound_ms / dev_ms:.0%} of the "
+            f"bound {bound_ms * 1e3:.1f} us, {by})  plain {plain_ms * 1e3:.1f}"
+            f" us  capacity bmm {bmm_ms * 1e3:.1f} us  _grouped_mm "
+            f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}"
+            f"{'' if lib_note is None else f' ({lib_note})'}")
+        entries.append({"name": "grouped_swiglu", "route": "cuda",
+                        "source": "src/repro_torch/csrc/grouped_ffn.cu",
+                        "replaces": "none (the reference's capacity einsums,"
+                                    " src/repro/models/moe.py)",
+                        "shape": shape, "max_abs_err": err, "ms": ms,
+                        "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": by,
+                        "library_ms": lib_ms, "capacity_bmm_ms": bmm_ms,
+                        "library_note": lib_note})
+        del sets, buf, xs
+        torch.cuda.empty_cache()
+    return entries[0], entries[1:]
+
+
+def check_route_pairs(gen):
+    """The routing kernels (two launches a call) against the plain version
+    at the cell's four (tokens, experts) shapes, a third of the tokens
+    dead, a row whose experts all tie and a row with its 6th and 7th
+    tied: offsets and every pair's place exactly, the gates within 1e-6,
+    the same bits twice; times beside the plain ops' and the bound (the
+    logits read, the gates, pairs and offsets written).  Returns (the main
+    row's entry, the other shapes' entries)."""
+    import torch
+    from repro_torch.kernels import grouped_ffn as gf
+    k = GROUPED_K
+    entries = []
+    for label, e, _, _, t in GROUPED_SHAPES:
+        def make():
+            logits = torch.randn((t, e), generator=gen, device="cuda") * 2
+            logits[0] = 0.5
+            top = torch.sort(logits[1], descending=True).values
+            logits[1][logits[1] == top[6]] = top[5]
+            live = torch.rand((t,), generator=gen, device="cuda") > 0.33
+            live[:2] = True
+            return logits, k, live
+        args = make()
+        want = gf.route_pairs_plain(*args)
+        got, again = gf.route_pairs_cuda(*args), gf.route_pairs_cuda(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[2], want[2]) and torch.equal(got[1], want[1])
+                and all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                        for a, b in zip(got, again))):
+            raise AssertionError(f"route_pairs {label}: pairs or offsets "
+                                 "differ from the plain version's, or "
+                                 "between two runs")
+        err = float((got[0] - want[0]).abs().max())
+        if err > 1e-6:
+            raise AssertionError(f"route_pairs {label}: gate err {err:.3e}")
+        sets = [make() for _ in range(8)]
+        ms = timed(gf.route_pairs_cuda, sets, 200)
+        dev_ms = device_ms(gf.route_pairs_cuda, sets,
+                           r"route_topk_kernel|route_scatter_kernel",
+                           launches=2)
+        plain_ms = timed(gf.route_pairs_plain, sets, 200)
+        bound_ms, by = bound(4 * t * e + t + 12 * t * k + 8 * (e + 1), 0)
+        shape = f"{label}: {t} tokens over {e} experts, top {k}"
+        log(f"  route_pairs {shape}  exact, gates {err:.1e}  "
+            f"{ms * 1e3:.1f} us (device {dev_ms * 1e3:.1f} us)  plain "
+            f"{plain_ms * 1e3:.1f} us  bound {bound_ms * 1e3:.3f} us ({by})")
+        entries.append({"name": "route_pairs", "route": "cuda",
+                        "source": "src/repro_torch/csrc/grouped_ffn.cu",
+                        "replaces": "none (the reference's top_k and "
+                                    "capacity scatter)",
+                        "shape": shape, "max_abs_err": err, "ms": ms,
+                        "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": by,
+                        "library_ms": None})
+    return entries[0], entries[1:]
+
+
 def check_small_families():
     """Reduced llava-next-34b (forward with its patch prefix), whisper-large-
     v3 (forward; then ``precompute_cross`` and 12 decode steps, teacher-
@@ -3124,8 +3334,8 @@ def _param_bytes(params):
 def _routed_share(tier, steps=4):
     """The routed FFN's share of a decode step's device time: ``steps``
     ``decode_step_paged`` calls of 8 slots (as ``_decode_step_ms``) under
-    one ``torch.profiler`` window, ``moe.moe_ffn`` inside a
-    ``record_function`` range; a kernel counts as routed where the host
+    one ``torch.profiler`` window, ``moe.dropless_ffn`` (the serving
+    routed FFN) inside a ``record_function`` range; a kernel counts as routed where the host
     call that launched it (same correlation id) lies in such a range.
     Returns (routed device ms, all device ms) per step."""
     import tempfile
@@ -3146,13 +3356,13 @@ def _routed_share(tier, steps=4):
         tier.params, cfg, toks, torch.full((slots,), prompt, device="cuda"),
         torch.arange(slots, device="cuda"), block, cache)
     pos = torch.full((slots,), prompt, device="cuda")
-    real = moe.moe_ffn
+    real = moe.dropless_ffn
 
     def marked(*a, **k):
         with record_function("routed_ffn"):
             return real(*a, **k)
 
-    moe.moe_ffn = marked
+    moe.dropless_ffn = marked
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -3163,7 +3373,7 @@ def _routed_share(tier, steps=4):
                     cache)
             torch.cuda.synchronize()
     finally:
-        moe.moe_ffn = real
+        moe.dropless_ffn = real
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "t.json"
         prof.export_chrome_trace(str(path))
@@ -4230,6 +4440,11 @@ def _phases(args, kind, count, smi, dry) -> int:
     verify_cases = check_verify_chunk(gen)
     log(f"== kernels at the MoE shapes ({MOE_ARCH}; {LLAVA_GROUP7})")
     moe_cases = check_moe_kernels(gen)
+    log(f"== the routed experts' kernels ({MOE_ARCH}'s L and S tiers)")
+    for check in (check_grouped_swiglu, check_route_pairs):
+        main, cases = check(gen)
+        kernels.append(main)
+        moe_cases[main["name"]] = cases
     log(f"== kernels at head dim 120 ({DANUBE_ARCH})")
     d120_cases = check_d120_kernels(gen)
     total = dict.fromkeys(_kernel_names(), 0)   # launches over every path
@@ -4398,16 +4613,20 @@ def _phases(args, kind, count, smi, dry) -> int:
             (f"{ARCH} sampled", temp_launches,
              ("hi_gate", "decode_attention", "decode_attention_paged",
               "decode_attention_chunk_paged")),
-            (MOE_ARCH, moe_launches, ("hi_gate", "decode_attention")),
+            (MOE_ARCH, moe_launches, ("hi_gate", "decode_attention",
+                                      "grouped_swiglu", "route_pairs")),
             (f"{MOE_ARCH} stream", moe_stream,
              ("hi_gate", "decode_attention_paged",
-              "decode_attention_chunk_paged", "copy_pages")),
+              "decode_attention_chunk_paged", "copy_pages",
+              "grouped_swiglu", "route_pairs")),
             (f"{MOE_ARCH} int8", moe_int8,
              ("hi_gate", "decode_attention_paged[int8]",
-              "decode_attention_chunk_paged[int8]", "copy_pages[int8]")),
+              "decode_attention_chunk_paged[int8]", "copy_pages[int8]",
+              "grouped_swiglu", "route_pairs")),
             (f"{MOE_ARCH} speculative", moe_spec,
              ("hi_gate", "decode_attention_paged",
-              "decode_attention_chunk_paged")),
+              "decode_attention_chunk_paged", "grouped_swiglu",
+              "route_pairs")),
             (DANUBE_ARCH, dan_launches, ("hi_gate", "decode_attention")),
             (f"{DANUBE_ARCH} stream", dan_stream,
              ("hi_gate", "decode_attention_paged",

@@ -29,7 +29,8 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 SOURCES = ("hi_gate.cu", "decode_attention.cu", "decode_attention_paged.cu",
-           "chunk_paged_attention.cu", "copy_pages.cu", "ssd_scan.cu")
+           "chunk_paged_attention.cu", "copy_pages.cu", "ssd_scan.cu",
+           "grouped_ffn.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -50,6 +51,8 @@ SIGNATURES = {
                                                              _vp),
     "copy_pages_launch": (_vp, _i, _i, _vp, _i, _vp),
     "ssd_chunk_launch": (_vp,) * 9 + (_i,) * 7 + (_vp,),
+    "moe_route_launch": (_vp, _i, _vp, _i, _i, _i) + (_vp,) * 6,
+    "grouped_swiglu_launch": (_vp, _i64) + (_vp,) * 9 + (_i,) * 6 + (_vp,),
 }
 
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import copy_pages as _cp
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import grouped_ffn as _gf
 from repro_torch.kernels import hi_gate as _hg
 from repro_torch.kernels import ssd_scan as _ssd
 
@@ -39,7 +40,9 @@ KERNELS = {"hi_gate": (_hg.hi_gate_cuda, "launches"),
                                             "launches_int8"),
            "decode_attention_chunk_paged[int8]": (
                _da.decode_attention_chunk_paged_cuda, "launches_int8"),
-           "copy_pages[int8]": (_cp.copy_pages_cuda, "launches_int8")}
+           "copy_pages[int8]": (_cp.copy_pages_cuda, "launches_int8"),
+           "grouped_swiglu": (_gf.grouped_swiglu_cuda, "launches"),
+           "route_pairs": (_gf.route_pairs_cuda, "launches")}
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -185,6 +188,33 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     y_off = torch.einsum("bcih,bcin,bchpn->bcihp", eacs, Cc, h_prevs)
     y = (y_diag + y_off).reshape(b, l, h, p)[:, :orig_l]
     return y.to(x.dtype), hprev
+
+
+def route_pairs(logits: torch.Tensor, k: int,
+                live: Optional[torch.Tensor] = None):
+    """A MoE pass's routed pairs from its router logits (T, E) float32:
+    (gate (T·k,) by pair id, pairs (T·k,) sorted by expert, offsets
+    (E + 1,)); ``live`` (T,) bool, the tokens that route (see
+    ``grouped_ffn.py``)."""
+    if _on_cpu(logits):
+        return _gf.route_pairs_plain(logits, k, live)
+    return _gf.route_pairs_cuda(logits, k, live)
+
+
+def grouped_swiglu(x: torch.Tensor, pairs: torch.Tensor,
+                   offsets: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
+                   wo: torch.Tensor, gate: torch.Tensor, k: int,
+                   stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The routed experts over pairs sorted by expert (see
+    ``grouped_ffn.py``): x (T, D); pairs (T·k,) pair ids; offsets (E + 1,)
+    the experts' runs; experts (E, D, F) / (E, F, D); gate (T·k,).
+    Returns (T·k, D) by pair id, zero for the dead pairs past
+    ``offsets[E]``; ``stats`` (3,) int32 gains (pairs, experts hit, 1)."""
+    if _on_cpu(x):
+        return _gf.grouped_swiglu_plain(x, pairs, offsets, wg, wi, wo, gate,
+                                        k, stats)
+    return _gf.grouped_swiglu_cuda(x, pairs, offsets, wg, wi, wo, gate, k,
+                                   stats)
 
 
 def launch_counts() -> Dict[str, int]:

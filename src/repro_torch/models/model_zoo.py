@@ -29,16 +29,23 @@ pool carries ``ks``/``vs`` scale rows, one per physical page and kv head):
 
   init_paged_cache(cfg, slots, pages, page_size, dtype, device) -> pools
   prefill_paged(params, cfg, tokens, lengths, slots, block_rows, cache,
-                start=None)                    -> (logits (A, V), cache)
-  decode_step_paged(params, cfg, token, pos, block, cache, write_block=None)
+                start=None, live=None)         -> (logits (A, V), cache)
+  decode_step_paged(params, cfg, token, pos, block, cache, write_block=None,
+                    live=None)
   forward_chunk_paged(params, cfg, tokens, pos, block, cache,
-                      write_block=None, keep=None)
+                      write_block=None, keep=None, live=None)
                                                -> (logits (B, C, V), cache,
                                                    staged)
   cow_pages(cfg, cache, src, dst)              -> cache (copied in place)
   init_prefix_cache(cfg, entries, device)      -> {"logits": (E + 1, V), ...}
-  independent_rows(cfg)                        -> whether a pass's rows are
+  independent_rows(cfg, model_ranks=1)        -> whether a pass's rows are
                                                   computed apart
+  observed(cfg, stats, tier=None)              -> the routed FFN's counters
+                                                  and ranges over a tick
+
+``live`` ((B, S) bool on the device) marks the positions of a pass that
+hold a real token: the MoE family routes only those (a padded position
+takes no expert work); the other families ignore it.
 
 and the recurrent-state hooks the scheduler calls for every family
 (``gather_chunk_slots`` ... ``snapshot_restore``, and ``draft_stage`` for
@@ -52,7 +59,8 @@ the slots (index ``num_slots``) and the prefix cache a drop row (index
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import contextlib
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -89,12 +97,32 @@ def _recurrent(cfg: ModelConfig) -> bool:
     return cfg.family in _SLOT_AXIS
 
 
-def independent_rows(cfg: ModelConfig) -> bool:
+def independent_rows(cfg: ModelConfig, model_ranks: int = 1) -> bool:
     """Whether a serving pass computes each batch row on its own, so that
-    dropping rows leaves the others' outputs as they were.  Not for the MoE
-    family: its routed dispatch sizes expert capacity from the pass's token
-    count, and every row's tokens take capacity."""
-    return cfg.family != MOE
+    dropping rows leaves the others' outputs as they were.  Every family's
+    does, the MoE family's through its dropless dispatch, but for MoE
+    experts split over ``model_ranks`` > 1, whose capacity dispatch sizes
+    expert capacity from the pass's token count."""
+    return cfg.family != MOE or model_ranks == 1
+
+
+def _live(cfg: ModelConfig, live) -> Dict[str, Any]:
+    """The ``live`` keyword of a MoE serving pass (the tokens that route);
+    the other families compute every position alike."""
+    return {"live": live} if cfg.family == MOE and live is not None else {}
+
+
+def observed(cfg: ModelConfig, stats: torch.Tensor,
+             tier: Optional[str] = None):
+    """A context over a tick's passes: the MoE family's routed FFN adds
+    (its live pairs, the experts holding a pair, 1) per call to ``stats``
+    ((3,) int32 on the device) and, with ``tier`` named, opens the
+    ``moe.<tier>.route`` / ``moe.<tier>.experts`` ranges
+    (``moe.observed``); the other families have no routed FFN, and it
+    does nothing for them."""
+    if cfg.family == MOE:
+        return moe.observed(stats, tier)
+    return contextlib.nullcontext()
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -217,25 +245,27 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, num_pages: int,
 
 def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   lengths: torch.Tensor, slots: torch.Tensor,
-                  block_rows: torch.Tensor, cache, *, start=None):
+                  block_rows: torch.Tensor, cache, *, start=None, live=None):
     """Admit a batch of requests in one pass.  ``start`` (A,): the
     attention families splice cached prefix K/V below it; the recurrent
     families share whole prompts only (see each module)."""
     return _served(cfg, "prefill_paged").prefill_paged(
-        params, cfg, tokens, lengths, slots, block_rows, cache, start=start)
+        params, cfg, tokens, lengths, slots, block_rows, cache, start=start,
+        **_live(cfg, live))
 
 
 def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
                       pos: torch.Tensor, block: torch.Tensor, cache, *,
-                      write_block=None):
+                      write_block=None, live=None):
     return _served(cfg, "decode_step_paged").decode_step_paged(
-        params, cfg, token, pos, block, cache, write_block=write_block)
+        params, cfg, token, pos, block, cache, write_block=write_block,
+        **_live(cfg, live))
 
 
 def forward_chunk_paged(params: Params, cfg: ModelConfig,
                         tokens: torch.Tensor, pos: torch.Tensor,
                         block: torch.Tensor, cache, *, write_block=None,
-                        keep=None):
+                        keep=None, live=None):
     """One multi-token paged pass: token i of slot b at ``pos[b] + i``.
     The attention families' ``staged`` is {}; the recurrent families' chunk is
     C per-token steps (bitwise the per-token path) and ``staged`` their
@@ -245,7 +275,8 @@ def forward_chunk_paged(params: Params, cfg: ModelConfig,
     mod = _served(cfg, "forward_chunk_paged")
     if not _recurrent(cfg):
         return mod.forward_chunk_paged(params, cfg, tokens, pos, block,
-                                       cache, write_block=write_block)
+                                       cache, write_block=write_block,
+                                       **_live(cfg, live))
     return mod.forward_chunk_paged(params, cfg, tokens, pos, block, cache,
                                    write_block=write_block, keep=keep)
 

@@ -1,23 +1,33 @@
 """Mixture-of-Experts decoder (deepseek-moe fine-grained, arctic
-dense-residual), a copy of the reference's ``models/moe.py``.
+dense-residual), a copy of the reference's ``models/moe.py``, and its
+dropless serving FFN.
 
-Dispatch is the reference's capacity-bounded scatter: each token picks its
-top-k experts, each expert owns a static ``capacity`` slot buffer, and
-overflowing (token, choice) pairs are dropped.  The drop policy is the
-reference's: slot positions from a count in token order within each of the
-k choices plus the running per-expert ``base`` of the choices before (the
-reference's loop over the choices, here one count, :func:`route`),
-positions clamped to ``cap - 1`` with dropped rows adding zeros, and the
-top-k gates renormalised.  Ties in the router's probabilities go to the
-lower expert index, as ``lax.top_k`` breaks them.
+Training and the forward pass keep the reference's capacity-bounded
+scatter (:func:`moe_ffn`): each token picks its top-k experts, each expert
+owns a static ``capacity`` slot buffer, and overflowing (token, choice)
+pairs are dropped.  The drop policy is the reference's: slot positions
+from a count in token order within each of the k choices plus the running
+per-expert ``base`` of the choices before (the reference's loop over the
+choices, here one count, :func:`route`), positions clamped to ``cap - 1``
+with dropped rows adding zeros, and the top-k gates renormalised.  Ties in
+the router's probabilities go to the lower expert index, as ``lax.top_k``
+breaks them.  The routed FFN is three batched products over the
+(E, cap, D) buffers (``torch.bmm``, as the reference's ``einsum``).  The
+capacity factor of :func:`forward` is the reference's 1.25.
 
-The routed FFN is three batched products over the (E, cap, D) buffers
-(``torch.bmm``, as the reference's ``einsum``): the reference has no Pallas
-kernel here.  Everything else (attention, the caches, the page pools and
-their int8 write side) is the dense family's: the serving functions are
-``models/transformer.py``'s with this module's FFN, as the reference's
-MoE scans reuse its ``layers``.  The capacity factors are the reference's:
-1.25 in :func:`forward`, 2.0 on every serving path.
+Serving (:func:`serving_ffn`, the FFN of every serving pass) drops nothing:
+the router is :func:`route`'s, the pass's live tokens' pairs are sorted by
+expert on the device, and every pair runs through its expert in the
+grouped kernel (``kernels/grouped_ffn.py``); padded positions (a bucket's
+tail, an empty chunk-lane row, a slot that does not decode) take no pair.
+The outputs combine over the k choices by gate, and the shared experts
+add.  No count is read back to the host.  With :func:`observed` open, each
+call adds its pairs, experts hit and one call to a device counter, and
+with a tier named opens ``record_function`` ranges ``moe.<tier>.route``
+and ``moe.<tier>.experts``.  Everything else (attention, the caches, the
+page pools and their int8 write side) is the dense family's: the serving
+functions are ``models/transformer.py``'s with this module's FFN, as the
+reference's MoE scans reuse its ``layers``.
 
 Expert parallelism (:func:`moe_ffn_sharded`, the reference's shard_map
 dispatch) runs on each rank's local shards over ``torch.distributed``:
@@ -25,12 +35,16 @@ routing stays replicated and rank-local, each rank dispatches its tokens
 to its own experts, and one all-reduce over ``model`` combines the expert
 partial outputs.  :func:`moe_ffn_auto` picks it under an ambient mesh
 (``sharding/act.py``) whose ``model`` axis divides the experts, when the
-layer's experts are this rank's block of that layout; the serving L tier runs under its ``model`` sub-mesh, where the capacity and
-slot positions are exactly :func:`moe_ffn`'s, so the same (token, choice)
+layer's experts are this rank's block of that layout.  A serving L tier
+whose experts are split over a ``model`` axis wider than 1 keeps this
+capacity dispatch, at ``SERVE_CAPACITY`` 2.0, where the capacity and slot
+positions are exactly :func:`moe_ffn`'s, so the same (token, choice)
 pairs drop.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import math
 from typing import Any, Dict, Optional, Tuple
@@ -39,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import grouped_ffn, ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.models.transformer import layer_params, maybe_remat
@@ -88,8 +103,18 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> Params:
 # routed FFN
 # ---------------------------------------------------------------------------
 
+def top_k(lp: Params, cfg: ModelConfig, xf: torch.Tensor):
+    """The router over tokens ``xf`` (T, D): softmax over the E experts,
+    the top k in ``lax.top_k``'s order (descending, ties to the lower
+    index), the gates renormalised.  Returns (gate (T, k), idx (T, k),
+    probs (T, E))."""
+    return grouped_ffn.top_k_plain(xf.float() @ lp["router"],
+                                   cfg.experts_per_token)
+
+
 def route(lp: Params, cfg: ModelConfig, xf: torch.Tensor, cap: int):
-    """The router and the drop policy over tokens ``xf`` (T, D).
+    """The router (:func:`top_k`) and the drop policy over tokens ``xf``
+    (T, D).
 
     The reference walks the k choices in turn: a pair's slot is its count
     among the choice's earlier tokens of the same expert, plus the running
@@ -102,12 +127,7 @@ def route(lp: Params, cfg: ModelConfig, xf: torch.Tensor, cap: int):
     probs (T, E))."""
     e, k = lp["router"].shape[-1], cfg.experts_per_token
     t = xf.shape[0]
-    logits = xf.float() @ lp["router"]                        # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    # lax.top_k's order: descending, ties to the lower index
-    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, idx = gate[:, :k], idx[:, :k]
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    gate, idx, probs = top_k(lp, cfg, xf)
     flat = idx.t().reshape(-1)                                # choice-major
     onehot = flat[:, None] == torch.arange(e, device=xf.device)
     pos = torch.gather(onehot.long().cumsum(0), 1, flat[:, None])[:, 0] - 1
@@ -291,11 +311,87 @@ def _ffn(lp: Params, cfg: ModelConfig, xn: torch.Tensor,
     return y, aux
 
 
-def serving_ffn(lp: Params, cfg: ModelConfig,
-                xn: torch.Tensor) -> torch.Tensor:
-    """The FFN hook of ``transformer``'s serving functions, at the serving
-    capacity factor."""
-    return _ffn(lp, cfg, xn, SERVE_CAPACITY)[0]
+# (device counter (3,) int32 or None, tier name or None) of the open
+# :func:`observed` block
+_OBSERVED: contextvars.ContextVar = contextvars.ContextVar(
+    "moe_observed", default=(None, None))
+_NO_RANGE = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def observed(stats: Optional[torch.Tensor], tier: Optional[str] = None):
+    """While open, every :func:`dropless_ffn` call adds (its live pairs,
+    the experts holding a pair, 1) to ``stats`` ((3,) int32 on the
+    device), and with ``tier`` set opens ``record_function`` ranges
+    ``moe.<tier>.route`` and ``moe.<tier>.experts`` around its two
+    parts."""
+    token = _OBSERVED.set((stats, tier))
+    try:
+        yield
+    finally:
+        _OBSERVED.reset(token)
+
+
+def _range(tier: Optional[str], part: str):
+    if tier is None:
+        return _NO_RANGE
+    return torch.profiler.record_function(f"moe.{tier}.{part}")
+
+
+def dropless_ffn(lp: Params, cfg: ModelConfig, x: torch.Tensor,
+                 live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The routed experts over every live (token, choice) pair, with no
+    capacity: x (B, S, D) -> (B, S, D).  ``live`` (B, S) bool marks the
+    tokens that route (None: all); a dead token's output is zero.
+
+    The router's logits go to ``ops.route_pairs``, which sorts the live
+    pairs by expert on the device, stably, so each expert's run holds its
+    pairs in token order; the grouped kernel runs every live pair through
+    its expert and scales it by its gate.  The (T, k, D) outputs are then
+    summed over the k choices."""
+    b, s, d = x.shape
+    k = cfg.experts_per_token
+    t = b * s
+    xf = x.reshape(t, d)
+    stats, tier = _OBSERVED.get()
+    with _range(tier, "route"):
+        gate, pairs, offsets = ops.route_pairs(
+            xf.float() @ lp["router"], k,
+            None if live is None else live.reshape(t))
+    with _range(tier, "experts"):
+        ex = lp["experts"]
+        out = ops.grouped_swiglu(xf, pairs, offsets, ex["wg"], ex["wi"],
+                                 ex["wo"], gate, k, stats)
+        return out.view(t, k, d).sum(1).view(b, s, d)
+
+
+def _sharded_experts(lp: Params, cfg: ModelConfig) -> bool:
+    """Whether the layer's experts are split over an ambient ``model``
+    axis wider than 1 (the expert-parallel capacity dispatch)."""
+    mesh = act.current_mesh()
+    return (mesh is not None and mesh.shape.get("model", 1) > 1
+            and _sharded_layout(lp, cfg, mesh))
+
+
+def serving_ffn(lp: Params, cfg: ModelConfig, xn: torch.Tensor,
+                live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The FFN hook of ``transformer``'s serving functions: the dropless
+    routed experts over the ``live`` tokens, plus the shared experts and
+    arctic's dense residual; experts split over a ``model`` axis take the
+    capacity dispatch at ``SERVE_CAPACITY``."""
+    if _sharded_experts(lp, cfg):
+        return _ffn(lp, cfg, xn, SERVE_CAPACITY)[0]
+    y = dropless_ffn(lp, cfg, xn, live)
+    if "shared" in lp:
+        y = y + L.swiglu(lp["shared"], xn, "shared")
+    if "dense" in lp:
+        y = y + L.swiglu(lp["dense"], xn, "dense")
+    return y
+
+
+def _serving(live: Optional[torch.Tensor]):
+    return serving_ffn if live is None else functools.partial(serving_ffn,
+                                                              live=live)
 
 
 def _block(lp: Params, cfg: ModelConfig, x: torch.Tensor, win: int,
@@ -332,7 +428,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 # ---------------------------------------------------------------------------
 # contiguous cache (the drain path) and the paged pool (continuous serving):
-# the dense family's functions with the routed FFN at SERVE_CAPACITY
+# the dense family's functions with the dropless routed FFN.  The paged
+# functions take ``live`` (the pass's (B, S) bool tokens that route; None:
+# all); the drain path routes every position.
 # ---------------------------------------------------------------------------
 
 init_cache = transformer.init_cache
@@ -341,8 +439,8 @@ init_paged_cache = transformer.init_paged_cache
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Params):
-    """The whole (B, S) prompt in one pass (routed dispatch over all B x S
-    tokens together); returns (last-position logits (B, V), cache)."""
+    """The whole (B, S) prompt in one pass; returns (last-position logits
+    (B, V), cache)."""
     return transformer.prefill(params, cfg, tokens, cache, ffn=serving_ffn)
 
 
@@ -355,31 +453,30 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
 def prefill_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   lengths: torch.Tensor, slots: torch.Tensor,
                   block_rows: torch.Tensor, cache: Params, *,
-                  start: Optional[torch.Tensor] = None):
-    """Paged batched admission.  Routed dispatch runs over all padded
-    (A, S_max) rows together, so the padded tails take expert capacity
-    ahead of later rows' real tokens in token order, as in the reference;
-    with ``start`` (prefix sharing) dispatch still runs over every position,
-    so the batch, and its drops, are those of the unshared pass."""
+                  start: Optional[torch.Tensor] = None,
+                  live: Optional[torch.Tensor] = None):
+    """Paged batched admission over the (A, S_max) rows."""
     return transformer.prefill_paged(params, cfg, tokens, lengths, slots,
                                      block_rows, cache, start=start,
-                                     ffn=serving_ffn)
+                                     ffn=_serving(live))
 
 
 def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
                       pos: torch.Tensor, block: torch.Tensor, cache: Params,
-                      *, write_block: Optional[torch.Tensor] = None):
+                      *, write_block: Optional[torch.Tensor] = None,
+                      live: Optional[torch.Tensor] = None):
     return transformer.decode_step_paged(params, cfg, token, pos, block,
                                          cache, write_block=write_block,
-                                         ffn=serving_ffn)
+                                         ffn=_serving(live))
 
 
 def forward_chunk_paged(params: Params, cfg: ModelConfig,
                         tokens: torch.Tensor, pos: torch.Tensor,
                         block: torch.Tensor, cache: Params, *,
-                        write_block: Optional[torch.Tensor] = None):
-    """The chunk lane: the routed FFN dispatches all (B, C) chunk tokens
-    together.  Returns (logits (B, C, V), cache, {})."""
+                        write_block: Optional[torch.Tensor] = None,
+                        live: Optional[torch.Tensor] = None):
+    """The chunk lane over (B, C) tokens.  Returns (logits (B, C, V),
+    cache, {})."""
     return transformer.forward_chunk_paged(params, cfg, tokens, pos, block,
                                            cache, write_block=write_block,
-                                           ffn=serving_ffn)
+                                           ffn=_serving(live))

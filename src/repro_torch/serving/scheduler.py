@@ -219,7 +219,15 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
     ``role == "spec_l"``, the verify lane over the S tier's drafts.  ``tin``
     holds the tick's device operands, ``flags`` the host values its
     branches read.  With ``tel`` set, each lane that runs is a telemetry
-    lane span of tier ``tier``."""
+    lane span of tier ``tier``.
+
+    Each pass names its live positions (``live``: the admitted rows'
+    prompt tokens from the page of their first uncached position, the
+    chunk rows' kept tokens, the decoding slots, ``decode_live``); the MoE
+    family routes only those, the others ignore them.  The tick returns
+    ``"moe"``, the (pairs, experts hit, calls) the routed FFN counted on
+    the device (``model_zoo.observed``; zeros for the families without
+    one), fetched with the tick's outputs."""
 
     def conf_of(logits, theta):
         return ops.hi_gate(logits, theta, metric)[0]
@@ -236,13 +244,21 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
         """Batched admission prefill + prefix-cache save/restore (after the
         COW lane).  Returns the admission logits (A, V)."""
         core = pool.buffers
-        a = tin["admit_tokens"].shape[0]
+        a, s_max = tin["admit_tokens"].shape
         dev = tin["admit_tokens"].device
         if flags["any_prefill"]:
+            # an admitted row's prompt from the page that holds its first
+            # uncached position (that page is written whole)
+            at = torch.arange(s_max, device=dev)
+            live = ((at < tin["admit_len"][:, None])
+                    & (tin["admit_slot"] < tin["last_tok"].shape[0])[:, None])
+            if sharing:
+                page = pool.page_size
+                live &= at >= (tin["admit_start"] // page * page)[:, None]
             logits0, _ = model_zoo.prefill_paged(
                 params, cfg, tin["admit_tokens"], tin["admit_len"],
                 tin["admit_slot"], tin["admit_blocks"], core,
-                start=tin["admit_start"] if sharing else None)
+                start=tin["admit_start"] if sharing else None, live=live)
         else:
             logits0 = torch.zeros((a, cfg.vocab_size), dtype=torch.float32,
                                   device=dev)
@@ -282,9 +298,12 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
                                             fresh=lane["pos"] == 0)
         # with the host's keep counts the recurrent families stage only
         # the boundary each row commits: select_stage(staged, keep)
+        c = lane["tokens"].shape[1]
+        live = torch.arange(c, device=dev) < lane["keep"][:, None]
         logits_c, mini, sel = model_zoo.forward_chunk_paged(
             params, cfg, lane["tokens"], lane["pos"], lane["block"], mini,
-            write_block=lane["wblock"], keep=flags["chunk_keep"][:n])
+            write_block=lane["wblock"], keep=flags["chunk_keep"][:n],
+            live=live)
         model_zoo.scatter_chunk_slots(cfg, core, mini, sel, lane["slot"])
         idx = torch.clamp(lane["keep"].long() - 1, min=0)
         last = logits_c[torch.arange(n, device=dev), idx]
@@ -323,10 +342,11 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
         vin = torch.cat([draft["last0"][None, :b], toks[:-1]], 0).T
         core = pool.buffers
         pre = model_zoo.draft_stage(cfg, core, b)
-        vlog, core, staged = model_zoo.forward_chunk_paged(
-            params, cfg, vin, tin["pos"], block, core, write_block=wb)
-        lv = sampler.greedy(vlog)                             # (B, K)
         live = tin["draft_live"]
+        vlog, core, staged = model_zoo.forward_chunk_paged(
+            params, cfg, vin, tin["pos"], block, core, write_block=wb,
+            live=live[:, None].expand(-1, k))
+        lv = sampler.greedy(vlog)                             # (B, K)
         esc = (confs.min(dim=0).values < theta) & live
         match = lv == toks.T
         m = torch.where(match.all(dim=1), k,
@@ -348,8 +368,8 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
                 # bonus position to 1.0, which would skew calibration)
                 "match": match, "draft_confs": confs.T}
 
-    def tick(params, theta, tin, flags, pool: KVPool, draft=None,
-             tel: Optional[Telemetry] = None, tier: str = ""):
+    def lanes(params, theta, tin, flags, pool: KVPool, draft=None,
+              tel: Optional[Telemetry] = None, tier: str = ""):
         a = tin["admit_tokens"].shape[0]
         n_slots = tin["last_tok"].shape[0]
         dev = tin["last_tok"].device
@@ -403,10 +423,11 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
                 pre_d = model_zoo.chunk_stage(cfg, core) if chunk else None
                 last = last0[:n_slots]
                 toks, confs, snaps = [], [], []
+                live = tin["decode_live"][:, None]
                 for kk in range(decode_block):
                     logits, core = model_zoo.decode_step_paged(
                         params, cfg, last[:, None], tin["pos"] + kk, block,
-                        core, write_block=wb)
+                        core, write_block=wb, live=live)
                     confs.append(conf_of(logits, theta))
                     last = pick(logits, flags, tin["seeds"],
                                 tin["tok_idx"] + kk, tin["temps"])
@@ -434,6 +455,15 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
             return out, {"staged": staged, "toks": out["toks"],
                          "confs": out["confs"], "last0": last0}
         return out
+
+    def tick(params, theta, tin, flags, pool: KVPool, draft=None,
+             tel: Optional[Telemetry] = None, tier: str = ""):
+        stats = torch.zeros((3,), dtype=torch.int32,
+                            device=tin["last_tok"].device)
+        with model_zoo.observed(cfg, stats, None if tel is None else tier):
+            res = lanes(params, theta, tin, flags, pool, draft, tel, tier)
+        (res[0] if role == "spec_s" else res)["moe"] = stats
+        return res
 
     return tick
 
@@ -519,6 +549,12 @@ class _TierRuntime:
         self.chunk_positions = 0
         self.chunk_width_ticks: Dict[int, int] = {}
         self.independent_rows = model_zoo.independent_rows(cfg)
+        # the routed FFN (the MoE family's; 0 for the others), from each
+        # tick's fetched "moe": (token, choice) pairs routed, the sum over
+        # calls of the experts holding a pair, and calls
+        self.moe_pairs = 0
+        self.moe_experts_hit = 0
+        self.moe_calls = 0
 
     @property
     def busy(self) -> int:
@@ -603,7 +639,8 @@ class _TierRuntime:
         ``any_prefill``, ``any_cow`` with the ``cow_src``/``cow_dst`` pairs,
         ``any_chunk`` with the rows' ``chunk_keep`` and the lane's
         ``chunk_width``, ``any_live`` and ``sampled`` (a slot of this tier
-        samples at temperature > 0).  In speculative mode ``draft_live``
+        samples at temperature > 0).  ``decode_live`` marks the slots whose
+        decode steps are real.  In speculative mode ``draft_live``
         marks the slots that draft and verify."""
         a = self.admit_width
         tokens = np.zeros((a, s_max), np.int32)
@@ -702,8 +739,11 @@ class _TierRuntime:
                 self.chunk_width_ticks[width] = \
                     self.chunk_width_ticks.get(width, 0) + 1
             flags["any_live"] = bool(dlive.any())
+            out["decode_live"] = dlive
         else:
             flags["any_live"] = self.busy > 0
+            out["decode_live"] = np.asarray(
+                [r is not None for r in self.slot_req])
             if self.spec:
                 out["draft_live"] = np.asarray(
                     [r is not None for r in self.slot_req])
@@ -742,6 +782,14 @@ class _TierRuntime:
         flags.update(any_prefill=any_prefill, any_cow=bool(cow_dst.any()),
                      cow_src=cow_src, cow_dst=cow_dst)
         return out, self._count(flags)
+
+    def count_moe(self, out: Dict[str, np.ndarray]) -> None:
+        """Add a fetched tick's routed-FFN counts (its ``"moe"``)."""
+        if "moe" in out:
+            pairs, hit, calls = (int(v) for v in out["moe"])
+            self.moe_pairs += pairs
+            self.moe_experts_hit += hit
+            self.moe_calls += calls
 
     def _count(self, flags: Dict[str, Any]) -> Dict[str, Any]:
         for lane in LANES:
@@ -866,6 +914,9 @@ class ContinuousScheduler:
                                 num_pages=num_pages, chunk_size=self.chunk,
                                 chunk_width=chunk_width, spec=speculative,
                                 name="L", dtype=pool_dtype)
+        if mesh is not None:
+            self.lrt.independent_rows = model_zoo.independent_rows(
+                l_cfg, int(mesh.shape["model"]))
         # with chunking on and sharing off, every admit-lane prompt is <=
         # chunk_size: the batched admission pass shrinks from
         # (A, max_prompt_len) to (A, ~chunk_size)
@@ -1093,6 +1144,7 @@ class ContinuousScheduler:
             s_host = {k[2:]: v for k, v in fetched.items()
                       if k.startswith("s.")}
             host["s"] = s_host if self.speculative else [s_host]
+            self._count_moe(host)
             return host
         self._staged = self._staged_next     # the write half turns readable
         if "check" in fetched and (fetched["check"] != fetched["check"][0]
@@ -1103,7 +1155,14 @@ class ContinuousScheduler:
                 "the ranks' host decisions parted")
         host["s"] = [engine_mod.unpack_int32(row, metas)
                      for row in fetched["s"]]
+        self._count_moe(host)
         return host
+
+    def _count_moe(self, host: Dict[str, Any]) -> None:
+        s_outs = host["s"] if isinstance(host["s"], list) else [host["s"]]
+        for rt, out in zip(self.srts, s_outs):
+            rt.count_moe(out)
+        self.lrt.count_moe(host["l"])
 
     def _prepare_stage(self, l_queue, cur: int) -> None:
         """Stage up to ``lrt.admit_width`` head-of-queue escalations for

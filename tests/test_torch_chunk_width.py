@@ -11,8 +11,9 @@
   the CPU's float32 GEMMs block their rows by the row count, so a row's
   sums may round otherwise at another width (1.3e-8 at most measured, on
   the SSM and hybrid lanes);
-* the MoE family, whose routed dispatch sizes expert capacity from the
-  pass's token count, runs every tick at W;
+* the MoE family's dropless dispatch runs the rule's widths; experts
+  split over a ``model`` axis (capacity from the pass's token count) keep
+  W;
 * the counters: ``chunk_width_ticks`` sums to ``lane_ticks["chunk"]``,
   ``chunk_positions`` is the sum of width x C, one ``_host_fetch`` a tick
   whose chunk outputs keep their (W,) shapes;
@@ -128,13 +129,18 @@ def test_width_lane_equals_the_full_lane(arch, sharing, monkeypatch):
 
 
 def test_moe_lane_keeps_its_width():
+    """Only experts split over a ``model`` axis wider than 1 (the capacity
+    dispatch, whose capacity comes from the pass's token count) keep the
+    lane at W; the dropless dispatch of one rank runs the rule's widths."""
     cfg = ARCHS[MOE_ARCH].reduced()
-    assert not model_zoo.independent_rows(cfg)
+    assert not model_zoo.independent_rows(cfg, model_ranks=2)
+    assert model_zoo.independent_rows(cfg)
     _, sched = _serve(MOE_ARCH)
     for rt in (sched.srt, sched.lrt):
         assert rt.lane_ticks["chunk"] > 0
-        assert rt.chunk_width_ticks == {W: rt.lane_ticks["chunk"]}
-        assert rt.chunk_positions == W * C * rt.lane_ticks["chunk"]
+        assert sum(rt.chunk_width_ticks.values()) == rt.lane_ticks["chunk"]
+        assert min(rt.chunk_width_ticks) < W
+        assert rt.chunk_positions < W * C * rt.lane_ticks["chunk"]
 
 
 @pytest.mark.parametrize("arch", (*FAMILIES, MOE_ARCH))

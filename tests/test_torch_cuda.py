@@ -24,6 +24,8 @@ ATT_ATOL = 1e-4
 # the int8 bodies' counters, which a bf16 run leaves at 0
 NO_INT8 = {"decode_attention_paged[int8]": 0,
            "decode_attention_chunk_paged[int8]": 0, "copy_pages[int8]": 0}
+# the MoE family's kernels, which a dense model leaves at 0
+NO_MOE = {"grouped_swiglu": 0, "route_pairs": 0}
 
 
 @pytest.fixture
@@ -312,7 +314,7 @@ def test_engine_on_card_matches_cpu_teacher_forced(gen):
                       # the paged kernels belong to serve_stream
                       "decode_attention_paged": 0,
                       "decode_attention_chunk_paged": 0, "copy_pages": 0,
-                      "ssd_chunk": 0, **NO_INT8}
+                      "ssd_chunk": 0, **NO_INT8, **NO_MOE}
     # teacher-forced S-tier logits along the CPU's tokens
     logs = {}
     for name, tier, dev in (("cpu", cpu[0], "cpu"), ("cuda", gpu[0], "cuda")):
@@ -910,7 +912,7 @@ def test_stream_on_card_matches_cpu(gen, monkeypatch):
         "decode_attention_chunk_paged": (ls * s.lane_ticks["chunk"]
                                          + ll * l.lane_ticks["chunk"]),
         "copy_pages": s.lane_ticks["cow"] + l.lane_ticks["cow"],
-        "ssd_chunk": 0, **NO_INT8}
+        "ssd_chunk": 0, **NO_INT8, **NO_MOE}
     assert counts["copy_pages"] > 0 and counts["decode_attention_chunk_paged"]
     assert s.pool.held_slots == l.pool.held_slots == []
     for r in reqs:
@@ -1351,7 +1353,7 @@ def test_spec_stream_on_card_matches_cpu(gen, monkeypatch):
                                          + ls * s.lane_ticks["chunk"]
                                          + ll * l.lane_ticks["chunk"]),
         "copy_pages": s.lane_ticks["cow"] + l.lane_ticks["cow"],
-        "ssd_chunk": 0, **NO_INT8}
+        "ssd_chunk": 0, **NO_INT8, **NO_MOE}
     assert l.lane_ticks["live"] > 0
     tc = TokenCascade(s_cfg=cpu[0].cfg, l_cfg=cpu[1].cfg,
                       s_params=cpu[0].params, l_params=cpu[1].params, hi=hi,
@@ -1674,8 +1676,9 @@ def test_hi_gate_at_the_moe_vocab(gen, n, metric):
 @pytest.mark.parametrize("name", ["deepseek-moe-16b", "arctic-480b"])
 def test_reduced_moe_decode_step_gives_the_same_bits_twice(gen, name):
     """One paged decode step of a reduced MoE model on the card, twice on
-    the same pool: the routed scatter sums a row and zeros per slot, so
-    the logits (and the appended pages) are the same bits."""
+    the same pool: the dropless dispatch sorts the pairs stably and the
+    grouped kernel sums each row in a fixed order, with no atomics, so the
+    logits (and the appended pages) are the same bits."""
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models import model_zoo
     cfg = ARCHS[name].reduced()
@@ -2073,3 +2076,147 @@ def test_chunk_lane_width_on_card_matches_the_full_lane(gen, n, pages):
     assert mask.mean() > 0.95
     np.testing.assert_array_equal(cut.argmax(-1).numpy()[mask],
                                   full.argmax(-1).numpy()[mask])
+
+
+# ---------------------------------------------------------------------------
+# the MoE family's grouped kernel (``kernels/grouped_ffn.py``) at the
+# deepseek-moe.chat cell's shapes: the L tier's 64 experts of 1,408 over
+# d 2,048 and the S tier's 16 of 352 over 512, top 6, a decode step of the
+# tier's slots and a chunk pass of 8 x 256 tokens
+# ---------------------------------------------------------------------------
+
+# (experts, d, f, tokens): L decode (48 pairs), L chunk (12,288), S decode
+# (192), S chunk (12,288)
+GROUPED_SHAPES = [(64, 2048, 1408, 8), (64, 2048, 1408, 2048),
+                  (16, 512, 352, 32), (16, 512, 352, 2048)]
+# kernel and plain version: float32 IEEE products over the same rows, only
+# the order of the K sums differs (sums of up to 2,048 terms of O(1))
+GROUPED_ATOL = 1e-4
+
+
+def _grouped_case(gen, e, d, f, t, k=6, dead=0.25):
+    """Routed pairs as ``moe.dropless_ffn`` builds them, with a quarter of
+    the tokens dead (their rows NaN), and the weights of every expert that
+    holds no pair NaN: neither may reach the output."""
+    x = torch.randn((t, d), generator=gen, device="cuda")
+    live = torch.rand((t,), generator=gen, device="cuda") >= dead
+    live[0] = True
+    x[~live] = float("nan")
+    scores = torch.rand((t, e), generator=gen, device="cuda")
+    gate, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    gate, idx = gate[:, :k], idx[:, :k]
+    gate = gate / gate.sum(-1, keepdim=True)
+    idx = torch.where(live[:, None], idx, e)
+    ids, pairs = torch.sort(idx.reshape(-1), stable=True)
+    offsets = torch.searchsorted(ids, torch.arange(e + 1, device="cuda"))
+    w = [torch.randn((e, d, f), generator=gen, device="cuda") / d ** 0.5,
+         torch.randn((e, d, f), generator=gen, device="cuda") / d ** 0.5,
+         torch.randn((e, f, d), generator=gen, device="cuda") / f ** 0.5]
+    idle = (offsets[1:] == offsets[:-1])
+    for m in w:
+        m[idle] = float("nan")
+    return x, pairs, offsets, w, gate.reshape(-1), live, k
+
+
+@pytest.mark.parametrize("e,d,f,t", GROUPED_SHAPES)
+def test_grouped_kernel_matches_plain_at_the_cell_shapes(gen, e, d, f, t):
+    from repro_torch.kernels import grouped_ffn as gf
+    x, pairs, offsets, (wg, wi, wo), gate, live, k = _grouped_case(
+        gen, e, d, f, t)
+    want = gf.grouped_swiglu_plain(x, pairs, offsets, wg, wi, wo, gate, k)
+    stats = torch.zeros((3,), dtype=torch.int32, device="cuda")
+    runs = []
+    for _ in range(2):
+        before = gf.grouped_swiglu_cuda.launches
+        runs.append(ops.grouped_swiglu(x, pairs, offsets, wg, wi, wo, gate,
+                                       k, stats))
+        torch.cuda.synchronize()
+        assert gf.grouped_swiglu_cuda.launches == before + 1
+    got = runs[0]
+    # the same bits on two runs
+    assert torch.equal(got.view(torch.int32), runs[1].view(torch.int32))
+    assert torch.isfinite(got).all()
+    # a dead token's pairs are zero rows
+    dead = ~live.repeat_interleave(k)
+    assert (got[dead] == 0).all()
+    err = float((got - want).abs().max())
+    print(f"grouped ({e}, {d}, {f}) x {t * k} pairs: largest error "
+          f"{err:.3e} (outputs up to {float(want.abs().max()):.3f})")
+    torch.testing.assert_close(got, want, atol=GROUPED_ATOL, rtol=0)
+    n_live = int(live.sum())
+    hit = int((offsets[1:] > offsets[:-1]).sum())
+    assert stats.tolist() == [2 * k * n_live, 2 * hit, 2]
+
+
+def test_grouped_kernel_serves_the_dropless_ffn_on_card(gen):
+    """One deepseek-moe-16b layer at its published widths (d 2,048, 64
+    experts of 1,408, top 6, 2 shared): ``dropless_ffn`` on the card
+    against the plain reference's every-pair MoE on the CPU (float64)
+    over a decode step's 8 tokens, and the same on two runs."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import model_zoo, moe
+    from repro_torch.models.transformer import layer_params
+    import dataclasses
+    cfg = dataclasses.replace(ARCHS["deepseek-moe-16b"], num_layers=1,
+                              vocab_size=512)
+    params = model_zoo.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    lp = layer_params(params["layers"], 0)
+    x = torch.randn((8, 1, cfg.d_model), generator=gen, device="cuda")
+    with torch.inference_mode():
+        a = moe.serving_ffn(lp, cfg, x)
+        b = moe.serving_ffn(lp, cfg, x)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    lp64 = {k: ({kk: vv.double().cpu() for kk, vv in v.items()}
+                if isinstance(v, dict) else v.double().cpu())
+            for k, v in lp.items() if k in ("router", "experts", "shared")}
+    xf = x.reshape(8, -1).double().cpu()
+    probs = torch.softmax(xf @ lp64["router"], -1)
+    g, idx = torch.topk(probs, 6, dim=-1)
+    g = g / g.sum(-1, keepdim=True)
+    ref = torch.zeros_like(xf)
+    ex = lp64["experts"]
+    for t in range(8):
+        for j in range(6):
+            e = int(idx[t, j])
+            h = torch.nn.functional.silu(xf[t] @ ex["wg"][e]) * \
+                (xf[t] @ ex["wi"][e])
+            ref[t] += g[t, j] * (h @ ex["wo"][e])
+    sh = lp64["shared"]
+    ref += (torch.nn.functional.silu(xf @ sh["wg"]) * (xf @ sh["wi"])) \
+        @ sh["wo"]
+    err = float((a.reshape(8, -1).double().cpu() - ref).abs().max())
+    print(f"dropless_ffn on the card vs float64: {err:.3e}")
+    assert err < 1e-4
+
+
+@pytest.mark.parametrize("t,e", [(8, 64), (32, 16), (32, 64), (2048, 64),
+                                 (2048, 16)])
+def test_route_kernel_matches_plain(gen, t, e):
+    """``route_pairs`` on the card against its plain version: a decode step
+    of the L tier (8 tokens over 64 experts) and of the S tier (32 over 16),
+    the verify lane's 8 x 4 tokens (32 over 64) and a chunk pass (2,048
+    tokens over 64 blocks), each one call of the kernel pair; ties planted
+    (a row whose experts all tie, a row with its 6th and 7th tied), a third
+    of the tokens dead.  Offsets and every pair's place (the dead tokens'
+    last) exactly, the gates within 1e-6, the same bits twice."""
+    from repro_torch.kernels import grouped_ffn as gf
+    k = 6
+    logits = torch.randn((t, e), generator=gen, device="cuda") * 2
+    logits[0] = 0.5
+    top = torch.sort(logits[1], descending=True).values
+    logits[1][logits[1] == top[6]] = top[5]
+    live = torch.rand((t,), generator=gen, device="cuda") > 0.33
+    live[:2] = True
+    want = gf.route_pairs_plain(logits, k, live)
+    before = gf.route_pairs_cuda.launches
+    runs = [ops.route_pairs(logits, k, live) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert gf.route_pairs_cuda.launches == before + 2
+    (gate, pairs, offsets), again = runs
+    assert torch.equal(offsets, want[2])
+    assert int(offsets[-1]) == k * int(live.sum())
+    assert torch.equal(pairs, want[1])
+    assert torch.equal(again[1], pairs) and torch.equal(again[2], offsets)
+    assert torch.equal(again[0].view(torch.int32), gate.view(torch.int32))
+    torch.testing.assert_close(gate, want[0], atol=1e-6, rtol=0)

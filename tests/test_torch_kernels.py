@@ -148,11 +148,18 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     ops.ssd_chunk(torch.randn(1, 1, 8, 2, 8), torch.rand(1, 1, 8, 2),
                   -torch.rand(2), torch.randn(1, 1, 8, 8),
                   torch.randn(1, 1, 8, 8))
+    # two tokens x top 2 over 3 experts (d 8, f 4), one pair dead
+    ops.route_pairs(torch.randn(2, 3), 2, torch.tensor([True, False]))
+    ops.grouped_swiglu(torch.randn(2, 8), torch.tensor([0, 2, 1, 3]),
+                       torch.tensor([0, 2, 2, 3]), torch.randn(3, 8, 4),
+                       torch.randn(3, 8, 4), torch.randn(3, 4, 8),
+                       torch.rand(4), 2)
     assert ops.launch_counts() == {
         "hi_gate": 0, "decode_attention": 0, "decode_attention_paged": 0,
         "decode_attention_chunk_paged": 0, "copy_pages": 0, "ssd_chunk": 0,
         "decode_attention_paged[int8]": 0,
-        "decode_attention_chunk_paged[int8]": 0, "copy_pages[int8]": 0}
+        "decode_attention_chunk_paged[int8]": 0, "copy_pages[int8]": 0,
+        "grouped_swiglu": 0, "route_pairs": 0}
 
 
 def test_kernel_wrappers_refuse_non_cuda_tensors():
@@ -179,7 +186,7 @@ def test_build_commands_target_sm90a_in_parallel(tmp_path):
     link into a single shared library; the build key follows the sources."""
     from repro_torch.kernels import build
     compiles, link = build.compile_commands("nvcc", tmp_path)
-    assert len(compiles) == len(build.SOURCES) == 6
+    assert len(compiles) == len(build.SOURCES) == 7
     for cmd in compiles:
         assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
         assert "-Xptxas" in cmd and "-v" in cmd and "-O3" in cmd

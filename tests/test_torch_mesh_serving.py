@@ -276,8 +276,8 @@ def test_every_family_at_the_debug_mesh(arch, mesh):
     """Each served family through the (1, 1) mesh (qwen2-1.5b above;
     gemma3's local / global windows for the dense family, llava's VLM,
     mamba2's SSM, zamba2's hybrid, deepseek's MoE): the records of
-    ``mesh=None`` bitwise (the MoE L tier under the expert-parallel
-    dispatch)."""
+    ``mesh=None`` bitwise (the MoE L tier's experts on one ``model``
+    rank: the dropless dispatch, as without a mesh)."""
     c = ARCHS[arch].reduced()
     th = _median_theta(c, 4)
     a = _engine(c, th, cache_len=48).serve_stream(_reqs(c, 4), **KW)
