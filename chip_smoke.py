@@ -1577,6 +1577,14 @@ def _expected_launches(sched, before, kb, chunk):
     return exp
 
 
+def _graphs(sched) -> str:
+    """The scheduler's decode-lane CUDA graphs so far, per tier: captures
+    and replays (``serving/lane_graphs.py``)."""
+    st = sched.stats
+    return (f"graph captures {st['graph_captures']}, replays "
+            f"{st['graph_replays']}, eager ticks {st['graph_eager_ticks']}")
+
+
 def serve_stream_full_width(eng, kw=STREAM_KW, reqs=None,
                             need=("cow", "saved", "chunk")):
     """The continuous path at full width, two runs (theta 0.6, then the
@@ -1666,7 +1674,7 @@ def serve_stream_full_width(eng, kw=STREAM_KW, reqs=None,
                 f"prefill_tokens_saved {saved}, full restores {full}, "
                 f"cow_copies {cow}; one host "
                 f"fetch per tick; launches {counts} as the lane flags "
-                f"predict")
+                f"predict; {_graphs(sched)}")
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
             if run == 1 and not 0 < n_off < n_req:
@@ -1794,7 +1802,8 @@ def chunk_lane_phase():
         f"{sorted(len(r.prompt) for r in reqs)} tokens; {CHUNK_KW}): "
         f"{wall * 1e3:.1f} ms, {ticks} ticks of which {chunk_ticks} ran the "
         f"chunk lane (S {sched.srt.lane_ticks['chunk']}, L "
-        f"{sched.lrt.lane_ticks['chunk']}); launches {counts} as the lane "
+        f"{sched.lrt.lane_ticks['chunk']}); {_graphs(sched)}; launches "
+        f"{counts} as the lane "
         f"flags predict; {n_cmp}/{n_tok} S tokens equal to the per-token "
         f"path's (up to the first margin under {2 * CHUNK_LOGIT_TOL:g}); "
         f"peak max_memory_allocated "
@@ -2148,7 +2157,8 @@ def fault_stream_phase(eng, reqs, ref):
             f"{n}; breaker opened {brk.opens}x ({st['breaker_open_ticks']} "
             f"open ticks), closed at the end; escalation retries "
             f"{st['esc_retries']}, lost {st['esc_lost']}; one host fetch per "
-            f"tick; launches {counts} as the lane flags predict")
+            f"tick; launches {counts} as the lane flags predict; "
+            f"{_graphs(sched)}")
         runs.append(out)
     for rid, rec in runs[0].items():
         for key, v in rec.items():

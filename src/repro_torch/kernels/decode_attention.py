@@ -366,14 +366,18 @@ def _paged_cuda(name: str, q: torch.Tensor, pool_k: torch.Tensor,
 # the paged decode kernel's merge counters, one int per (slot, kv head),
 # per device and stream: the last block of each (slot, kv head) resets its
 # own, so they stay 0 between calls and are allocated (zeroed) only when a
-# call needs more of them
+# call needs more of them.  The ones a larger call replaces are kept: a
+# CUDA graph captured with them still reads them
 _COUNTERS: dict = {}
+_REPLACED: list = []
 
 
 def _merge_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
     key = (dev.index, stream)
     t = _COUNTERS.get(key)
     if t is None or t.numel() < n:
+        if t is not None:
+            _REPLACED.append(t)
         t = torch.zeros((max(n, 256),), dtype=torch.int32, device=dev)
         _COUNTERS[key] = t
     return t

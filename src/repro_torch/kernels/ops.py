@@ -224,3 +224,28 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn, attr in KERNELS.values():
         setattr(fn, attr, 0)
+
+
+def add_launch_counts(delta: Dict[str, int]) -> None:
+    """Add ``delta`` (kernel name -> launches) to the counters: a CUDA
+    graph's replay launches what its capture recorded without calling the
+    wrappers (``serving/lane_graphs.py``)."""
+    for name, n in delta.items():
+        fn, attr = KERNELS[name]
+        setattr(fn, attr, getattr(fn, attr) + n)
+
+
+# the entry points above, as this module defines them: a caller may
+# replace one (tests count or fault them; the benchmark tallies the paged
+# kernels' work), and a captured CUDA graph would not see that
+ENTRY_POINTS = ("hi_gate", "decode_attention", "decode_attention_paged",
+                "decode_attention_chunk_paged", "copy_pages", "ssd_chunk",
+                "ssd", "route_pairs", "grouped_swiglu")
+_DEFINED = tuple(globals()[name] for name in ENTRY_POINTS)
+
+
+def replaced() -> bool:
+    """Whether any of ``ENTRY_POINTS`` is not the function defined here."""
+    mod = globals()
+    return any(mod[name] is not fn
+               for name, fn in zip(ENTRY_POINTS, _DEFINED))

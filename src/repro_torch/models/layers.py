@@ -424,8 +424,10 @@ def quant_append_page(pool: torch.Tensor, scale: torch.Tensor,
     absmax = v32.abs().amax(dim=-1)                           # (n, K)
     # offset 0 is the first write into a freshly allocated page: reset the
     # recycled page's stale scale (off != 0 tokens re-zero the null page,
-    # which nothing dequantises)
-    scale[torch.where(off == 0, pg, 0)] = 0.0
+    # which nothing dequantises).  A fill, not an assignment of a host
+    # scalar, which would copy it to the card, and no copy to the card may
+    # stand in a captured CUDA graph
+    scale.index_fill_(0, torch.where(off == 0, pg, 0), 0.0)
     old = scale[pg]                                           # (n, K)
     scale.scatter_reduce_(0, pg[:, None].expand(-1, kh), absmax / _QMAX,
                           reduce="amax", include_self=True)

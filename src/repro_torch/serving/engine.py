@@ -369,8 +369,9 @@ class HIEngine:
         prefill (``stats['prefill_tokens_saved']``); ``chunk_prefill``
         feeds prompts longer than ``chunk_size`` through the chunk lane.
         ``validate=True`` checks both pools' invariants after every tick.
-        ``stats['stream_compiles']`` counts scheduler builds (ROADMAP: CUDA
-        graph captures later).
+        ``stats['stream_compiles']`` counts scheduler builds; on the card
+        the scheduler's ``graph_captures`` counts its decode lanes' CUDA
+        graphs (``serving/lane_graphs.py``).
 
         ``kv_dtype='int8'`` stores both tiers' pages as int8 with per-page,
         per-head float32 scales (about half the bf16 pool's bytes for the

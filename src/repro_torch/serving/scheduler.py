@@ -88,6 +88,14 @@ launches as the pages.
 ``counters.compiles`` counts scheduler builds (the reference counts its one
 AOT compile); the engine reports it as ``stream_compiles``.
 
+CUDA graphs (``lane_graphs.py``).  On one CUDA device, off a mesh and
+outside the speculative roles, each tier's decode lane is captured once per
+key (tier, sampled, write block, pool dtype) and replayed: the tick leads
+each tier's upload with the lane's operands (``decode_lane_keys``), so the
+graph's inputs refresh in three copies.  The counters ``graph_captures``,
+``graph_replays`` and ``graph_eager_ticks`` count per tier, and the live
+lane's telemetry span carries ``graph``.
+
 The mesh path (``mesh=``, a ``launch/mesh.Mesh`` with axes ``("data",
 "model")``) is the paper's topology at scale, SPMD over
 ``torch.distributed``: one process per device, every rank running this
@@ -144,7 +152,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import HIConfig, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import model_zoo
-from repro_torch.serving import sampler
+from repro_torch.serving import lane_graphs, sampler
 from repro_torch.serving.batcher import AdmissionQueue, AdmittedRequest
 from repro_torch.serving.faults import (FAIL_LOCAL_THETA, NO_FAULTS,
                                         CircuitBreaker, Escalation,
@@ -176,12 +184,28 @@ def chunk_lane_width(live: int, width: int) -> int:
     return n if n < width else width
 
 
-def _upload(arrays: Dict[str, np.ndarray],
-            device: torch.device) -> Dict[str, torch.Tensor]:
+def _write_block_key(chunk: int, sharing: bool) -> Optional[str]:
+    """The decode lane's write block: the chunked tiers' ``draft_wblock``,
+    else the sharing tiers' ``wblock``, else none (writes go through
+    ``block``)."""
+    return "draft_wblock" if chunk else "wblock" if sharing else None
+
+
+def decode_lane_keys(chunk: int, sharing: bool) -> Tuple[str, ...]:
+    """The decode lane's operands, in the order a tier's upload leads with
+    them (one contiguous run of words: ``lane_graphs``' static input)."""
+    wb = _write_block_key(chunk, sharing)
+    return ("pos", "block", *((wb,) if wb else ()), "decode_live", "seeds",
+            "tok_idx", "temps")
+
+
+def _upload(arrays: Dict[str, np.ndarray], device: torch.device):
     """A tick's operands in ONE host->device copy: packed into one int32
     buffer (pinned, copied without blocking the host) and split into views
     on the device; bool arrays come back as bool, float32 arrays (the
-    sampling temperatures) cross bit-cast and come back as float32."""
+    sampling temperatures) cross bit-cast and come back as float32.
+    Returns (the views, the device buffer, each array's (name, kind,
+    shape, offset))."""
     parts, metas, at = [], [], 0
     for name, a in arrays.items():
         a = np.asarray(a)
@@ -193,6 +217,11 @@ def _upload(arrays: Dict[str, np.ndarray],
     buf = torch.from_numpy(np.concatenate(parts))
     if device.type == "cuda":
         buf = buf.pin_memory().to(device, non_blocking=True)
+    return _views(buf, metas), buf, metas
+
+
+def _views(buf: torch.Tensor, metas) -> Dict[str, torch.Tensor]:
+    """The arrays of ``metas`` as views of the packed words ``buf``."""
     out = {}
     for name, kind, shape, start in metas:
         n = int(np.prod(shape, dtype=np.int64))
@@ -200,6 +229,22 @@ def _upload(arrays: Dict[str, np.ndarray],
         out[name] = (t.bool() if kind == "b" else
                      t.view(torch.float32) if kind == "f" else t)
     return out
+
+
+def _lane_words(buf: torch.Tensor, metas, prefix: str,
+                keys: Tuple[str, ...]):
+    """A tier's decode-lane operands (``decode_lane_keys``, led by
+    ``prefix``): their contiguous slice of ``buf`` and their metas
+    relative to it."""
+    names = [prefix + k for k in keys]
+    lane = [m for m in metas if m[0] in names]
+    if [m[0] for m in lane] != names:
+        raise ValueError(f"the decode lane's words {names} are not "
+                         "adjacent in the upload")
+    lo = lane[0][3]
+    hi = lane[-1][3] + int(np.prod(lane[-1][2], dtype=np.int64))
+    return buf[lo:hi], [(name[len(prefix):], kind, shape, at - lo)
+                        for name, kind, shape, at in lane]
 
 
 def _checksum(packed: torch.Tensor) -> torch.Tensor:
@@ -211,7 +256,8 @@ def _checksum(packed: torch.Tensor) -> torch.Tensor:
 
 
 def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
-                  sharing: bool, chunk: int = 0, role: str = "plain"):
+                  sharing: bool, chunk: int = 0, role: str = "plain",
+                  graphs: Optional[lane_graphs.LaneGraphs] = None):
     """The per-tier tick: COW copies, batched admission prefill with the
     prefix-cache save / restore, the chunk-prefill lane and
     ``decode_block`` decode steps (``role`` ``"plain"``, or ``"spec_s"``,
@@ -227,7 +273,13 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
     family routes only those, the others ignore them.  The tick returns
     ``"moe"``, the (pairs, experts hit, calls) the routed FFN counted on
     the device (``model_zoo.observed``; zeros for the families without
-    one), fetched with the tick's outputs."""
+    one), fetched with the tick's outputs.
+
+    With ``graphs`` set (``lane_graphs.engages``), the decode lane replays
+    a CUDA graph per key (tier, sampled, write block, pool dtype) over the
+    tick's ``lane_words``; the ticks that capture, and those whose ``ops``
+    entry points were replaced, run it eagerly."""
+    wb_key = _write_block_key(chunk, sharing)
 
     def conf_of(logits, theta):
         return ops.hi_gate(logits, theta, metric)[0]
@@ -368,8 +420,38 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
                 # bonus position to 1.0, which would skew calibration)
                 "match": match, "draft_confs": confs.T}
 
+    def decode_lane(params, theta, lane, last, flags, core):
+        """``decode_block`` decode steps of every slot from ``last``
+        (B,) over the ``decode_lane_keys`` operands ``lane``: the (K, B)
+        tokens and confidences, and in the draft role the staged states
+        after each step."""
+        b = lane["block"].shape[0]
+        pre_d = model_zoo.chunk_stage(cfg, core) if chunk else None
+        toks, confs, snaps = [], [], []
+        live = lane["decode_live"][:, None]
+        for kk in range(decode_block):
+            logits, core = model_zoo.decode_step_paged(
+                params, cfg, last[:, None], lane["pos"] + kk, lane["block"],
+                core, write_block=lane[wb_key] if wb_key else None,
+                live=live)
+            confs.append(conf_of(logits, theta))
+            last = pick(logits, flags, lane["seeds"], lane["tok_idx"] + kk,
+                        lane["temps"])
+            toks.append(last)
+            if role == "spec_s":
+                snaps.append(model_zoo.draft_stage(cfg, core, b))
+        if chunk:
+            # slots still mid chunk-prefill took garbage decode steps:
+            # their page writes went to the null page; restore their
+            # recurrent state (none for the dense family) from the copy
+            model_zoo.restore_stage(cfg, core, pre_d, ~lane["decode_live"])
+        staged = {key: torch.stack([s[key] for s in snaps])
+                  for key in (snaps[0] if snaps else {})}
+        return torch.stack(toks), torch.stack(confs), staged
+
     def lanes(params, theta, tin, flags, pool: KVPool, draft=None,
-              tel: Optional[Telemetry] = None, tier: str = ""):
+              tel: Optional[Telemetry] = None, tier: str = "",
+              stats=None, lane_words=None):
         a = tin["admit_tokens"].shape[0]
         n_slots = tin["last_tok"].shape[0]
         dev = tin["last_tok"].device
@@ -408,43 +490,37 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
             out["chunk_conf"] = conf_c
         block = tin["block"]
         b = block.shape[0]
-        wb = tin["draft_wblock"] if chunk else \
-            (tin["wblock"] if sharing else None)
         if role == "spec_l":
             with _NO_SPAN if tel is None or not flags["any_live"] else \
                     tel.lane(tier, "verify"):
                 out.update(verify(params, theta, tin, flags, pool, draft,
-                                  wb))
+                                  tin[wb_key] if wb_key else None))
             return out
         staged = {}
         if flags["any_live"]:
-            with _NO_SPAN if tel is None else tel.lane(tier, "live"):
-                core = pool.buffers
-                pre_d = model_zoo.chunk_stage(cfg, core) if chunk else None
+            span = _NO_SPAN if tel is None else tel.lane(tier, "live")
+            with span:
                 last = last0[:n_slots]
-                toks, confs, snaps = [], [], []
-                live = tin["decode_live"][:, None]
-                for kk in range(decode_block):
-                    logits, core = model_zoo.decode_step_paged(
-                        params, cfg, last[:, None], tin["pos"] + kk, block,
-                        core, write_block=wb, live=live)
-                    confs.append(conf_of(logits, theta))
-                    last = pick(logits, flags, tin["seeds"],
-                                tin["tok_idx"] + kk, tin["temps"])
-                    toks.append(last)
-                    if role == "spec_s":
-                        snaps.append(model_zoo.draft_stage(cfg, core, b))
-                if chunk:
-                    # slots still mid chunk-prefill took garbage decode
-                    # steps: their page writes went to the null page;
-                    # restore their recurrent state (none for the dense
-                    # family) from the copy
-                    model_zoo.restore_stage(cfg, core, pre_d,
-                                            ~tin["draft_live"])
-                out["toks"] = torch.stack(toks)              # (K, B)
-                out["confs"] = torch.stack(confs)
-                staged = {key: torch.stack([s[key] for s in snaps])
-                          for key in (snaps[0] if snaps else {})}
+                res = None
+                if graphs is not None:
+                    words, metas = lane_words
+                    obs = None if tel is None else tier
+
+                    def replayable(w, lst, th, st):
+                        with model_zoo.observed(cfg, st, obs):
+                            return decode_lane(params, th, _views(w, metas),
+                                               lst, flags, pool.buffers)[:2]
+
+                    res = graphs.run(
+                        (tier, flags["sampled"], wb_key, pool.kv_dtype), tier,
+                        replayable, words, last, theta, stats)
+                if res is None:
+                    out["toks"], out["confs"], staged = decode_lane(
+                        params, theta, tin, last, flags, pool.buffers)
+                else:
+                    (out["toks"], out["confs"]), replayed = res  # (K, B)
+                    if tel is not None:
+                        span.graph = replayed
         else:
             # no decoding slot this tick (e.g. all still chunk-prefilling)
             out["toks"] = torch.zeros((decode_block, b), dtype=torch.int64,
@@ -457,11 +533,13 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
         return out
 
     def tick(params, theta, tin, flags, pool: KVPool, draft=None,
-             tel: Optional[Telemetry] = None, tier: str = ""):
+             tel: Optional[Telemetry] = None, tier: str = "",
+             lane_words=None):
         stats = torch.zeros((3,), dtype=torch.int32,
                             device=tin["last_tok"].device)
         with model_zoo.observed(cfg, stats, None if tel is None else tier):
-            res = lanes(params, theta, tin, flags, pool, draft, tel, tier)
+            res = lanes(params, theta, tin, flags, pool, draft, tel, tier,
+                        stats, lane_words)
         (res[0] if role == "spec_s" else res)["moe"] = stats
         return res
 
@@ -954,9 +1032,15 @@ class ContinuousScheduler:
             self._stage = torch.zeros((2,) + shape, dtype=torch.int32,
                                       device=self.device)
         roles = ("spec_s", "spec_l") if speculative else ("plain", "plain")
+        # the decode lanes' CUDA graphs (one pool for both tiers), where the
+        # tiers' device, mesh and role allow them
+        self._graphs = (lane_graphs.LaneGraphs(self.device, self.counters)
+                        if lane_graphs.engages(self.device, mesh, roles[0])
+                        else None)
         self._ticks = {
             key: _tier_tick_fn(cfg, hi.metric, self.decode_block,
-                               rt.sharing, chunk=self.chunk, role=role)
+                               rt.sharing, chunk=self.chunk, role=role,
+                               graphs=self._graphs)
             for key, cfg, rt, role in (("s", s_tier.cfg, self.srt, roles[0]),
                                        ("l", l_cfg, self.lrt, roles[1]))}
         self.set_default_temperature(temperature)
@@ -1064,20 +1148,27 @@ class ContinuousScheduler:
         from repro_torch.serving import engine as engine_mod  # _host_fetch
 
         tel, mesh = self.tel, self._mesh
+        # each tier's decode-lane operands lead its words, adjacent
+        keys = {"s": decode_lane_keys(self.chunk, self.srt.sharing),
+                "l": decode_lane_keys(self.chunk, self.lrt.sharing)}
         host_in, s_flags = {}, []
         for r, rt in enumerate(self.srts):
             arrays, flags = rt.tick_inputs(self._admit_s_max)
             s_flags.append(flags)
             if r == self._rep:
+                host_in.update({f"s.{k}": arrays[k] for k in keys["s"]})
                 host_in.update({f"s.{k}": v for k, v in arrays.items()})
         arrays, l_flags = self.lrt.tick_inputs(self._admit_s_max)
         if mesh is not None:
             arrays["admit_tokens"] = np.zeros_like(arrays["admit_tokens"])
             host_in.update(self._stage_rows())
+        host_in.update({f"l.{k}": arrays[k] for k in keys["l"]})
         host_in.update({f"l.{k}": v for k, v in arrays.items()})
-        dev_in = _upload(host_in, self.device)
+        dev_in, buf, metas = _upload(host_in, self.device)
         tins = {key: {k[2:]: v for k, v in dev_in.items()
                       if k.startswith(key + ".")} for key in ("s", "l", "t")}
+        lane = {key: _lane_words(buf, metas, key + ".", keys[key])
+                for key in ("s", "l")} if self._graphs is not None else {}
         flags = {"s": s_flags[self._rep], "l": l_flags}
         if tel is not None:
             tel.mark("build_operands")
@@ -1115,12 +1206,14 @@ class ContinuousScheduler:
         else:
             outs["s"] = self._ticks["s"](self.s.params, theta_t, tins["s"],
                                          flags["s"], self.local_srt.pool,
-                                         tel=tel, tier=s_name)
+                                         tel=tel, tier=s_name,
+                                         lane_words=lane.get("s"))
             with act.use_mesh(self._l_mesh, self._l_cut):
                 outs["l"] = self._ticks["l"](self._l_params, theta_t,
                                              tins["l"], flags["l"],
                                              self.lrt.pool, tel=tel,
-                                             tier=l_name)
+                                             tier=l_name,
+                                             lane_words=lane.get("l"))
         if mesh is None:
             tree = {f"s.{k}": v for k, v in outs["s"].items()}
         else:
@@ -1235,8 +1328,12 @@ class ContinuousScheduler:
         if fr is None:
             return
         # deterministic fields only: serve_time is wall clock and would
-        # break the byte-equal dumps
-        counters = {k: v for k, v in self.stats.items() if k != "serve_time"}
+        # break the byte-equal dumps; a per-tier family (the lane graphs')
+        # appears once a tier bumped it, as a copy
+        counters = {k: dict(v) if isinstance(v, dict) else v
+                    for k, v in self.stats.items()
+                    if k != "serve_time" and not (isinstance(v, dict)
+                                                  and not v)}
         snap: Dict[str, Any] = {"tick": tick, "gauges": gauges,
                                 "counters": counters}
         if fr.include_timings and tel is not None and tel.ticks:

@@ -111,6 +111,11 @@ class SchedCounters:
     breaker_opens: int = 0
     esc_retries: int = 0
     esc_lost: int = 0
+    # per tier: decode lanes captured as CUDA graphs, replayed, and run
+    # eagerly by a graph-capable scheduler (``serving/lane_graphs.py``)
+    graph_captures: Dict[str, int] = field(default_factory=dict)
+    graph_replays: Dict[str, int] = field(default_factory=dict)
+    graph_eager_ticks: Dict[str, int] = field(default_factory=dict)
 
 
 @dataclass
@@ -339,6 +344,7 @@ class LaneSpan:
     t0: float
     t1: float
     tick: int
+    graph: bool = False         # the lane replayed a captured CUDA graph
 
 
 @dataclass
@@ -361,11 +367,13 @@ def _open_range(name: str) -> record_function:
 
 class _Lane:
     """The context of one lane: its ``hi.<tier>.<lane>`` profiler range
-    inside its host-clock span."""
-    __slots__ = ("tel", "tier", "lane", "t0", "rf")
+    inside its host-clock span.  The lane sets ``graph`` when it replayed
+    a captured CUDA graph."""
+    __slots__ = ("tel", "tier", "lane", "t0", "rf", "graph")
 
     def __init__(self, tel: "Telemetry", tier: str, lane: str):
         self.tel, self.tier, self.lane = tel, tier, lane
+        self.graph = False
 
     def __enter__(self):
         self.t0 = _now()
@@ -373,7 +381,8 @@ class _Lane:
 
     def __exit__(self, *exc):
         self.rf.__exit__(*exc)
-        self.tel._lane_done(self.tier, self.lane, self.t0, _now())
+        self.tel._lane_done(self.tier, self.lane, self.t0, _now(),
+                            self.graph)
 
 
 class Telemetry:
@@ -433,12 +442,13 @@ class Telemetry:
         of the in-flight tick and a ``hi.<tier>.<lane>`` profiler range."""
         return _Lane(self, tier, lane)
 
-    def _lane_done(self, tier: str, lane: str, t0: float, t1: float) -> None:
+    def _lane_done(self, tier: str, lane: str, t0: float, t1: float,
+                   graph: bool = False) -> None:
         key = f"{tier}.{lane}"
         self.lane_time[key] = self.lane_time.get(key, 0.0) + (t1 - t0)
         if self._tick is not None:
             self._tick.lanes.append(LaneSpan(tier, lane, t0, t1,
-                                             self._tick.index))
+                                             self._tick.index, graph))
 
     def _close_ranges(self) -> None:
         for name in ("_dispatch_range", "_tick_range"):
@@ -643,11 +653,17 @@ class Telemetry:
         if self.counters is not None:
             for f in fields(self.counters):
                 v = getattr(self.counters, f.name)
+                if isinstance(v, dict) and not v:
+                    continue             # a per-tier family nothing bumped
                 metric = f"hi_{f.name}_total"
                 lines.append(f"# HELP {metric} Cumulative scheduler "
                              f"counter '{f.name}'.")
                 lines.append(f"# TYPE {metric} counter")
-                lines.append(f"{metric} {v}")
+                if isinstance(v, dict):
+                    lines.extend(f'{metric}{{tier="{escape_label(t)}"}} {n}'
+                                 for t, n in sorted(v.items()))
+                else:
+                    lines.append(f"{metric} {v}")
         lines.append("# HELP hi_tick_phase_seconds_total "
                      f"{_HELP['hi_tick_phase_seconds_total']}")
         lines.append("# TYPE hi_tick_phase_seconds_total counter")

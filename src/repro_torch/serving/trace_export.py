@@ -87,7 +87,9 @@ def chrome_trace(tel) -> Dict[str, Any]:
                    "name": f"{sp.tier}.{sp.lane}", "cat": "lane",
                    "ts": us(sp.t0),
                    "dur": max(round((sp.t1 - sp.t0) * 1e6, 3), 0.001),
-                   "args": {"tick": sp.tick}})
+                   # a lane that replayed a captured CUDA graph says so
+                   "args": ({"tick": sp.tick, "graph": True} if sp.graph
+                            else {"tick": sp.tick})})
 
     # -- watchdog / audit instant events ------------------------------------
     for t, name, args in getattr(tel, "events", ()):

@@ -2220,3 +2220,186 @@ def test_route_kernel_matches_plain(gen, t, e):
     assert torch.equal(again[1], pairs) and torch.equal(again[2], offsets)
     assert torch.equal(again[0].view(torch.int32), gate.view(torch.int32))
     torch.testing.assert_close(gate, want[0], atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the decode lanes as CUDA graphs (``serving/lane_graphs.py``): each case's
+# stream with the graphs (the scheduler's own rule) against the same stream
+# with the eager lane (``lane_graphs.engages`` monkeypatched to refuse)
+# ---------------------------------------------------------------------------
+
+def _graph_tiers(name):
+    """Both tiers on the card: the danube- and deepseek-shaped ones at
+    their published widths and 2 layers (vocab 32,000; deepseek's 102,400
+    cut to 32,000), S = ``s_variant(4)``; mamba2 and zamba2 reduced."""
+    import dataclasses
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import model_zoo
+    from repro_torch.serving.engine import TierModel
+    if name in ("mamba2-370m", "zamba2-2.7b"):
+        return _reduced_tiers(name)[1]
+    cfg = dataclasses.replace(ARCHS[name], num_layers=2, vocab_size=32_000)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    return [TierModel(c, model_zoo.init_params(g, c))
+            for c in (cfg.s_variant(4), cfg)]
+
+
+# (tiers, pool dtype, prefix sharing, sampled, chunk lane)
+GRAPH_CASES = [
+    ("h2o-danube-3-4b", "bf16", True, False, True),
+    ("h2o-danube-3-4b", "int8", True, False, True),
+    ("h2o-danube-3-4b", "bf16", False, True, True),
+    ("h2o-danube-3-4b", "bf16", True, True, False),
+    ("deepseek-moe-16b", "bf16", True, False, True),
+    ("deepseek-moe-16b", "int8", False, True, True),
+    ("mamba2-370m", "bf16", True, False, True),
+    ("zamba2-2.7b", "int8", True, True, True),
+    ("zamba2-2.7b", "bf16", False, False, False)]
+
+
+def _graph_stream(tiers, kw, temp, graphs, monkeypatch, tel=None, eng=None):
+    """A stream of ``_stream_requests`` (every request escalated) on ``eng``
+    or a new engine, with the graphs or the eager lane: (records,
+    scheduler, launch counts, engine)."""
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.serving import lane_graphs
+    from repro_torch.serving.engine import HIEngine
+    monkeypatch.setattr(
+        lane_graphs, "engages",
+        lane_graphs.engages if graphs else lambda *a: False)
+    reqs = _stream_requests(tiers[0].cfg.vocab_size)
+    for r in reqs:
+        r.temperature = temp
+    if eng is None:
+        eng = HIEngine(*tiers, HIConfig(theta=1.1, capacity_factor=1.0),
+                       max_new_tokens=6)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        out = eng.serve_stream(reqs, telemetry=tel, **kw)
+    torch.cuda.synchronize()
+    return out, eng._stream[1], ops.launch_counts(), eng
+
+
+@pytest.mark.parametrize("name,kv,sharing,sampled,chunk", GRAPH_CASES)
+def test_graph_lane_equals_the_eager_lane_on_card(gen, monkeypatch, name, kv,
+                                                  sharing, sampled, chunk):
+    """Tokens, statuses, offloads and confidences bit for bit, the MoE
+    counters and every kernel's launches equal; each tier captures once a
+    key and replays its other decode-lane ticks; the S and L graphs replay
+    in the same ticks on one stream, over one hi_gate merge workspace."""
+    from repro_torch.serving.telemetry import Telemetry
+    tiers = _graph_tiers(name)
+    kw = dict(STREAM_KW, decode_block=4, kv_dtype=kv, prefix_sharing=sharing,
+              chunk_prefill=chunk)
+    temp = 0.8 if sampled else 0.0
+    tel = Telemetry()
+    got, sched, counts, _ = _graph_stream(tiers, kw, temp, True,
+                                          monkeypatch, tel)
+    ref, ref_sched, ref_counts, _ = _graph_stream(tiers, kw, temp, False,
+                                                  monkeypatch)
+    assert ref_sched._graphs is None
+    assert got.keys() == ref.keys()
+    for rid in ref:
+        for key in ("tokens", "s_tokens", "offloaded", "served_remote",
+                    "status"):
+            np.testing.assert_array_equal(got[rid][key], ref[rid][key],
+                                          err_msg=f"{rid} {key}")
+        assert np.float32(got[rid]["confidence"]).view(np.int32) == \
+            np.float32(ref[rid]["confidence"]).view(np.int32), rid
+    assert counts == ref_counts
+    for rt, ref_rt in ((sched.srt, ref_sched.srt), (sched.lrt, ref_sched.lrt)):
+        assert (rt.moe_pairs, rt.moe_experts_hit, rt.moe_calls) == \
+            (ref_rt.moe_pairs, ref_rt.moe_experts_hit, ref_rt.moe_calls)
+        assert rt.lane_ticks == ref_rt.lane_ticks
+    if name == "deepseek-moe-16b":
+        assert sched.lrt.moe_calls > 0
+    st = sched.stats
+    live = {rt.name: rt.lane_ticks["live"] for rt in (sched.srt, sched.lrt)}
+    assert {t: st["graph_captures"][t] + st["graph_replays"][t]
+            for t in live} == live
+    assert st["graph_captures"] == {"S": 1, "L": 1}
+    assert st["graph_eager_ticks"] == {}
+    both = [t for t in tel.ticks
+            if {sp.tier for sp in t.lanes if sp.graph} == {"S", "L"}]
+    assert both, "no tick replayed both tiers' graphs"
+    if hg.gate_splits(kw["num_slots"], tiers[0].cfg.vocab_size) > 1:
+        # the gate's rows split: both tiers' graphs merge in the capture
+        # stream's one workspace
+        assert (0, sched._graphs.stream.cuda_stream) in hg._SCRATCH
+    print(f"{name} {kv} sharing {sharing} sampled {sampled} chunk {chunk}: "
+          f"{len(ref)} requests, live ticks {live}, replays "
+          f"{st['graph_replays']}, {len(both)} ticks replayed both")
+
+
+def test_graph_lane_kernels_in_the_profiler_trace(gen, monkeypatch):
+    """Under ``torch.profiler``, a stream whose graphs were captured before
+    the profiler started shows the replayed kernels by name, launched by
+    ``cudaGraphLaunch``, as many as the eager stream's and with their device
+    time within 10% of the eager lane's."""
+    from collections import defaultdict
+    from torch.profiler import ProfilerActivity, profile
+    tiers = _graph_tiers("h2o-danube-3-4b")
+    kw = dict(STREAM_KW, decode_block=4, num_slots=8, l_slots=8,
+              chunk_prefill=False)
+    names = ("paged_attention_split_kernel", "hi_gate_kernel")
+    runs = {}
+    for graphs in (True, False):
+        # the first stream captures, before the profiler starts
+        eng = _graph_stream(tiers, kw, 0.0, graphs, monkeypatch)[3]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _graph_stream(tiers, kw, 0.0, graphs, monkeypatch, eng=eng)
+        evs = list(prof.profiler.kineto_results.events())
+        launch = {e.correlation_id(): e.name() for e in evs
+                  if e.device_type().name == "CPU"
+                  and e.name().startswith("cu")}
+        n, t, by = defaultdict(int), defaultdict(float), defaultdict(set)
+        for e in evs:
+            if e.device_type().name != "CUDA" or e.end_ns() <= e.start_ns():
+                continue
+            for k in names:
+                if k in e.name():
+                    n[k] += 1
+                    t[k] += (e.end_ns() - e.start_ns()) / 1e3
+                    by[k].add(launch.get(e.correlation_id(), "?"))
+        runs[graphs] = (n, t, by)
+    (gn, gt, gby), (en, et, eby) = runs[True], runs[False]
+    print({k: (gn[k], round(gt[k], 1), en[k], round(et[k], 1)) for k in names})
+    for k in names:
+        assert gn[k] == en[k] > 0, k
+        assert "cudaGraphLaunch" in gby[k], (k, gby[k])
+        assert abs(gt[k] - et[k]) <= 0.1 * et[k], (k, gt[k], et[k])
+
+
+def test_benchmark_tally_runs_the_lanes_eagerly(gen, monkeypatch):
+    """``hibench/program.tally_kernels`` wraps the two paged entry points:
+    a stream under it on a scheduler that holds graphs runs its decode
+    lanes eagerly, so the tally records every paged decode call, as many
+    as the kernel's launches and the lane flags predict."""
+    from hibench import program
+    tiers = _graph_tiers("h2o-danube-3-4b")
+    kw = dict(STREAM_KW, decode_block=4)
+    from repro_torch.configs.base import HIConfig
+    from repro_torch.serving.engine import HIEngine
+    eng = HIEngine(*tiers, HIConfig(theta=1.1, capacity_factor=1.0),
+                   max_new_tokens=6)
+    reqs = _stream_requests(tiers[0].cfg.vocab_size)
+    with torch.inference_mode():
+        eng.serve_stream(reqs, **kw)
+        sched = eng._stream[1]
+        replays = dict(sched.stats["graph_replays"])
+        live0 = {rt.name: rt.lane_ticks["live"]
+                 for rt in (sched.srt, sched.lrt)}
+        before = ops.launch_counts()["decode_attention_paged"]
+        calls = {}
+        with program.tally_kernels(calls):
+            eng.serve_stream(reqs, **kw)
+    torch.cuda.synchronize()
+    live = {rt.name: rt.lane_ticks["live"] - live0[rt.name]
+            for rt in (sched.srt, sched.lrt)}
+    assert sched.stats["graph_replays"] == replays
+    assert sched.stats["graph_eager_ticks"] == live
+    ran = ops.launch_counts()["decode_attention_paged"] - before
+    layers = {rt.name: rt.pool.cfg.num_layers for rt in (sched.srt, sched.lrt)}
+    assert len(calls["decode_attention_paged"]) == ran == sum(
+        4 * layers[t] * n for t, n in live.items()) > 0
