@@ -3132,9 +3132,7 @@ def check_grouped_swiglu(gen):
             gen, e, d, f, t)
         want = gf.grouped_swiglu_plain(x, pairs, offsets, wg, wi, wo, gate,
                                        k)
-        stats = torch.zeros((3,), dtype=torch.int32, device="cuda")
-        got = gf.grouped_swiglu_cuda(x, pairs, offsets, wg, wi, wo, gate, k,
-                                     stats)
+        got = gf.grouped_swiglu_cuda(x, pairs, offsets, wg, wi, wo, gate, k)
         again = gf.grouped_swiglu_cuda(x, pairs, offsets, wg, wi, wo, gate,
                                        k)
         torch.cuda.synchronize()
@@ -3150,9 +3148,6 @@ def check_grouped_swiglu(gen):
                                  f" > {GROUPED_ATOL}")
         n_live = int(live.sum())
         p, hit = k * n_live, int((offsets[1:] > offsets[:-1]).sum())
-        if stats.tolist() != [p, hit, 1]:
-            raise AssertionError(f"grouped_swiglu {label}: counters "
-                                 f"{stats.tolist()}, want {[p, hit, 1]}")
         del wg, wi, wo, want, got, again
         wbytes = 3 * e * d * f * 4
         copies_ = max(2, math.ceil(2 * L2_BYTES / wbytes))

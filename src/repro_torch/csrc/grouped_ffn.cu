@@ -252,12 +252,11 @@ struct Tile {
 template <int BM>
 __device__ __forceinline__ void find_tile(const int64_t* __restrict__ offsets,
                                           int E, int tile, int* s_e,
-                                          int* s_row0, int* s_row_end,
-                                          int* stats) {
+                                          int* s_row0, int* s_row_end) {
   const int lane = threadIdx.x;
   if (lane == 0) *s_e = -1;
   __syncwarp();
-  int carry = 0, hit = 0;
+  int carry = 0;
   for (int e0 = 0; e0 < E; e0 += 32) {
     const int e = e0 + lane;
     const int lo = e < E ? static_cast<int>(offsets[e]) : 0;
@@ -276,12 +275,6 @@ __device__ __forceinline__ void find_tile(const int64_t* __restrict__ offsets,
       *s_row_end = hi;
     }
     carry += __shfl_sync(0xffffffffu, inc, 31);
-    hit += __popc(__ballot_sync(0xffffffffu, hi > lo));
-  }
-  if (stats != nullptr && lane == 0) {
-    atomicAdd(stats, static_cast<int>(offsets[E]));
-    atomicAdd(stats + 1, hit);
-    atomicAdd(stats + 2, 1);
   }
 }
 
@@ -292,7 +285,7 @@ grouped_body(const float* __restrict__ a, int64_t lda,
                const int64_t* __restrict__ offsets,
                const float* __restrict__ w0, const float* __restrict__ w1,
                int kdim, int n, int E, int K, const float* __restrict__ gate,
-               float* __restrict__ out, int64_t ldo, int* stats) {
+               float* __restrict__ out, int64_t ldo) {
   using C = Tile<BM, BN, BK, TM, TN, UP>;
   __shared__ __align__(16) float As[2][BK][BM + C::kAPad];
   __shared__ __align__(16) float Bs[C::kNB][2][BK][BN];
@@ -300,9 +293,7 @@ grouped_body(const float* __restrict__ a, int64_t lda,
   __shared__ int64_t s_src[BM];
 
   if (threadIdx.x < 32)
-    find_tile<BM>(offsets, E, blockIdx.x, &s_e, &s_row0, &s_row_end,
-                  (UP && blockIdx.x == 0 && blockIdx.y == 0) ? stats
-                                                             : nullptr);
+    find_tile<BM>(offsets, E, blockIdx.x, &s_e, &s_row0, &s_row_end);
   __syncthreads();
   const int e = s_e;
   if (e < 0) return;
@@ -466,10 +457,9 @@ moe_gate_up_kernel(const float* __restrict__ x, int64_t ldx,
                    const int64_t* __restrict__ pairs,
                    const int64_t* __restrict__ offsets,
                    const float* __restrict__ wg, const float* __restrict__ wi,
-                   int D, int F, int E, int K, float* __restrict__ h,
-                   int* stats) {
+                   int D, int F, int E, int K, float* __restrict__ h) {
   grouped_body<BM, 64, BK, TM, 4, true>(x, ldx, pairs, offsets, wg, wi, D, F,
-                                        E, K, nullptr, h, F, stats);
+                                        E, K, nullptr, h, F);
 }
 
 // down: (BM x 128) tiles of out, TM rows by 8 columns a thread
@@ -481,19 +471,19 @@ moe_down_kernel(const float* __restrict__ h,
                 const float* __restrict__ wo, int D, int F, int E, int K,
                 const float* __restrict__ gate, float* __restrict__ out) {
   grouped_body<BM, 128, BK, TM, 8, false>(h, F, pairs, offsets, wo, nullptr,
-                                          F, D, E, K, gate, out, D, nullptr);
+                                          F, D, E, K, gate, out, D);
 }
 
 template <int BM, int BK, int TM>
 int launch_grouped(const float* x, int64_t ldx, const int64_t* pairs,
                    const int64_t* offsets, const float* wg, const float* wi,
                    const float* wo, const float* gate, float* h, float* out,
-                   int* stats, int D, int F, int E, int K, int m_tiles,
+                   int D, int F, int E, int K, int m_tiles,
                    cudaStream_t stream) {
   constexpr int threads = 16 * BM / TM;
   moe_gate_up_kernel<BM, BK, TM>
       <<<dim3(m_tiles, (F + 63) / 64), threads, 0, stream>>>(
-          x, ldx, pairs, offsets, wg, wi, D, F, E, K, h, stats);
+          x, ldx, pairs, offsets, wg, wi, D, F, E, K, h);
   moe_down_kernel<BM, BK, TM>
       <<<dim3(m_tiles, (D + 127) / 128), threads, 0, stream>>>(
           h, pairs, offsets, wo, D, F, E, K, gate, out);
@@ -531,16 +521,15 @@ extern "C" int moe_route_launch(const void* logits, int ld, const void* live,
 // x (T, D) float32, row stride ldx; pairs / offsets as moe_route_launch
 // gives them; wg, wi (E, D, F) and wo (E, F, D) float32 contiguous; gate
 // (T*K,); h (P, F) float32 workspace; out (P, D) float32 zero-filled, P =
-// T*K; stats (3,) int32 or null, gains (live pairs, experts hit, 1).  bm is
-// the row tile (8, 32 or 64), m_tiles the grid's row tiles.  D and F are
+// T*K.  bm is the row tile (8, 32 or 64), m_tiles the grid's row tiles.  D and F are
 // multiples of 4 and every base 16-byte aligned.
 extern "C" int grouped_swiglu_launch(const void* x, long long ldx,
                                      const void* pairs, const void* offsets,
                                      const void* wg, const void* wi,
                                      const void* wo, const void* gate,
-                                     void* h, void* out, void* stats, int D,
-                                     int F, int E, int K, int bm,
-                                     int m_tiles, void* stream) {
+                                     void* h, void* out, int D, int F, int E,
+                                     int K, int bm, int m_tiles,
+                                     void* stream) {
   if (D < 4 || D % 4 || F < 4 || F % 4 || E < 1 || K < 1 || m_tiles < 1 ||
       ldx < D || ldx % 4)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -553,18 +542,17 @@ extern "C" int grouped_swiglu_launch(const void* x, long long ldx,
   const auto* gt = static_cast<const float*>(gate);
   auto* hp = static_cast<float*>(h);
   auto* outp = static_cast<float*>(out);
-  auto* st = static_cast<int*>(stats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bm) {
     case 8:
       return launch_grouped<8, 32, 2>(xp, ldx, pp, op, gp, ip, wp, gt, hp,
-                                      outp, st, D, F, E, K, m_tiles, s);
+                                      outp, D, F, E, K, m_tiles, s);
     case 32:
       return launch_grouped<32, 16, 2>(xp, ldx, pp, op, gp, ip, wp, gt, hp,
-                                       outp, st, D, F, E, K, m_tiles, s);
+                                       outp, D, F, E, K, m_tiles, s);
     case 64:
       return launch_grouped<64, 16, 4>(xp, ldx, pp, op, gp, ip, wp, gt, hp,
-                                       outp, st, D, F, E, K, m_tiles, s);
+                                       outp, D, F, E, K, m_tiles, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

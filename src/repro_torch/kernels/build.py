@@ -52,7 +52,7 @@ SIGNATURES = {
     "copy_pages_launch": (_vp, _i, _i, _vp, _i, _vp),
     "ssd_chunk_launch": (_vp,) * 9 + (_i,) * 7 + (_vp,),
     "moe_route_launch": (_vp, _i, _vp, _i, _i, _i) + (_vp,) * 6,
-    "grouped_swiglu_launch": (_vp, _i64) + (_vp,) * 9 + (_i,) * 6 + (_vp,),
+    "grouped_swiglu_launch": (_vp, _i64) + (_vp,) * 8 + (_i,) * 6 + (_vp,),
 }
 
 

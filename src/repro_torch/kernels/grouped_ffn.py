@@ -79,11 +79,8 @@ def route_pairs_plain(logits: torch.Tensor, k: int,
 def grouped_swiglu_plain(x: torch.Tensor, pairs: torch.Tensor,
                          offsets: torch.Tensor, wg: torch.Tensor,
                          wi: torch.Tensor, wo: torch.Tensor,
-                         gate: torch.Tensor, k: int,
-                         stats: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         gate: torch.Tensor, k: int) -> torch.Tensor:
     """One product per expert hit, in the kernel's order of operations.
-    ``stats`` (3,) int32, where given, gains (live pairs, experts hit, 1).
     On ``meta`` tensors: shapes only."""
     out = x.new_zeros((pairs.shape[0], x.shape[1]))
     if x.device.type == "meta":
@@ -97,10 +94,6 @@ def grouped_swiglu_plain(x: torch.Tensor, pairs: torch.Tensor,
         xs = x[p // k]
         h = F.silu(xs @ wg[e]) * (xs @ wi[e])
         out[p] = (h @ wo[e]) * gate[p, None]
-    if stats is not None:
-        cnt = offsets[1:] - offsets[:-1]
-        stats += torch.stack([offsets[-1], (cnt > 0).sum(),
-                              torch.ones_like(offsets[-1])]).to(stats.dtype)
     return out
 
 
@@ -170,9 +163,7 @@ def _aligned(t: torch.Tensor) -> bool:
 def grouped_swiglu_cuda(x: torch.Tensor, pairs: torch.Tensor,
                         offsets: torch.Tensor, wg: torch.Tensor,
                         wi: torch.Tensor, wo: torch.Tensor,
-                        gate: torch.Tensor, k: int,
-                        stats: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        gate: torch.Tensor, k: int) -> torch.Tensor:
     """The two kernels of ``grouped_swiglu_launch`` on the current stream;
     no host sync."""
     e, d, f = wg.shape
@@ -194,18 +185,13 @@ def grouped_swiglu_cuda(x: torch.Tensor, pairs: torch.Tensor,
             f"{tuple(pairs.shape)} {pairs.dtype}, offsets "
             f"{tuple(offsets.shape)}, gate {tuple(gate.shape)}, experts "
             f"{tuple(wg.shape)} / {tuple(wo.shape)} {wg.dtype}, k {k}")
-    if stats is not None and not (stats.dtype == torch.int32
-                                  and stats.shape == (3,)):
-        raise ValueError(f"stats must be (3,) int32, got "
-                         f"{tuple(stats.shape)} {stats.dtype}")
     bm, m_tiles = tiles(p, e)
     h = torch.empty((p, f), dtype=f32, device=x.device)
     out = torch.zeros((p, d), dtype=f32, device=x.device)
     err = build.library().grouped_swiglu_launch(
         x.data_ptr(), x.stride(0), pairs.data_ptr(), offsets.data_ptr(),
         wg.data_ptr(), wi.data_ptr(), wo.data_ptr(), gate.data_ptr(),
-        h.data_ptr(), out.data_ptr(),
-        None if stats is None else stats.data_ptr(), d, f, e, k, bm, m_tiles,
+        h.data_ptr(), out.data_ptr(), d, f, e, k, bm, m_tiles,
         build.current_stream(x.device.index))
     build.check(err, "grouped_swiglu")
     grouped_swiglu_cuda.launches += 1

@@ -203,18 +203,17 @@ def route_pairs(logits: torch.Tensor, k: int,
 
 def grouped_swiglu(x: torch.Tensor, pairs: torch.Tensor,
                    offsets: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
-                   wo: torch.Tensor, gate: torch.Tensor, k: int,
-                   stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   wo: torch.Tensor, gate: torch.Tensor, k: int
+                   ) -> torch.Tensor:
     """The routed experts over pairs sorted by expert (see
     ``grouped_ffn.py``): x (T, D); pairs (T·k,) pair ids; offsets (E + 1,)
     the experts' runs; experts (E, D, F) / (E, F, D); gate (T·k,).
     Returns (T·k, D) by pair id, zero for the dead pairs past
-    ``offsets[E]``; ``stats`` (3,) int32 gains (pairs, experts hit, 1)."""
+    ``offsets[E]``."""
     if _on_cpu(x):
         return _gf.grouped_swiglu_plain(x, pairs, offsets, wg, wi, wo, gate,
-                                        k, stats)
-    return _gf.grouped_swiglu_cuda(x, pairs, offsets, wg, wi, wo, gate, k,
-                                   stats)
+                                        k)
+    return _gf.grouped_swiglu_cuda(x, pairs, offsets, wg, wi, wo, gate, k)
 
 
 def launch_counts() -> Dict[str, int]:

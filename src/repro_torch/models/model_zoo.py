@@ -40,8 +40,6 @@ pool carries ``ks``/``vs`` scale rows, one per physical page and kv head):
   init_prefix_cache(cfg, entries, device)      -> {"logits": (E + 1, V), ...}
   independent_rows(cfg, model_ranks=1)        -> whether a pass's rows are
                                                   computed apart
-  observed(cfg, stats, tier=None)              -> the routed FFN's counters
-                                                  and ranges over a tick
 
 ``live`` ((B, S) bool on the device) marks the positions of a pass that
 hold a real token: the MoE family routes only those (a padded position
@@ -59,8 +57,7 @@ the slots (index ``num_slots``) and the prefix cache a drop row (index
 """
 from __future__ import annotations
 
-import contextlib
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import numpy as np
 
@@ -110,19 +107,6 @@ def _live(cfg: ModelConfig, live) -> Dict[str, Any]:
     """The ``live`` keyword of a MoE serving pass (the tokens that route);
     the other families compute every position alike."""
     return {"live": live} if cfg.family == MOE and live is not None else {}
-
-
-def observed(cfg: ModelConfig, stats: torch.Tensor,
-             tier: Optional[str] = None):
-    """A context over a tick's passes: the MoE family's routed FFN adds
-    (its live pairs, the experts holding a pair, 1) per call to ``stats``
-    ((3,) int32 on the device) and, with ``tier`` named, opens the
-    ``moe.<tier>.route`` / ``moe.<tier>.experts`` ranges
-    (``moe.observed``); the other families have no routed FFN, and it
-    does nothing for them."""
-    if cfg.family == MOE:
-        return moe.observed(stats, tier)
-    return contextlib.nullcontext()
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:

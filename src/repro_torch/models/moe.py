@@ -21,13 +21,10 @@ expert on the device, and every pair runs through its expert in the
 grouped kernel (``kernels/grouped_ffn.py``); padded positions (a bucket's
 tail, an empty chunk-lane row, a slot that does not decode) take no pair.
 The outputs combine over the k choices by gate, and the shared experts
-add.  No count is read back to the host.  With :func:`observed` open, each
-call adds its pairs, experts hit and one call to a device counter, and
-with a tier named opens ``record_function`` ranges ``moe.<tier>.route``
-and ``moe.<tier>.experts``.  Everything else (attention, the caches, the
-page pools and their int8 write side) is the dense family's: the serving
-functions are ``models/transformer.py``'s with this module's FFN, as the
-reference's MoE scans reuse its ``layers``.
+add.  No count is read back to the host.  Everything else (attention, the
+caches, the page pools and their int8 write side) is the dense family's:
+the serving functions are ``models/transformer.py``'s with this module's
+FFN, as the reference's MoE scans reuse its ``layers``.
 
 Expert parallelism (:func:`moe_ffn_sharded`, the reference's shard_map
 dispatch) runs on each rank's local shards over ``torch.distributed``:
@@ -43,8 +40,6 @@ pairs drop.
 """
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import functools
 import math
 from typing import Any, Dict, Optional, Tuple
@@ -311,33 +306,6 @@ def _ffn(lp: Params, cfg: ModelConfig, xn: torch.Tensor,
     return y, aux
 
 
-# (device counter (3,) int32 or None, tier name or None) of the open
-# :func:`observed` block
-_OBSERVED: contextvars.ContextVar = contextvars.ContextVar(
-    "moe_observed", default=(None, None))
-_NO_RANGE = contextlib.nullcontext()
-
-
-@contextlib.contextmanager
-def observed(stats: Optional[torch.Tensor], tier: Optional[str] = None):
-    """While open, every :func:`dropless_ffn` call adds (its live pairs,
-    the experts holding a pair, 1) to ``stats`` ((3,) int32 on the
-    device), and with ``tier`` set opens ``record_function`` ranges
-    ``moe.<tier>.route`` and ``moe.<tier>.experts`` around its two
-    parts."""
-    token = _OBSERVED.set((stats, tier))
-    try:
-        yield
-    finally:
-        _OBSERVED.reset(token)
-
-
-def _range(tier: Optional[str], part: str):
-    if tier is None:
-        return _NO_RANGE
-    return torch.profiler.record_function(f"moe.{tier}.{part}")
-
-
 def dropless_ffn(lp: Params, cfg: ModelConfig, x: torch.Tensor,
                  live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The routed experts over every live (token, choice) pair, with no
@@ -353,16 +321,13 @@ def dropless_ffn(lp: Params, cfg: ModelConfig, x: torch.Tensor,
     k = cfg.experts_per_token
     t = b * s
     xf = x.reshape(t, d)
-    stats, tier = _OBSERVED.get()
-    with _range(tier, "route"):
-        gate, pairs, offsets = ops.route_pairs(
-            xf.float() @ lp["router"], k,
-            None if live is None else live.reshape(t))
-    with _range(tier, "experts"):
-        ex = lp["experts"]
-        out = ops.grouped_swiglu(xf, pairs, offsets, ex["wg"], ex["wi"],
-                                 ex["wo"], gate, k, stats)
-        return out.view(t, k, d).sum(1).view(b, s, d)
+    gate, pairs, offsets = ops.route_pairs(
+        xf.float() @ lp["router"], k,
+        None if live is None else live.reshape(t))
+    ex = lp["experts"]
+    out = ops.grouped_swiglu(xf, pairs, offsets, ex["wg"], ex["wi"],
+                             ex["wo"], gate, k)
+    return out.view(t, k, d).sum(1).view(b, s, d)
 
 
 def _sharded_experts(lp: Params, cfg: ModelConfig) -> bool:

@@ -7,13 +7,13 @@ several times their device time.  :class:`LaneGraphs` captures the lane
 once per key (tier, sampled or greedy, write block, pool dtype) and replays
 it: the same kernels, in the same order, on the same data.
 
-* **Static buffers.**  A graph reads its operands from buffers of its own,
-  allocated before the capture: the lane's words of the tick's packed
-  upload (one contiguous int32 slice), the slots' last tokens and theta.
-  Before each replay the tick copies this tick's values into them, three
-  copies; the graph's outputs are its own tensors, read by the tick's one
-  fetch.  The routed FFN's counters add into a (3,) buffer the graph zeroes
-  first, and the tick adds it to its own.
+* **Inputs.**  A graph reads the tick's operand buffer, which the
+  scheduler's upload rewrites at the same addresses every tick
+  (``scheduler._Upload``), so a replay reads this tick's operands where the
+  capture read the first's.  The slots' last tokens and theta, which the
+  tick computes, are copied before each replay into two buffers of the
+  graph's own, allocated before the capture.  The graph's outputs are its
+  own tensors, read by the tick's one fetch.
 * **Capture.**  The first tick of a key runs the lane eagerly on the
   capture stream, and those are the tick's outputs: the kernels' buffers
   cached per (device, stream) and cuBLAS's workspace are allocated there,
@@ -40,7 +40,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.serving.telemetry import SchedCounters
 
-# fn(words, last, theta, stats) -> the lane's output tensors
+# fn(last, theta) -> the lane's output tensors
 LaneFn = Callable[..., Tuple[torch.Tensor, ...]]
 
 
@@ -53,8 +53,7 @@ def engages(device: torch.device, mesh, role: str) -> bool:
 class _Captured:
     """One captured lane: its graph, static inputs and outputs, and the
     kernel launches one run of it makes."""
-    __slots__ = ("graph", "words", "last", "theta", "stats", "outs",
-                 "launches")
+    __slots__ = ("graph", "last", "theta", "outs", "launches")
 
 
 class LaneGraphs:
@@ -68,8 +67,8 @@ class LaneGraphs:
         self.stream = torch.cuda.Stream(device) if cuda else None
         self._graphs: Dict[tuple, _Captured] = {}
 
-    def run(self, key: tuple, tier: str, fn: LaneFn, words: torch.Tensor,
-            last: torch.Tensor, theta: torch.Tensor, stats: torch.Tensor
+    def run(self, key: tuple, tier: str, fn: LaneFn, last: torch.Tensor,
+            theta: torch.Tensor
             ) -> Optional[Tuple[Tuple[torch.Tensor, ...], bool]]:
         """This tick's lane of ``tier``: (outputs, replayed), or None where
         the caller runs it eagerly (an entry point of ``ops`` replaced)."""
@@ -79,19 +78,17 @@ class LaneGraphs:
             return None
         ent = self._graphs.get(key)
         if ent is None:
-            outs = self._capture(key, fn, words, last, theta, stats)
+            outs = self._capture(key, fn, last, theta)
             c.graph_captures[tier] = c.graph_captures.get(tier, 0) + 1
             return outs, False
-        ent.words.copy_(words)
         ent.last.copy_(last)
         ent.theta.copy_(theta)
         ent.graph.replay()
-        stats += ent.stats
         ops.add_launch_counts(ent.launches)
         c.graph_replays[tier] = c.graph_replays.get(tier, 0) + 1
         return ent.outs, True
 
-    def _capture(self, key, fn, words, last, theta, stats):
+    def _capture(self, key, fn, last, theta):
         main = None
         if self.stream is not None:
             main = torch.cuda.current_stream(self.device)
@@ -102,20 +99,17 @@ class LaneGraphs:
               else torch.cuda.stream(self.stream)):
             # the tick's own lane, eagerly: per-stream kernel buffers and
             # cuBLAS's workspace come from the ordinary allocator
-            outs = fn(words, last, theta, stats)
+            outs = fn(last, theta)
             warm = ops.launch_counts()
             # static inputs, outside the graph pool; writable by the next
             # ticks whether or not they run under inference mode
             with torch.inference_mode(False):
-                ent.words, ent.last = words.clone(), last.clone()
-                ent.theta = theta.clone()
-                ent.stats = torch.zeros_like(stats)
+                ent.last, ent.theta = last.clone(), theta.clone()
             graph = torch.cuda.CUDAGraph()
             graph.capture_begin(pool=self.pool,
                                 capture_error_mode="thread_local")
             try:
-                ent.stats.zero_()
-                ent.outs = fn(ent.words, ent.last, ent.theta, ent.stats)
+                ent.outs = fn(ent.last, ent.theta)
             finally:
                 graph.capture_end()
         # the capture launched nothing: take back what it counted

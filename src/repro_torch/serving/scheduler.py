@@ -37,12 +37,13 @@ ones with ``lax.cond``, the port runs each lane's tensor code eagerly and
 branches in Python on host values that ``_TierRuntime.tick_inputs`` builds
 from the host's own state (``any_cow``, ``any_prefill``, ``any_chunk``,
 ``any_live``): no device value is read inside a tick.  The tick's operands
-cross to the card in one packed host->device copy, and its outputs come back
-in exactly one device->host copy, through the engine's ``_host_fetch``
-(tests monkeypatch it to count).  The pools are updated in place; the order
-of the calls keeps the reference's reads before its writes: COW before
-prefill, the prefix splice before the suffix page writes, and full restores
-read the pre-save prefix-cache logits.
+cross to the card in one packed host->device copy, into one device buffer
+allocated at the first tick, and its outputs come back in exactly one
+device->host copy, through the engine's ``_host_fetch`` (tests monkeypatch
+it to count).  The pools are updated in place; the order of the calls
+keeps the reference's reads before its writes: COW before prefill, the
+prefix splice before the suffix page writes, and full restores read the
+pre-save prefix-cache logits.
 
 Sentinels.  The reference marks unused rows with out-of-range indices and
 lets XLA drop their writes (``mode="drop"``).  Here every such write has a
@@ -90,11 +91,11 @@ AOT compile); the engine reports it as ``stream_compiles``.
 
 CUDA graphs (``lane_graphs.py``).  On one CUDA device, off a mesh and
 outside the speculative roles, each tier's decode lane is captured once per
-key (tier, sampled, write block, pool dtype) and replayed: the tick leads
-each tier's upload with the lane's operands (``decode_lane_keys``), so the
-graph's inputs refresh in three copies.  The counters ``graph_captures``,
-``graph_replays`` and ``graph_eager_ticks`` count per tier, and the live
-lane's telemetry span carries ``graph``.
+key (tier, sampled, write block, pool dtype) and replayed.  The tick's
+operands land at the same addresses every tick (``_Upload``), so a replay
+reads this tick's values where the capture read the first's.  The counters
+``graph_captures``, ``graph_replays`` and ``graph_eager_ticks`` count per
+tier, and the live lane's telemetry span carries ``graph``.
 
 The mesh path (``mesh=``, a ``launch/mesh.Mesh`` with axes ``("data",
 "model")``) is the paper's topology at scale, SPMD over
@@ -191,60 +192,74 @@ def _write_block_key(chunk: int, sharing: bool) -> Optional[str]:
     return "draft_wblock" if chunk else "wblock" if sharing else None
 
 
-def decode_lane_keys(chunk: int, sharing: bool) -> Tuple[str, ...]:
-    """The decode lane's operands, in the order a tier's upload leads with
-    them (one contiguous run of words: ``lane_graphs``' static input)."""
-    wb = _write_block_key(chunk, sharing)
-    return ("pos", "block", *((wb,) if wb else ()), "decode_live", "seeds",
-            "tok_idx", "temps")
+class _Upload:
+    """A scheduler's tick operands at fixed addresses.  The first tick
+    records each array's (name, kind, shape, offset) in one run of int32
+    words and allocates the words on the device (on the card also a pinned
+    host copy of them); every tick packs its arrays into the host words,
+    which cross in ONE host->device copy that does not block the host.
+    ``views`` are the arrays on the device, the same tensors every tick:
+    int32 views of the words, the float32 arrays (the sampling
+    temperatures) as bit-cast views, and the bool arrays as bool tensors
+    that each tick refreshes from their words.  A tick whose layout
+    differs from the first raises: a scheduler's ticks have one set of
+    shapes, and the decode-lane graphs (``lane_graphs.py``) read these
+    addresses.
 
+    The host words are rewritten in place, which is safe because the
+    previous tick's one ``_host_fetch`` has synchronised the stream: its
+    copy and every read of the device words finished before the host
+    writes the next operands."""
 
-def _upload(arrays: Dict[str, np.ndarray], device: torch.device):
-    """A tick's operands in ONE host->device copy: packed into one int32
-    buffer (pinned, copied without blocking the host) and split into views
-    on the device; bool arrays come back as bool, float32 arrays (the
-    sampling temperatures) cross bit-cast and come back as float32.
-    Returns (the views, the device buffer, each array's (name, kind,
-    shape, offset))."""
-    parts, metas, at = [], [], 0
-    for name, a in arrays.items():
-        a = np.asarray(a)
-        kind = a.dtype.kind if a.dtype in (np.bool_, np.float32) else "i"
-        parts.append((a.view(np.int32) if kind == "f"
-                      else a.astype(np.int32)).reshape(-1))
-        metas.append((name, kind, a.shape, at))
-        at += a.size
-    buf = torch.from_numpy(np.concatenate(parts))
-    if device.type == "cuda":
-        buf = buf.pin_memory().to(device, non_blocking=True)
-    return _views(buf, metas), buf, metas
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.metas: Optional[List[tuple]] = None
 
+    def _allocate(self, n: int) -> None:
+        cuda = self.device.type == "cuda"
+        # outside inference mode: writable by every later tick
+        with torch.inference_mode(False):
+            self.host = torch.empty((n,), dtype=torch.int32, pin_memory=cuda)
+            self.words = (torch.empty((n,), dtype=torch.int32,
+                                      device=self.device)
+                          if cuda else self.host)
+            self.views: Dict[str, torch.Tensor] = {}
+            self._bools = []
+            for name, kind, shape, at in self.metas:
+                t = self.words[at:at + int(np.prod(shape, dtype=np.int64))
+                               ].view(shape)
+                if kind == "b":
+                    self.views[name] = torch.empty(shape, dtype=torch.bool,
+                                                   device=self.device)
+                    self._bools.append((self.views[name], t))
+                else:
+                    self.views[name] = (t.view(torch.float32) if kind == "f"
+                                        else t)
 
-def _views(buf: torch.Tensor, metas) -> Dict[str, torch.Tensor]:
-    """The arrays of ``metas`` as views of the packed words ``buf``."""
-    out = {}
-    for name, kind, shape, start in metas:
-        n = int(np.prod(shape, dtype=np.int64))
-        t = buf[start:start + n].view(shape)
-        out[name] = (t.bool() if kind == "b" else
-                     t.view(torch.float32) if kind == "f" else t)
-    return out
-
-
-def _lane_words(buf: torch.Tensor, metas, prefix: str,
-                keys: Tuple[str, ...]):
-    """A tier's decode-lane operands (``decode_lane_keys``, led by
-    ``prefix``): their contiguous slice of ``buf`` and their metas
-    relative to it."""
-    names = [prefix + k for k in keys]
-    lane = [m for m in metas if m[0] in names]
-    if [m[0] for m in lane] != names:
-        raise ValueError(f"the decode lane's words {names} are not "
-                         "adjacent in the upload")
-    lo = lane[0][3]
-    hi = lane[-1][3] + int(np.prod(lane[-1][2], dtype=np.int64))
-    return buf[lo:hi], [(name[len(prefix):], kind, shape, at - lo)
-                        for name, kind, shape, at in lane]
+    def __call__(self, arrays: Dict[str, np.ndarray]
+                 ) -> Dict[str, torch.Tensor]:
+        """This tick's ``arrays`` into ``views``."""
+        metas, at = [], 0
+        for name, a in arrays.items():
+            kind = a.dtype.kind if a.dtype in (np.bool_, np.float32) else "i"
+            metas.append((name, kind, a.shape, at))
+            at += a.size
+        if self.metas is None:
+            self.metas = metas
+            self._allocate(at)
+        elif metas != self.metas:
+            raise ValueError(
+                "a tick's operands differ from the scheduler's first tick's: "
+                f"{sorted(set(metas) ^ set(self.metas))}")
+        words = self.host.numpy()
+        for (_, kind, _, at), a in zip(metas, arrays.values()):
+            words[at:at + a.size] = (a.view(np.int32) if kind == "f"
+                                     else a).reshape(-1)
+        if self.words is not self.host:
+            self.words.copy_(self.host, non_blocking=True)
+        for dst, src in self._bools:
+            dst.copy_(src)
+        return self.views
 
 
 def _checksum(packed: torch.Tensor) -> torch.Tensor:
@@ -270,15 +285,13 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
     Each pass names its live positions (``live``: the admitted rows'
     prompt tokens from the page of their first uncached position, the
     chunk rows' kept tokens, the decoding slots, ``decode_live``); the MoE
-    family routes only those, the others ignore them.  The tick returns
-    ``"moe"``, the (pairs, experts hit, calls) the routed FFN counted on
-    the device (``model_zoo.observed``; zeros for the families without
-    one), fetched with the tick's outputs.
+    family routes only those, the others ignore them.
 
     With ``graphs`` set (``lane_graphs.engages``), the decode lane replays
-    a CUDA graph per key (tier, sampled, write block, pool dtype) over the
-    tick's ``lane_words``; the ticks that capture, and those whose ``ops``
-    entry points were replaced, run it eagerly."""
+    a CUDA graph per key (tier, sampled, write block, pool dtype), which
+    reads the tick's operands where ``_Upload`` keeps them; the ticks that
+    capture, and those whose ``ops`` entry points were replaced, run it
+    eagerly."""
     wb_key = _write_block_key(chunk, sharing)
 
     def conf_of(logits, theta):
@@ -422,9 +435,9 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
 
     def decode_lane(params, theta, lane, last, flags, core):
         """``decode_block`` decode steps of every slot from ``last``
-        (B,) over the ``decode_lane_keys`` operands ``lane``: the (K, B)
-        tokens and confidences, and in the draft role the staged states
-        after each step."""
+        (B,) over the tick's operands ``lane``: the (K, B) tokens and
+        confidences, and in the draft role the staged states after each
+        step."""
         b = lane["block"].shape[0]
         pre_d = model_zoo.chunk_stage(cfg, core) if chunk else None
         toks, confs, snaps = [], [], []
@@ -449,9 +462,8 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
                   for key in (snaps[0] if snaps else {})}
         return torch.stack(toks), torch.stack(confs), staged
 
-    def lanes(params, theta, tin, flags, pool: KVPool, draft=None,
-              tel: Optional[Telemetry] = None, tier: str = "",
-              stats=None, lane_words=None):
+    def tick(params, theta, tin, flags, pool: KVPool, draft=None,
+             tel: Optional[Telemetry] = None, tier: str = ""):
         a = tin["admit_tokens"].shape[0]
         n_slots = tin["last_tok"].shape[0]
         dev = tin["last_tok"].device
@@ -503,17 +515,13 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
                 last = last0[:n_slots]
                 res = None
                 if graphs is not None:
-                    words, metas = lane_words
-                    obs = None if tel is None else tier
-
-                    def replayable(w, lst, th, st):
-                        with model_zoo.observed(cfg, st, obs):
-                            return decode_lane(params, th, _views(w, metas),
-                                               lst, flags, pool.buffers)[:2]
+                    def replayable(lst, th):
+                        return decode_lane(params, th, tin, lst, flags,
+                                           pool.buffers)[:2]
 
                     res = graphs.run(
                         (tier, flags["sampled"], wb_key, pool.kv_dtype), tier,
-                        replayable, words, last, theta, stats)
+                        replayable, last, theta)
                 if res is None:
                     out["toks"], out["confs"], staged = decode_lane(
                         params, theta, tin, last, flags, pool.buffers)
@@ -531,17 +539,6 @@ def _tier_tick_fn(cfg: ModelConfig, metric: str, decode_block: int,
             return out, {"staged": staged, "toks": out["toks"],
                          "confs": out["confs"], "last0": last0}
         return out
-
-    def tick(params, theta, tin, flags, pool: KVPool, draft=None,
-             tel: Optional[Telemetry] = None, tier: str = "",
-             lane_words=None):
-        stats = torch.zeros((3,), dtype=torch.int32,
-                            device=tin["last_tok"].device)
-        with model_zoo.observed(cfg, stats, None if tel is None else tier):
-            res = lanes(params, theta, tin, flags, pool, draft, tel, tier,
-                        stats, lane_words)
-        (res[0] if role == "spec_s" else res)["moe"] = stats
-        return res
 
     return tick
 
@@ -627,12 +624,6 @@ class _TierRuntime:
         self.chunk_positions = 0
         self.chunk_width_ticks: Dict[int, int] = {}
         self.independent_rows = model_zoo.independent_rows(cfg)
-        # the routed FFN (the MoE family's; 0 for the others), from each
-        # tick's fetched "moe": (token, choice) pairs routed, the sum over
-        # calls of the experts holding a pair, and calls
-        self.moe_pairs = 0
-        self.moe_experts_hit = 0
-        self.moe_calls = 0
 
     @property
     def busy(self) -> int:
@@ -861,14 +852,6 @@ class _TierRuntime:
                      cow_src=cow_src, cow_dst=cow_dst)
         return out, self._count(flags)
 
-    def count_moe(self, out: Dict[str, np.ndarray]) -> None:
-        """Add a fetched tick's routed-FFN counts (its ``"moe"``)."""
-        if "moe" in out:
-            pairs, hit, calls = (int(v) for v in out["moe"])
-            self.moe_pairs += pairs
-            self.moe_experts_hit += hit
-            self.moe_calls += calls
-
     def _count(self, flags: Dict[str, Any]) -> Dict[str, Any]:
         for lane in LANES:
             if flags.get("any_" + lane):
@@ -1004,6 +987,7 @@ class ContinuousScheduler:
                                     -(-self.chunk // page) * page)
         self.counters = SchedCounters()
         self.stats: StatsView = StatsView(self.counters)
+        self._upload = _Upload(self.device)
         # observability collectors (None = off: each hook is one branch)
         self.tel: Optional[Telemetry] = None
         self.aud = None                      # GateAudit
@@ -1148,27 +1132,20 @@ class ContinuousScheduler:
         from repro_torch.serving import engine as engine_mod  # _host_fetch
 
         tel, mesh = self.tel, self._mesh
-        # each tier's decode-lane operands lead its words, adjacent
-        keys = {"s": decode_lane_keys(self.chunk, self.srt.sharing),
-                "l": decode_lane_keys(self.chunk, self.lrt.sharing)}
         host_in, s_flags = {}, []
         for r, rt in enumerate(self.srts):
             arrays, flags = rt.tick_inputs(self._admit_s_max)
             s_flags.append(flags)
             if r == self._rep:
-                host_in.update({f"s.{k}": arrays[k] for k in keys["s"]})
                 host_in.update({f"s.{k}": v for k, v in arrays.items()})
         arrays, l_flags = self.lrt.tick_inputs(self._admit_s_max)
         if mesh is not None:
             arrays["admit_tokens"] = np.zeros_like(arrays["admit_tokens"])
             host_in.update(self._stage_rows())
-        host_in.update({f"l.{k}": arrays[k] for k in keys["l"]})
         host_in.update({f"l.{k}": v for k, v in arrays.items()})
-        dev_in, buf, metas = _upload(host_in, self.device)
+        dev_in = self._upload(host_in)
         tins = {key: {k[2:]: v for k, v in dev_in.items()
                       if k.startswith(key + ".")} for key in ("s", "l", "t")}
-        lane = {key: _lane_words(buf, metas, key + ".", keys[key])
-                for key in ("s", "l")} if self._graphs is not None else {}
         flags = {"s": s_flags[self._rep], "l": l_flags}
         if tel is not None:
             tel.mark("build_operands")
@@ -1206,14 +1183,12 @@ class ContinuousScheduler:
         else:
             outs["s"] = self._ticks["s"](self.s.params, theta_t, tins["s"],
                                          flags["s"], self.local_srt.pool,
-                                         tel=tel, tier=s_name,
-                                         lane_words=lane.get("s"))
+                                         tel=tel, tier=s_name)
             with act.use_mesh(self._l_mesh, self._l_cut):
                 outs["l"] = self._ticks["l"](self._l_params, theta_t,
                                              tins["l"], flags["l"],
                                              self.lrt.pool, tel=tel,
-                                             tier=l_name,
-                                             lane_words=lane.get("l"))
+                                             tier=l_name)
         if mesh is None:
             tree = {f"s.{k}": v for k, v in outs["s"].items()}
         else:
@@ -1237,7 +1212,6 @@ class ContinuousScheduler:
             s_host = {k[2:]: v for k, v in fetched.items()
                       if k.startswith("s.")}
             host["s"] = s_host if self.speculative else [s_host]
-            self._count_moe(host)
             return host
         self._staged = self._staged_next     # the write half turns readable
         if "check" in fetched and (fetched["check"] != fetched["check"][0]
@@ -1248,14 +1222,7 @@ class ContinuousScheduler:
                 "the ranks' host decisions parted")
         host["s"] = [engine_mod.unpack_int32(row, metas)
                      for row in fetched["s"]]
-        self._count_moe(host)
         return host
-
-    def _count_moe(self, host: Dict[str, Any]) -> None:
-        s_outs = host["s"] if isinstance(host["s"], list) else [host["s"]]
-        for rt, out in zip(self.srts, s_outs):
-            rt.count_moe(out)
-        self.lrt.count_moe(host["l"])
 
     def _prepare_stage(self, l_queue, cur: int) -> None:
         """Stage up to ``lrt.admit_width`` head-of-queue escalations for

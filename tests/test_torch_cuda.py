@@ -2124,12 +2124,11 @@ def test_grouped_kernel_matches_plain_at_the_cell_shapes(gen, e, d, f, t):
     x, pairs, offsets, (wg, wi, wo), gate, live, k = _grouped_case(
         gen, e, d, f, t)
     want = gf.grouped_swiglu_plain(x, pairs, offsets, wg, wi, wo, gate, k)
-    stats = torch.zeros((3,), dtype=torch.int32, device="cuda")
     runs = []
     for _ in range(2):
         before = gf.grouped_swiglu_cuda.launches
         runs.append(ops.grouped_swiglu(x, pairs, offsets, wg, wi, wo, gate,
-                                       k, stats))
+                                       k))
         torch.cuda.synchronize()
         assert gf.grouped_swiglu_cuda.launches == before + 1
     got = runs[0]
@@ -2143,9 +2142,6 @@ def test_grouped_kernel_matches_plain_at_the_cell_shapes(gen, e, d, f, t):
     print(f"grouped ({e}, {d}, {f}) x {t * k} pairs: largest error "
           f"{err:.3e} (outputs up to {float(want.abs().max()):.3f})")
     torch.testing.assert_close(got, want, atol=GROUPED_ATOL, rtol=0)
-    n_live = int(live.sum())
-    hit = int((offsets[1:] > offsets[:-1]).sum())
-    assert stats.tolist() == [2 * k * n_live, 2 * hit, 2]
 
 
 def test_grouped_kernel_serves_the_dropless_ffn_on_card(gen):
@@ -2283,10 +2279,10 @@ def _graph_stream(tiers, kw, temp, graphs, monkeypatch, tel=None, eng=None):
 @pytest.mark.parametrize("name,kv,sharing,sampled,chunk", GRAPH_CASES)
 def test_graph_lane_equals_the_eager_lane_on_card(gen, monkeypatch, name, kv,
                                                   sharing, sampled, chunk):
-    """Tokens, statuses, offloads and confidences bit for bit, the MoE
-    counters and every kernel's launches equal; each tier captures once a
-    key and replays its other decode-lane ticks; the S and L graphs replay
-    in the same ticks on one stream, over one hi_gate merge workspace."""
+    """Tokens, statuses, offloads and confidences bit for bit, and every
+    kernel's launches equal; each tier captures once a key and replays its
+    other decode-lane ticks; the S and L graphs replay in the same ticks on
+    one stream, over one hi_gate merge workspace."""
     from repro_torch.serving.telemetry import Telemetry
     tiers = _graph_tiers(name)
     kw = dict(STREAM_KW, decode_block=4, kv_dtype=kv, prefix_sharing=sharing,
@@ -2308,11 +2304,7 @@ def test_graph_lane_equals_the_eager_lane_on_card(gen, monkeypatch, name, kv,
             np.float32(ref[rid]["confidence"]).view(np.int32), rid
     assert counts == ref_counts
     for rt, ref_rt in ((sched.srt, ref_sched.srt), (sched.lrt, ref_sched.lrt)):
-        assert (rt.moe_pairs, rt.moe_experts_hit, rt.moe_calls) == \
-            (ref_rt.moe_pairs, ref_rt.moe_experts_hit, ref_rt.moe_calls)
         assert rt.lane_ticks == ref_rt.lane_ticks
-    if name == "deepseek-moe-16b":
-        assert sched.lrt.moe_calls > 0
     st = sched.stats
     live = {rt.name: rt.lane_ticks["live"] for rt in (sched.srt, sched.lrt)}
     assert {t: st["graph_captures"][t] + st["graph_replays"][t]

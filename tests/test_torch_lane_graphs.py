@@ -19,8 +19,8 @@ card does.  ``lane_graphs.engages`` is monkeypatched to engage on the CPU.
   eagerly, counted, and call the replacement;
 * stream == drain, sharing on == off, chunking on == off and one
   ``_host_fetch`` a tick, with the graphs engaged;
-* the lane spans' ``graph`` flag, the per-tier Prometheus families and the
-  upload's contiguous lane words.
+* the lane spans' ``graph`` flag, the per-tier Prometheus families, and
+  the tick's operands keeping their storage from tick to tick.
 """
 import numpy as np
 import pytest
@@ -374,24 +374,40 @@ def test_lane_spans_mark_the_replays(graphs):
 
 @pytest.mark.parametrize("chunk,sharing", [(0, False), (0, True), (8, False),
                                            (8, True)])
-def test_lane_words_are_one_slice_of_the_upload(chunk, sharing):
-    keys = sched_mod.decode_lane_keys(chunk, sharing)
-    rng = np.random.default_rng(0)
-    arrays = {"last_tok": rng.integers(0, 9, 3).astype(np.int32),
-              "admit_tokens": rng.integers(0, 9, (2, 8)).astype(np.int32)}
-    for k in keys:
-        arrays[k] = (rng.random(3) > 0.5 if k == "decode_live" else
-                     rng.random(3).astype(np.float32) if k == "temps" else
-                     rng.integers(0, 9, (3, 4) if "block" in k else 3
-                                  ).astype(np.int32))
-    host = {f"l.{k}": arrays[k] for k in keys}
-    host.update({f"l.{k}": v for k, v in arrays.items()})
-    views, buf, metas = sched_mod._upload(host, torch.device("cpu"))
-    words, rel = sched_mod._lane_words(buf, metas, "l.", keys)
-    assert words.numel() == sum(a.size for k, a in arrays.items()
-                                if k in keys)
-    lane = sched_mod._views(words.clone(), rel)
-    assert list(lane) == list(keys)
-    for k in keys:
-        assert torch.equal(lane[k], views["l." + k]), k
-        assert lane[k].dtype == views["l." + k].dtype
+def test_operands_keep_their_storage_across_ticks(chunk, sharing):
+    """The tick's operands as a tier's decode lane reads them, with the
+    upload's other kinds: over two ticks with other values every view keeps
+    its storage and holds the second tick's values (the int32 and float32
+    ones inside the device words); a third tick of another shape raises."""
+    wb = sched_mod._write_block_key(chunk, sharing)
+    keys = ("pos", "block", *((wb,) if wb else ()), "decode_live", "seeds",
+            "tok_idx", "temps")
+
+    def arrays(seed, slots=3):
+        rng = np.random.default_rng(seed)
+        out = {"last_tok": rng.integers(0, 9, slots).astype(np.int32),
+               "admit_tokens": rng.integers(0, 9, (2, 8)).astype(np.int32)}
+        for k in keys:
+            out[k] = (rng.random(slots) > 0.5 if k == "decode_live" else
+                      rng.random(slots).astype(np.float32) if k == "temps"
+                      else rng.integers(0, 9, (slots, 4) if "block" in k
+                                        else slots).astype(np.int32))
+        return {f"l.{k}": v for k, v in out.items()}
+
+    upload = sched_mod._Upload(torch.device("cpu"))
+    first = dict(upload(arrays(0)))
+    ptrs = {k: v.data_ptr() for k, v in first.items()}
+    second = arrays(1)
+    views = upload(second)
+    assert list(views) == list(second)
+    words = upload.words.untyped_storage().data_ptr()
+    for k, a in second.items():
+        assert views[k] is first[k] and views[k].data_ptr() == ptrs[k], k
+        assert views[k].dtype == torch.from_numpy(a).dtype, k
+        assert torch.equal(views[k], torch.from_numpy(a)), k
+        if a.dtype != np.bool_:
+            assert views[k].untyped_storage().data_ptr() == words, k
+    assert any(not np.array_equal(a, b) for a, b in
+               zip(arrays(0).values(), second.values()))
+    with pytest.raises(ValueError, match="first tick"):
+        upload(arrays(2, slots=4))

@@ -13,9 +13,9 @@ version), on the CPU:
 * reduced deepseek-moe-16b ``serve_stream`` over the chunk lane at the
   rule's widths 1, 2 and 4 equals the lane at W (``test_torch_chunk_width
   .py``'s check), with and without prefix sharing;
-* one ``_host_fetch`` per tick, and the tiers' ``moe_pairs``,
-  ``moe_experts_hit`` and ``moe_calls`` equal a host recount of the passes'
-  live tokens and the experts their pairs hit.
+* one ``_host_fetch`` per tick, every serving pass routes k pairs for each
+  of its live tokens in every layer, and each grouped call hits the
+  experts the live tokens' top k name.
 
 ``FFN_TOL`` = 1e-5: float32 on both sides, the same products over rows
 taken in another grouping and summed over the k choices in another order
@@ -107,7 +107,29 @@ def test_dropless_equals_the_reference_where_capacity_drops():
     assert float((capped[0] - ref).abs().max()) > 100 * FFN_TOL
 
 
-def test_padded_positions_change_no_live_output():
+def _route_recorder(monkeypatch):
+    """``ops.route_pairs`` wrapped to record each call's routed pairs
+    (``offsets[E]``) under the config of the serving pass that made it:
+    returns {config name: [pairs of each call]}, filled as passes run."""
+    routed, current = {}, []
+    for name in ("prefill_paged", "decode_step_paged",
+                 "forward_chunk_paged"):
+        def wrapped(params, cfg, *args, _real=getattr(model_zoo, name),
+                    **kw):
+            current[:] = [cfg.name]
+            return _real(params, cfg, *args, **kw)
+        monkeypatch.setattr(model_zoo, name, wrapped)
+    real = ops.route_pairs
+
+    def recorded(logits, k, live=None):
+        gate, pairs, offsets = real(logits, k, live)
+        routed.setdefault(current[0], []).append(int(offsets[-1]))
+        return gate, pairs, offsets
+    monkeypatch.setattr(ops, "route_pairs", recorded)
+    return routed
+
+
+def test_padded_positions_change_no_live_output(monkeypatch):
     cfg = ARCHS[ARCH].reduced()
     lp = _layer(cfg)
     g = torch.Generator().manual_seed(4)
@@ -116,14 +138,20 @@ def test_padded_positions_change_no_live_output():
     live[0, 0] = True
     y = torch.randn((3, 8, cfg.d_model), generator=g)
     noisy = torch.where(live[..., None], x, y * 1e3)
-    stats = torch.zeros((3,), dtype=torch.int32)
-    with moe.observed(stats):
-        a = moe.dropless_ffn(lp, cfg, x, live)
-        b = moe.dropless_ffn(lp, cfg, noisy, live)
+    routed = []
+    real = ops.route_pairs
+
+    def recorded(logits, k, live=None):
+        out = real(logits, k, live)
+        routed.append(int(out[2][-1]))
+        return out
+    monkeypatch.setattr(ops, "route_pairs", recorded)
+    a = moe.dropless_ffn(lp, cfg, x, live)
+    b = moe.dropless_ffn(lp, cfg, noisy, live)
     assert torch.equal(a[live], b[live])
     assert (a[~live] == 0).all() and (b[~live] == 0).all()
     n = int(live.sum())
-    assert stats[0] == 2 * cfg.experts_per_token * n and stats[2] == 2
+    assert routed == [cfg.experts_per_token * n] * 2
     # the live tokens alone, as one batch
     alone = moe.dropless_ffn(lp, cfg, x[live][None])
     torch.testing.assert_close(a[live], alone[0], atol=FFN_TOL, rtol=0)
@@ -154,7 +182,10 @@ def test_prefill_paged_tails_change_no_logit():
 
 @pytest.mark.parametrize("sharing", [False, True])
 def test_chunk_lane_widths_equal_the_full_lane(sharing, monkeypatch):
+    routed = _route_recorder(monkeypatch)
     got, sched = cw._serve(ARCH, sharing)
+    pairs = {name: sum(n) for name, n in routed.items()}
+    routed.clear()
     widths = {w for rt in (sched.srt, sched.lrt)
               for w in rt.chunk_width_ticks}
     assert {1, 2} <= widths, widths
@@ -166,17 +197,18 @@ def test_chunk_lane_widths_equal_the_full_lane(sharing, monkeypatch):
                        (sched.lrt, ref_sched.lrt)):
         assert rt.lane_ticks == ref_rt.lane_ticks
         assert rt.chunk_tokens == ref_rt.chunk_tokens
-        # the same live tokens routed whatever the lane's width
-        assert (rt.moe_pairs, rt.moe_experts_hit, rt.moe_calls) == \
-            (ref_rt.moe_pairs, ref_rt.moe_experts_hit, ref_rt.moe_calls)
+    # the same live tokens routed whatever the lane's width, in each tier
+    assert len(pairs) == 2 and all(pairs.values())
+    assert {name: sum(n) for name, n in routed.items()} == pairs
 
 
-def test_counters_equal_a_host_recount(monkeypatch):
-    """Every routed pass is recorded on the host: its tier's config and
-    its live tokens (from the ``live`` mask the scheduler built); every
-    grouped call the experts its pairs hit.  The tiers' counters, read
-    from the tick's one fetch, equal the sums: k pairs a live token in
-    every layer."""
+def test_routed_pairs_equal_the_live_tokens(monkeypatch):
+    """Every routed pass is recorded on the host: its tier's config, its
+    live tokens (from the ``live`` mask the scheduler built) and each
+    ``route_pairs`` call's routed pairs and the experts the live tokens'
+    top k name; every grouped call the experts its runs hit.  Each pass
+    routes k pairs a live token in every layer, and each grouped call hits
+    the experts its route named."""
     passes, calls, fetches = [], [], []
     real_fetch = engine_mod._host_fetch
     monkeypatch.setattr(engine_mod, "_host_fetch",
@@ -185,24 +217,29 @@ def test_counters_equal_a_host_recount(monkeypatch):
                  "forward_chunk_paged"):
         def wrapped(params, cfg, *args, _real=getattr(model_zoo, name),
                     **kw):
-            passes.append((cfg.name, int(kw["live"].sum())))
+            passes.append((cfg, int(kw["live"].sum()), []))
             return _real(params, cfg, *args, **kw)
         monkeypatch.setattr(model_zoo, name, wrapped)
-    real = ops.grouped_swiglu
+    real_route, real_grouped = ops.route_pairs, ops.grouped_swiglu
 
-    def recorded(x, pairs, offsets, wg, *rest):
-        calls.append((tuple(wg.shape),
-                      int((offsets[1:] > offsets[:-1]).sum())))
-        return real(x, pairs, offsets, wg, *rest)
-    monkeypatch.setattr(ops, "grouped_swiglu", recorded)
+    def routed(logits, k, live=None):
+        gate, pairs, offsets = real_route(logits, k, live)
+        named = torch.topk(logits if live is None else logits[live], k)
+        passes[-1][2].append((int(offsets[-1]),
+                              int(named.indices.unique().numel())))
+        return gate, pairs, offsets
+
+    def grouped(x, pairs, offsets, *rest):
+        calls.append(int((offsets[1:] > offsets[:-1]).sum()))
+        return real_grouped(x, pairs, offsets, *rest)
+    monkeypatch.setattr(ops, "route_pairs", routed)
+    monkeypatch.setattr(ops, "grouped_swiglu", grouped)
     _, sched = cw._serve(ARCH, sharing=True)
     assert len(fetches) == sched.counters.ticks > 0
-    for rt in (sched.srt, sched.lrt):
-        cfg = rt.pool.cfg
-        live = [n for name, n in passes if name == cfg.name]
-        hits = [h for shape, h in calls
-                if shape == (cfg.num_experts, cfg.d_model, cfg.d_ff_expert)]
-        assert rt.moe_calls == cfg.num_layers * len(live) == len(hits) > 0
-        assert rt.moe_pairs == \
-            cfg.experts_per_token * cfg.num_layers * sum(live) > 0
-        assert rt.moe_experts_hit == sum(hits)
+    assert {cfg.name for cfg, _, _ in passes} == {
+        rt.pool.cfg.name for rt in (sched.srt, sched.lrt)}
+    for cfg, live, routes in passes:
+        assert [n for n, _ in routes] == \
+            [cfg.experts_per_token * live] * cfg.num_layers
+    named = [hit for _, _, routes in passes for _, hit in routes]
+    assert calls == named and sum(named) > 0
