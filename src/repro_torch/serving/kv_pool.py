@@ -29,7 +29,14 @@ the top of the tick, before prefill); ``write_block`` masks every
 non-exclusive page to the null page for the decode append, so a violated
 invariant drops the write instead of corrupting another request.
 
-Eviction is LRU over index entries; pages referenced by live slots never
+Chunked prompts.  A prompt that the chunk lane feeds over several ticks
+registers nothing at admission: ``register_written`` indexes each full
+prompt page once a tick has written it, visible from the next tick, so a
+slot released mid-prompt leaves only pages that hold their K/V.
+
+Eviction is LRU over index entries, kept as a heap of (used, kind, hash)
+that each use pushes to, so an eviction pops the least recently used
+entries instead of sorting the index; pages referenced by live slots never
 move.  Page 0 is the null page: freed block-table rows and idle slots point
 at it and no positional mask ever exposes it.
 
@@ -45,8 +52,9 @@ reports 32.
 """
 from __future__ import annotations
 
+import heapq
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -154,9 +162,14 @@ class KVPool:
         self._page_index: Dict[bytes, _PageEntry] = {}
         self._full_index: Dict[bytes, _FullEntry] = {}
         self._row_free: List[int] = list(range(prefix_entries - 1, -1, -1))
+        # both indexes' LRU order: (used, kind, hash), kind 0 a page entry
+        # and 1 a full entry, pushed at each use; an item whose entry is
+        # gone or was used again since is stale, dropped when it surfaces
+        self._lru: List[Tuple[int, int, bytes]] = []
+        # ``chunk_registered``: pages the chunk lane indexed as it wrote them
         self.stats: Dict[str, int] = {
             "hits": 0, "full_hits": 0, "tokens_saved": 0, "cow_copies": 0,
-            "evictions": 0}
+            "evictions": 0, "chunk_registered": 0}
 
     # -- allocator ----------------------------------------------------------
 
@@ -314,36 +327,71 @@ class KVPool:
         Entries whose pages are still slot-referenced release only the index
         pin (the pages stay with their slots).  PENDING entries (registered
         this tick, device write still in flight) are never evicted — their
-        prefix-cache row would be double-booked mid-dispatch."""
-        if len(self._free) >= need:
-            return True
-        # merged LRU over both index kinds, least-recently-used first
-        cand: List[Tuple[int, int, Any]] = []
-        for h, e in self._page_index.items():
-            if tick is None or e.ready <= tick:
-                cand.append((e.used, 0, h))
-        for h, e in self._full_index.items():
-            if tick is None or e.ready <= tick:
-                cand.append((e.used, 1, h))
-        cand.sort()
-        for _, kind, h in cand:
-            if len(self._free) >= need:
-                break
+        prefix-cache row would be double-booked mid-dispatch.  Entries are
+        taken in (used, kind, hash) order, least recently used first; the
+        ones skipped go back on the heap."""
+        skipped = set()
+        while len(self._free) < need and self._lru:
+            item = heapq.heappop(self._lru)
+            used, kind, h = item
+            e = (self._full_index if kind else self._page_index).get(h)
+            if e is None or e.used != used or item in skipped:
+                continue                        # stale
             # only evict entries that can contribute pages: an entry whose
             # every page is still slot-referenced frees nothing — dropping it
             # would wipe retention without making progress (the slots, not
             # the index, are what's holding the pool)
-            if kind == 0:
-                if self._slot_refs[self._page_index[h].page] > 0:
-                    continue
-                self._drop_page_entry(h)
-            else:
-                if all(self._slot_refs[p] > 0
-                       for p in self._full_index[h].pages):
-                    continue
+            if (tick is not None and e.ready > tick) or all(
+                    self._slot_refs[p] > 0
+                    for p in (e.pages if kind else (e.page,))):
+                skipped.add(item)
+                continue
+            if kind:
                 self._drop_full_entry(h)
+            else:
+                self._drop_page_entry(h)
             self.stats["evictions"] += 1
+        for item in skipped:
+            heapq.heappush(self._lru, item)
         return len(self._free) >= need
+
+    def _stamp(self, kind: int, h: bytes, e, tick: int) -> None:
+        """Mark index entry ``e`` (``kind`` 0 page, 1 full) used at
+        ``tick``."""
+        if e.used != tick:                  # else its item is on the heap
+            e.used = tick
+            self._push(kind, h, e)
+
+    def _push(self, kind: int, h: bytes, e) -> None:
+        """Put ``e``'s (used, kind, hash) on the LRU heap; the heap is
+        rebuilt from the live entries once stale items outnumber them."""
+        heapq.heappush(self._lru, (e.used, kind, h))
+        live = len(self._page_index) + len(self._full_index)
+        if len(self._lru) > 2 * live + 64:
+            self._lru = [(x.used, 0, k) for k, x in self._page_index.items()]
+            self._lru += [(x.used, 1, k) for k, x in self._full_index.items()]
+            heapq.heapify(self._lru)
+
+    def _index_page(self, h: bytes, page: int, ready: int, tick: int) -> None:
+        """Retain ``page`` in the page index under ``h``."""
+        self._refs[page] += 1
+        self._page_index[h] = _PageEntry(page, ready=ready, used=tick)
+        self._push(0, h, self._page_index[h])
+
+    def register_written(self, slot: int, page_hashes: Sequence[bytes],
+                         bucket: int, fed: int, written: int,
+                         tick: int) -> None:
+        """Index the full prompt pages (``i < bucket // page_size``, the
+        admit lane's rule) that ``slot``'s chunk-lane row completed by
+        writing the prompt positions [``fed``, ``written``); hashes already
+        indexed are skipped.  ``tick`` is the one after the tick that wrote
+        them, the first whose lookups may alias them."""
+        page = self.page_size
+        for i in range(fed // page, min(written // page, bucket // page)):
+            if page_hashes[i] not in self._page_index:
+                self._index_page(page_hashes[i], int(self.block[slot, i]),
+                                 ready=tick, tick=tick)
+                self.stats["chunk_registered"] += 1
 
     def _unref(self, page: int) -> None:
         self._refs[page] -= 1
@@ -370,7 +418,7 @@ class KVPool:
         admit lane must produce last-position logits for a partial hit."""
         fe = self._full_index.get(full_hash)
         if fe is not None and fe.ready <= tick and fe.bucket == bucket:
-            fe.used = tick
+            self._stamp(1, full_hash, fe, tick)
             return fe, list(fe.pages)
         max_pages = ((bucket - 1) // self.page_size if self.partial_prefix
                      else 0)
@@ -379,7 +427,7 @@ class KVPool:
             e = self._page_index.get(h)
             if e is None or e.ready > tick:
                 break
-            e.used = tick
+            self._stamp(0, h, e, tick)
             pages.append(e.page)
         return None, pages
 
@@ -395,7 +443,8 @@ class KVPool:
         ``register=False`` (chunked-prefill admission): the prompt's pages
         fill over SEVERAL ticks, so neither the page index nor a full-prompt
         entry may advertise them at ``tick + 1`` — the admission still READS
-        cached prefixes (aliasing, ``plan.start``) but retains nothing."""
+        cached prefixes (aliasing, ``plan.start``) but retains nothing; the
+        chunk lane indexes each page once written (``register_written``)."""
         if not 0 <= slot < self.num_slots:
             raise ValueError(f"slot {slot} out of range (0..{self.num_slots - 1})")
         if slot in self._slot_pages:
@@ -458,9 +507,8 @@ class KVPool:
                 p = self._pop_page(slot)
                 row.append(p)
                 if i < n_full and page_hashes[i] not in self._page_index:
-                    self._refs[p] += 1
-                    self._page_index[page_hashes[i]] = \
-                        _PageEntry(p, ready=tick + 1, used=tick)
+                    self._index_page(page_hashes[i], p, ready=tick + 1,
+                                     tick=tick)
             if register:
                 plan.save_row = self._reserve_full_entry(
                     full_hash, row, bucket, tick)
@@ -499,7 +547,9 @@ class KVPool:
             return -1
         if not self._row_free:
             # evict the least-recently-used NON-PENDING full entry to
-            # recycle its row (a pending row has a device write in flight)
+            # recycle its row (a pending row has a device write in flight);
+            # ties in ``used`` go to the oldest entry, not to the heap's
+            # hash order, and the scan covers ``prefix_entries`` rows
             cand = [kv for kv in self._full_index.items()
                     if kv[1].ready <= tick]
             if not cand:
@@ -514,6 +564,7 @@ class KVPool:
         self._full_index[full_hash] = _FullEntry(
             row=r, pages=list(pages), bucket=bucket, ready=tick + 1,
             used=tick)
+        self._push(1, full_hash, self._full_index[full_hash])
         return r
 
     def write_block(self) -> np.ndarray:

@@ -15,7 +15,10 @@ this order:
    their next C tokens; a slot that consumes its last chunk samples token 0
    and joins decode in the same tick.  The pass runs only the lane's first
    ``chunk_lane_width`` rows, which hold its live ones, unless the family's
-   rows interact (``model_zoo.independent_rows``);
+   rows interact (``model_zoo.independent_rows``).  With prefix sharing a
+   chunked prompt starts at its cached prefix and stays on this lane
+   however short the rest, and the full prompt pages each tick writes
+   enter the page index for the next tick's admissions;
 4. **decode lane**: ``decode_block`` decode steps for every decoding slot at
    per-slot positions; in speculative mode this is the S tier's DRAFT,
    with a copy of the recurrent rows after every step;
@@ -624,6 +627,10 @@ class _TierRuntime:
         self.chunk_positions = 0
         self.chunk_width_ticks: Dict[int, int] = {}
         self.independent_rows = model_zoo.independent_rows(cfg)
+        # the chunk lane indexes the prompt pages it writes where partial
+        # prefixes are shared (not in the paired speculative admission)
+        self.registers = (self.sharing and self.pool.partial_prefix
+                          and not spec)
 
     @property
     def busy(self) -> int:
@@ -641,9 +648,12 @@ class _TierRuntime:
         ``None`` if no capacity this tick (callers MUST test ``is None`` —
         slot 0 is falsy).  With sharing, the pool aliases the longest cached
         prefix and the returned plan carries start / restore / save / COW
-        decisions.  With ``chunk_size`` set, a prompt whose uncached
-        remainder exceeds one chunk skips the admit lane: its pages are
-        claimed now and its tokens flow through the chunk lane C per tick."""
+        decisions.  With ``chunk_size`` set, a prompt longer than one chunk
+        skips the admit lane unless it restores whole: its pages are claimed
+        now and its tokens from ``plan.start`` on flow through the chunk
+        lane C per tick.  (Under sharing the admit lane's pass is (A,
+        ``max_prompt_len``) wide, so a short remainder there would cost far
+        more than its chunk.)"""
         slot = self.free_slot()
         # decode writes reach bucket + steps - 2, plus <= K-1 overrun steps
         context = adm.bucket + max(steps - 1, 1) + (decode_block - 1)
@@ -681,7 +691,7 @@ class _TierRuntime:
                             if adm.request.temperature > 0
                             else self.default_temp)
         self.last_tok[slot] = 0                # replaced on-device by tok0
-        if chunked and adm.bucket - plan.start > self.chunk_size:
+        if chunked:
             self.chunk_fed[slot] = plan.start
             self.chunk_left[slot] = adm.bucket - plan.start
         else:
@@ -1719,8 +1729,15 @@ class ContinuousScheduler:
     def _absorb_chunk(self, rt: _TierRuntime, out, emit: bool) -> None:
         """Advance the tick's scheduled chunk-prefill rows; finishing rows
         emit their chunk-sampled token 0 where ``emit`` (the S tier; the
-        paired L tier in speculative mode only advances)."""
+        paired L tier in speculative mode only advances).  Where the tier
+        shares partial prefixes, the full prompt pages a row completed enter
+        the page index, visible from the next tick."""
         for row, (slot, keep, fin) in enumerate(rt.chunk_sched):
+            if rt.registers:
+                adm = rt.slot_req[slot].adm
+                fed = int(rt.chunk_fed[slot])
+                rt.pool.register_written(slot, adm.page_hashes, adm.bucket,
+                                         fed, fed + keep, self.counters.ticks)
             rt.chunk_fed[slot] += keep
             rt.chunk_left[slot] -= keep
             if self.tel is not None:

@@ -54,6 +54,7 @@ from repro_torch.serving import engine as engine_mod
 from repro_torch.serving.batcher import Request, pad_to_bucket
 from repro_torch.serving.engine import HIEngine, TierModel, build_engine
 from repro_torch.serving.faults import STATUSES, FaultSchedule
+from repro_torch.serving.kv_pool import KVPool
 
 import torch
 
@@ -165,20 +166,43 @@ def trace_engines(request):
     return name, make(jcfg), kw, jeng, teng
 
 
+def _prefix_stats(eng):
+    """An engine's cumulative prefix-cache counters over both tiers."""
+    return eng._stream[1].prefix_stats if eng._stream else {}
+
+
 def test_serve_stream_matches_reference(trace_engines):
     """At theta 0.6 (every request escalates) and then at the reference's
     median S confidence (about half do), on the same engines: the second
-    call finds both packages' prefix caches warm."""
+    call finds both packages' prefix caches warm.  A third engine on the
+    port's tiers indexes prompt pages as the reference does (its chunk lane
+    none) and is held to the reference's tick fields and prefix counters
+    exactly; the port as it runs saves the same or more, the extra only
+    from the chunk lane's pages, and where it does admits and escalates
+    each request no later."""
     name, jreqs, kw, jeng, teng = trace_engines
     buckets = kw["buckets"]
     cache_len = max(buckets) + teng.max_new_tokens
     compared = same = 0
     th = 0.6
+    # the same tiers with the reference's page indexing: its chunk lane
+    # indexes none of the prompt pages it writes
+    reng = HIEngine(teng.s, teng.l, teng.hi,
+                    max_new_tokens=teng.max_new_tokens)
     for _ in range(2):
         jeng.hi = dataclasses.replace(jeng.hi, theta=th)
         teng.hi = dataclasses.replace(teng.hi, theta=th)
+        reng.hi = teng.hi
+        engs = (jeng, teng, reng)
+        stats0 = [dict(_prefix_stats(e)) for e in engs]
         jout = jeng.serve_stream(jreqs, **kw)
         tout = teng.serve_stream(_to_port(jreqs), validate=True, **kw)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(KVPool, "register_written", lambda *a, **k: None)
+            rout = reng.serve_stream(_to_port(jreqs), validate=True, **kw)
+        j_st, t_st, r_st = ({k: _prefix_stats(e)[k] - s0.get(k, 0)
+                             for k in _prefix_stats(e)}
+                            for e, s0 in zip(engs, stats0))
         assert set(tout) == set(jout) == {r.request_id for r in jreqs}
         sched = teng._stream[1]
         assert sched.srt.pool.held_slots == sched.lrt.pool.held_slots == []
@@ -206,11 +230,32 @@ def test_serve_stream_matches_reference(trace_engines):
                                           j["tokens"], t["tokens"], cache_len)
             else:
                 np.testing.assert_array_equal(t["tokens"], t["s_tokens"])
+        # with the reference's indexing the port saves what it saves; as
+        # it runs, it differs only through the pages its chunk lane indexed
+        # (which also compete with full entries for the pool), and saves
+        # no fewer prompt tokens
+        assert r_st["chunk_registered"] == 0
+        for key in ("hits", "full_hits", "tokens_saved"):
+            assert r_st[key] == j_st[key], key
+            if t_st["chunk_registered"] == 0:
+                assert t_st[key] == j_st[key], key
+        assert t_st["tokens_saved"] >= j_st["tokens_saved"]
+        extra = t_st["tokens_saved"] > j_st["tokens_saved"]
         if all_decided:
             for rid in jout:
+                j, t = jout[rid], tout[rid]
                 for key in ("queue_wait_ticks", "esc_created_tick",
                             "escalation_retries", "dropped"):
-                    assert tout[rid][key] == jout[rid][key], (rid, key)
+                    assert rout[rid][key] == j[key], (rid, key)
+                    if not extra or key in ("escalation_retries", "dropped"):
+                        assert t[key] == j[key], (rid, key)
+                if extra:
+                    # the chunk lane's pages end the S prompt sooner: each
+                    # request escalates, and its L tier admits it, no later
+                    assert t["esc_created_tick"] <= j["esc_created_tick"], rid
+                    assert (t["esc_created_tick"] + t["queue_wait_ticks"]
+                            <= j["esc_created_tick"] + j["queue_wait_ticks"]
+                            ), rid
         th = float(np.median([rec["confidence"] for rec in jout.values()]))
     assert compared > 0 and same > 0
     if name == "repeated_prefix":
